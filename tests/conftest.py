@@ -8,3 +8,9 @@ if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
         flags + " --xla_force_host_platform_device_count=8"
     ).strip()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips where CUDA is absent"
+    )
