@@ -2,7 +2,8 @@
 `cozo_tpu/ops/pallas_sweep.py`), the `compute_dtype="fused"` serving lane.
 
 The kernel is `csrc/fused_sweep.cu`, hand-written CUDA for Hopper
-(sm_90a); it replaces the Pallas TPU kernel `_kernel` / `_fused_fn`
+(sm_90a: TMA loads, `wgmma` products, the top-2 on the accumulator
+registers); it replaces the Pallas TPU kernel `_kernel` / `_fused_fn`
 (`pallas_sweep.py:65-161`).  It scores a bf16 query batch against the
 whole flat bf16 table with f32 accumulation, adds the per-row bias, packs
 each column's position within its 256-column segment into the low 8
@@ -17,7 +18,11 @@ a -inf bias with id bits OR'd into its mantissa is a NaN.
 
 Unlike the TPU kernel, the CUDA kernel has no shape restriction beyond
 d_pad % 16 == 0 and n_total % 256 == 0 (every `_chunking` table meets
-the second), and it takes any batch size.
+the second), and it takes any batch size.  The source holds two routes,
+chosen by `route` from the shape alone: `resident` (d_pad <= 128: two
+table segments stay in shared memory, query tiles stream past them) and
+`kloop` (wider rows: a K-loop over a ring of query and table chunks).
+`work_split` mirrors how each route's persistent grid divides the work.
 
 `fused_sweep` launches the kernel for CUDA tensors and runs the plain
 PyTorch version `fused_sweep_plain` (same arithmetic) for CPU tensors.
@@ -95,12 +100,46 @@ def fused_sweep_plain(qs: torch.Tensor, tbl: torch.Tensor,
     return out
 
 
+# The routes' tiling, as in csrc/fused_sweep.cu.
+ROUTES = ("resident", "kloop")
+RESIDENT_MAX_D = 128   # widest row whose two segments fit in shared memory
+Q_TILE = {"resident": 64, "kloop": 128}   # query rows per work unit
+SEG_GROUP = {"resident": 2, "kloop": 1}   # table segments per work unit
+
+
+def route(B: int, n_total: int, d_pad: int) -> str:
+    """The kernel route for a shape `_check` accepts: a function of the
+    shape alone (in fact of d_pad alone)."""
+    return "resident" if d_pad <= RESIDENT_MAX_D else "kloop"
+
+
+def work_split(B: int, n_total: int, d_pad: int, n_sm: int):
+    """How the route's persistent grid divides the sweep, as the launcher
+    and the kernel compute it: the (segment group, query tile) units,
+    group-major, are cut into `grid = min(n_sm, units)` contiguous ranges
+    of equal length (to within one), one per block.  Returns
+    (route, n_qt, ranges) with ranges[b] = (u_begin, u_end); unit u covers
+    query tile u % n_qt and the segments
+    [(u // n_qt) * g, min((u // n_qt + 1) * g, n_seg)), g = SEG_GROUP."""
+    r = route(B, n_total, d_pad)
+    n_seg = n_total // SEG
+    n_qt = -(-B // Q_TILE[r])
+    units = -(-n_seg // SEG_GROUP[r]) * n_qt
+    grid = min(n_sm, units)
+    return r, n_qt, [(units * b // grid, units * (b + 1) // grid)
+                     for b in range(grid)]
+
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_sweep")
-    fn = lib.cozo_fused_sweep
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for r in ROUTES:
+        fn = getattr(lib, "cozo_fused_sweep_" + r)
+        if fn.argtypes is None:
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -108,8 +147,9 @@ def fused_sweep(qs: torch.Tensor, tbl: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
     """qs [B, d_pad] bf16, tbl [n_total, d_pad] bf16, bias [n_total] f32
     -> packed [B, 2 * n_total / SEG] f32.  CUDA tensors launch the kernel
-    on the current stream (and count the launch in
-    `fused_sweep.launches`); CPU tensors run `fused_sweep_plain`."""
+    route that `route` names on the current stream (and count the launch
+    in `fused_sweep.launches` and `fused_sweep.route_launches`); CPU
+    tensors run `fused_sweep_plain`."""
     _check(qs, tbl, bias)
     if qs.device.type == "cpu":
         return fused_sweep_plain(qs, tbl, bias)
@@ -120,21 +160,24 @@ def fused_sweep(qs: torch.Tensor, tbl: torch.Tensor,
             raise ValueError("fused_sweep: inputs must be 16-byte aligned")
     B, d_pad = qs.shape
     n_total = tbl.shape[0]
+    r = route(B, n_total, d_pad)
     lib = _lib()
     out = torch.empty((B, 2 * (n_total // SEG)), dtype=torch.float32,
                       device=qs.device)
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream(qs.device).cuda_stream
-        err = lib.cozo_fused_sweep(
+        err = getattr(lib, "cozo_fused_sweep_" + r)(
             qs.data_ptr(), tbl.data_ptr(), bias.data_ptr(), out.data_ptr(),
             B, n_total, d_pad, stream,
         )
-    _build.check(lib, err, "fused_sweep launch")
+    _build.check(lib, err, f"fused_sweep launch ({r})")
     fused_sweep.launches += 1
+    fused_sweep.route_launches[r] += 1
     return out
 
 
 fused_sweep.launches = 0
+fused_sweep.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def serve(tbl_flat: torch.Tensor, bias_flat: torch.Tensor,
