@@ -8,9 +8,12 @@ log on (`COZO_TPU_BUILD_LOG=1`: dispatch, wait for the device result,
 host links, host upper levels), then serves one 16,384-query batch per
 lane under `torch.profiler` and prints, per lane, the wall time, the
 summed device time of its kernels and copies, and the top kernels by
-device time.  Last it names the fused lane's host time: the steps of
+device time.  Then it names the fused lane's host time: the steps of
 `SweepTable.search` re-enacted one by one on the same batch, with the
-device drained after each, and each step's share of their sum.
+device drained after each, and each step's share of their sum (the query
+preparation runs on the device; the numpy form it replaced is timed
+beside it).  Last, one small-batch
+`HnswIndex.search` through the beam-search kernel under the profiler.
 Needs CUDA; it measures, it checks nothing (chip_smoke.py checks).
 """
 
@@ -33,14 +36,15 @@ def fused_lane_steps(index, qs, reps=5):
     import torch
 
     from cozo_tpu_torch.ops import fused_sweep as fs
-    from cozo_tpu_torch.utils.device import to_device
+    from cozo_tpu_torch.utils.device import prepare_queries, to_device
 
     st = index._sweep_table
     d, n = index.dim, index.n
-    names = ("query normalise + f16 cast (numpy)",
-             "pinned upload (pin_memory + copy)",
+    names = ("pinned f32 upload (pin_memory + copy)",
+             "device: query preparation (normalise, f16 round, pad)",
              "device: kernel, top-k, decode, re-rank",
-             "download (.cpu().numpy())", "unpack ids / distances (numpy)")
+             "download (.cpu().numpy())", "unpack ids / distances (numpy)",
+             "[replaced, not in the lane] numpy normalise + f16 cast")
     rounds = []
     for _ in range(reps + 1):
         t = [time.perf_counter()]
@@ -50,14 +54,12 @@ def fused_lane_steps(index, qs, reps=5):
             t.append(time.perf_counter())
 
         q = np.asarray(qs, dtype=np.float32)
-        qp = np.empty((q.shape[0], d), dtype=np.float16)
-        nrm = np.linalg.norm(q, axis=1, keepdims=True)
-        qp[:] = q / np.where(nrm > 0, nrm, 1.0)
+        q_dev = to_device(np.ascontiguousarray(q), st.device)
         lap()
-        q_dev = to_device(qp, st.device)
+        prepared = prepare_queries(q_dev, index.distance, st.d_pad, half=True)
         lap()
-        packed_d = fs.serve(st.tbl_fused, st.bias_fused, st.tbl, q_dev, K,
-                            K + 16, index.distance, d, st.d_pad)
+        packed_d = fs.serve(st.tbl_fused, st.bias_fused, st.tbl, prepared, K,
+                            K + 16, index.distance, 0, st.d_pad)
         lap()
         packed = packed_d.cpu().numpy()
         lap()
@@ -69,20 +71,74 @@ def fused_lane_steps(index, qs, reps=5):
         ids = np.where(bad, -1, ids)
         dists = np.where(bad, np.inf, 1.0 - scores)
         lap()
+        qp = np.empty((q.shape[0], d), dtype=np.float16)
+        nrm = np.linalg.norm(q, axis=1, keepdims=True)
+        qp[:] = q / np.where(nrm > 0, nrm, 1.0)
+        lap()
         rounds.append(np.diff(t) * 1e3)
     med = np.median(np.array(rounds[1:]), axis=0)
+    total = med[:-1].sum()  # the last entry is not a step of the lane
     print(f"fused lane, steps of one {len(qs)}-query batch (median of "
-          f"{reps}, device drained after each): sum {med.sum():.2f} ms",
+          f"{reps}, device drained after each): sum {total:.2f} ms",
           flush=True)
     for name, ms in zip(names, med):
-        print(f"  {ms:8.2f} ms {100 * ms / med.sum():5.1f}%  {name}",
+        print(f"  {ms:8.2f} ms {100 * ms / total:5.1f}%  {name}",
               flush=True)
     return ids, dists
+
+
+def beam_recall_curve(index, qs, nq=252):
+    """recall@10 of the graph search against the exact f32 lane on `nq`
+    queries, the host search (`use_tpu=False`) beside the beam-search
+    kernel (batches of 63 through `HnswIndex.search`), over ef; and the
+    kernel again with the iteration cap lifted, which shows what the cap
+    of ceil(beam / expand) + 8 rounds costs."""
+    import torch
+
+    from cozo_tpu_torch import sweep_search
+    from cozo_tpu_torch.ops import vector_search as vs
+
+    def rec(ids, gt):
+        return float(np.mean([len(set(ids[b].tolist()) & set(gt[b].tolist()))
+                              / K for b in range(len(gt))]))
+
+    q = qs[:nq]
+    gt, _ = sweep_search(index, q, K, rt=1.0, compute_dtype="f32",
+                         exact_rerank=False)
+    dev = vs._device_arrays(index)
+    for ef in (64, 128, 256, 512):
+        t0 = time.perf_counter()
+        ids_h, _ = index.search(q, K, ef, use_tpu=False)
+        host_ms = (time.perf_counter() - t0) * 1e3 / nq
+        t0 = time.perf_counter()
+        ids_d = np.concatenate([index.search(q[b:b + 63], K, ef)[0]
+                                for b in range(0, nq, 63)])
+        dev_ms = (time.perf_counter() - t0) * 1e3 / -(-nq // 63)
+        rounds = vs.beam_search.last_stats[:, 1].float().mean().item()
+        beam = vs.beam_params(K, ef)[0]
+        q_dev = torch.from_numpy(np.ascontiguousarray(q, dtype=np.float32)).to(
+            dev["vectors"].device)
+        ids_u = np.concatenate([
+            vs.beam_search(dev["vectors"], dev["nb0"], dev["up_nb"],
+                           dev["alive"], dev["entry"], q_dev[b:b + 63], K,
+                           beam, dev["n_levels"],
+                           vs.DIST_KINDS[index.distance], 100_000, 8)[0]
+            .cpu().numpy() for b in range(0, nq, 63)])
+        rounds_u = vs.beam_search.last_stats[:, 1].float().mean().item()
+        print(f"graph search ef={ef}, {nq} queries: host recall@10 "
+              f"{rec(ids_h, gt):.4f} ({host_ms:.2f} ms per query); kernel "
+              f"{rec(ids_d, gt):.4f} ({dev_ms:.3f} ms per 63-query call, "
+              f"{rounds:.1f} rounds per query in the last batch); kernel "
+              f"without the iteration cap {rec(ids_u, gt):.4f} "
+              f"({rounds_u:.1f} rounds)", flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=N)
+    ap.add_argument("--beam-only", action="store_true",
+                    help="after the build, only the graph-search recall "
+                         "curve (host search beside the kernel)")
     args = ap.parse_args()
 
     import torch
@@ -105,16 +161,23 @@ def main():
     torch.cuda.synchronize()
     print(f"build {args.n} rows: {time.time() - t0:.1f}s", flush=True)
 
-    for tag, cd, rerank in (("fused+rerank", "fused", True),
-                            ("bf16+rerank", "bf16", True),
-                            ("bf16-raw", "bf16", False),
-                            ("f32", "f32", False)):
-        sweep_search(index, qs, K, compute_dtype=cd, exact_rerank=rerank)
+    if args.beam_only:
+        beam_recall_curve(index, qs)
+        return 0
+
+    for tag, cd, rerank, rk in (("fused+rerank", "fused", True, None),
+                                ("bf16+rerank", "bf16", True, None),
+                                ("bf16-raw", "bf16", False, None),
+                                ("i8+rerank", "i8", True, 64),
+                                ("f32", "f32", False, None)):
+        sweep_search(index, qs, K, compute_dtype=cd, exact_rerank=rerank,
+                     rerank_k=rk)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
-            sweep_search(index, qs, K, compute_dtype=cd, exact_rerank=rerank)
+            sweep_search(index, qs, K, compute_dtype=cd, exact_rerank=rerank,
+                         rerank_k=rk)
             wall_ms = (time.time() - t0) * 1e3
         # device-side events only (kernels, copies): the host ops that
         # launched them report the same device time again
@@ -136,6 +199,30 @@ def main():
         walls.append((time.perf_counter() - t0) * 1e3)
     print(f"fused lane, `sweep_search` itself on that batch: median "
           f"{np.median(walls):.2f} ms, min {min(walls):.2f} ms", flush=True)
+    # one small batch through the dispatcher: the beam-search kernel
+    index.search(qs[:16], K, 64)  # uploads the mirror
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        index.search(qs[:16], K, 64)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"HnswIndex.search B=16 (beam search): wall {wall_ms:.3f} ms under "
+          f"the profiler, device busy {dev_ms:.3f} ms", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]:
+        print(f"  {e.self_device_time_total / 1e3:9.4f} ms x{e.count:<4d} "
+              f"{e.key[:90]}", flush=True)
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        index.search(qs[:16], K, 64)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"HnswIndex.search B=16 without the profiler: median "
+          f"{np.median(walls):.3f} ms, min {min(walls):.3f} ms", flush=True)
+    beam_recall_curve(index, qs)
     subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"], check=False)
     return 0

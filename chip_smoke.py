@@ -7,27 +7,44 @@ Phases, each reported on its own line; any failure exits non-zero:
   1. build every kernel under cozo_tpu_torch/csrc/ (one nvcc per source,
      all started together) and print the build seconds and what ptxas
      says of registers, spills and shared memory;
-  2. hold every route of each kernel against its plain PyTorch version on
-     the card at small shapes that reach each route and edge (B = 1, a
-     ragged last query tile, one segment, an odd number of segments,
-     d_pad 16 / 48 / 64 / 128 / 144 / 256 / 768, an all-dead segment):
-     the ids carried in the packed output agree on >= 99.9% of entries,
-     no dead row is live, and two runs of a shape are bit-identical;
+  2. hold every kernel against its plain PyTorch version on the card.
+     `fused_sweep`: every route at small shapes that reach each route and
+     edge (B = 1, a ragged last query tile, one segment, an odd number of
+     segments, d_pad 16 / 48 / 64 / 128 / 144 / 256 / 768, an all-dead
+     segment): the ids carried in the packed output agree on >= 99.9% of
+     entries, no dead row is live, two runs of a shape are bit-identical.
+     `beam_search`: small built indexes covering L2 / IP / Cosine, B = 1,
+     a flat index, d not a multiple of 32, d = 768, removed rows, beam 8,
+     64 and 2048 (the largest sort the kernel takes):
+     ids equal on >= 99% of (query, rank) entries, distances within 1e-4
+     where ids match, no dead row returned, two runs identical;
   3. drive the main path through the user entry points: `glove_like`
      data (seed 42), `HnswIndex.bulk_build` (device build), then
      `sweep_search` with the f32 lane as ground truth and the fused,
-     bf16+rerank and raw bf16 lanes at B=16,384 (one warm call, 5 timed
-     reps each), holding each lane's recall@10 to its bar; the kernel
-     launch counts are zeroed just before and read just after;
-  4. time each route at its shape (the main-path shape for the route the
-     main path takes) with CUDA events, beside its bound, its plain
-     version and a one-call PyTorch yardstick;
+     bf16+rerank, raw bf16 and i8+rerank lanes at B=16,384 (one warm call
+     and `--reps` timed reps for the fused lane, 3 for the others),
+     holding each lane's recall@10 to its bar; then `HnswIndex.search`
+     alone: the quant lane (the f32 budget lowered for that call), small
+     batches (B = 16, 1, 4, 63) through the beam-search kernel with
+     recall beside the host search's and latency per call, and the device
+     mirror's incremental update after inserts and removals.  Each
+     kernel's launch count is zeroed just before its path and read just
+     after;
+  3b. the quant lane at its own width: a 768-wide cosine table of
+     2,097,152 rows (cut from the JAX package's 10M-row configuration),
+     `QuantSweepTable.load` + `quant_search`, recall against
+     `brute_force_knn`;
+  3c. the int8 build: 262,144 x 100 rows with the budget lowered, against
+     the f32 build of the same rows;
+  4. time each kernel at its shape (the main-path shape for the routes the
+     main path takes) with CUDA events, beside its bound and its plain
+     version, and the fused routes beside a one-call PyTorch yardstick;
   5. print the kernels' JSON line, the card's name and power limit, and
      as the last line {"ok": true, "device": {...}}.
 
-`--kernels-only` skips phase 3 and times the main path's route on a random
-table of the main-path shape: a quick check of the kernels alone, which
-prints no `{"ok": ...}` line.
+`--kernels-only` skips phases 3-3c and times the fused main-path route on a
+random table of the main-path shape: a quick check of the kernels alone,
+which prints no `{"ok": ...}` line.
 """
 
 import argparse
@@ -44,7 +61,12 @@ N, D, NQ, K = 1_183_514, 100, 16_384, 10
 MIN_N = 262_144  # more than one 131,072-row chunk
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
-BARS = {"fused+rerank": 0.999, "bf16+rerank": 0.999, "bf16-raw": 0.962}
+PEAK_F32 = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores
+BARS = {"fused+rerank": 0.999, "bf16+rerank": 0.999, "bf16-raw": 0.962,
+        "i8+rerank": 0.998, "quant": 0.98}
+OTHER_LANE_REPS = 3  # timed reps of the lanes beside the fused one
+QUANT_N, QUANT_D, QUANT_NQ, QUANT_GT = 2_097_152, 768, 4096, 1024
+I8_BUILD_N = 262_144
 
 
 def say(msg):
@@ -177,6 +199,105 @@ def phase_kernel_vs_plain(dev):
         raise SystemExit(f"phase 2 failed: routes reached {sorted(reached)}")
 
 
+# (distance, n, d, m, B, ef, k, flat, removed rows): every metric and edge
+BEAM_CASES = (
+    ("L2", 6000, 100, 16, 16, 64, 10, False, 0),
+    ("IP", 5000, 24, 8, 1, 64, 10, False, 0),        # B = 1
+    ("Cosine", 5000, 37, 8, 8, 64, 10, False, 60),   # d % 32 != 0, removals
+    ("L2", 5000, 16, 8, 5, 8, 3, True, 0),           # flat index, beam 8
+    ("Cosine", 8000, 100, 16, 63, 64, 10, False, 100),
+    ("IP", 5000, 48, 4, 7, 8, 5, True, 25),
+    ("Cosine", 5000, 768, 8, 3, 64, 10, False, 0),   # wide rows
+    # beam 2048: a sort of 4096 keys, shared memory past the 48 KB default
+    ("IP", 5000, 32, 8, 2, 2048, 10, False, 30),
+)
+
+
+def beam_args(index, qs_np, k, ef, expand=8):
+    """The kernel's arguments as `hnsw_search_device` makes them."""
+    import torch
+
+    from cozo_tpu_torch.ops import vector_search as vs
+
+    dev = vs._device_arrays(index)
+    beam, max_iters, expand = vs.beam_params(k, ef, expand)
+    q = torch.from_numpy(np.ascontiguousarray(qs_np, dtype=np.float32)).to(
+        dev["vectors"].device)
+    return (dev["vectors"], dev["nb0"], dev["up_nb"], dev["alive"],
+            dev["entry"], q, k, beam, dev["n_levels"],
+            vs.DIST_KINDS[index.distance], max_iters, expand)
+
+
+def beam_case(distance, n, d, m, B, ef, k, flat, removed):
+    """A small built index and B queries near its rows, for one entry of
+    BEAM_CASES."""
+    from cozo_tpu_torch import HnswIndex
+
+    rng = np.random.default_rng(n + d + B)
+    data = rng.standard_normal((n, d)).astype(np.float32)
+    index = HnswIndex(dim=d, m=m, ef_construction=50, distance=distance)
+    index.bulk_build(data, wave=2048)
+    for s in range(0, 3 * removed, 3):
+        index.remove(s)
+    if flat:  # the same points without upper levels
+        index.neighbors = index.neighbors[:1]
+        index.levels[:n] = np.minimum(index.levels[:n], 0)
+        index.version += 1
+    qs = data[rng.integers(0, n, B)] + \
+        0.1 * rng.standard_normal((B, d)).astype(np.float32)
+    return index, qs
+
+
+def compare_beam(out_k, out_p, alive):
+    """Agreement of the kernel's (ids, dists) with the plain version's."""
+    import torch
+
+    ik, dk = out_k
+    ip, dp = out_p
+    same = ik == ip
+    both = same & torch.isfinite(dk) & torch.isfinite(dp)
+    err = float((dk - dp)[both].abs().max()) if bool(both.any()) else 0.0
+    dead_hits = int((~alive[ik.clamp(min=0).long()] & (ik >= 0)).sum())
+    return {"ids": float(same.float().mean()),
+            "rows_exact": float(same.all(1).float().mean()),
+            "err": err, "dead_hits": dead_hits,
+            "inf_equal": bool(torch.equal(torch.isinf(dk), torch.isinf(dp)))}
+
+
+def beam_ok(c):
+    return (c["ids"] >= 0.99 and c["err"] <= 1e-4 and c["dead_hits"] == 0
+            and c["inf_equal"])
+
+
+def phase_beam_vs_plain():
+    import torch
+
+    from cozo_tpu_torch.ops import vector_search as vs
+
+    for case in BEAM_CASES:
+        distance, n, d, m, B, ef, k, flat, removed = case
+        index, qs = beam_case(*case)
+        args = beam_args(index, qs, k, ef)
+        before = vs.beam_search.launches
+        out_k = vs.beam_search(*args)
+        out_again = vs.beam_search(*args)
+        stats = vs.beam_search.last_stats.sum(0).tolist()
+        out_p = vs.beam_search_plain(*args)
+        torch.cuda.synchronize()
+        counted = vs.beam_search.launches - before
+        same_twice = all(torch.equal(a, b) for a, b in zip(out_k, out_again))
+        c = compare_beam(out_k, out_p, args[3])
+        say(f"phase 2 beam_search vs plain {distance} n={n} d={d} m={m} "
+            f"levels={args[8]} B={B} beam={args[7]} k={k} removed={removed}: "
+            f"ids {c['ids']:.6f} rows exact {c['rows_exact']:.4f} "
+            f"max_abs_err {c['err']:.3e} dead_hits {c['dead_hits']} "
+            f"two runs identical {same_twice} (descent steps, rounds, rows, "
+            f"lists: {stats})")
+        if not (beam_ok(c) and same_twice and counted == 2
+                and (args[8] == 0) == flat):
+            raise SystemExit("phase 2 failed: beam_search disagrees with plain")
+
+
 def recall(ids, gt):
     return float(np.mean([
         len(set(ids[b].tolist()) & set(gt[b].tolist())) / K
@@ -217,26 +338,33 @@ def phase_main(n, reps):
         raise SystemExit("phase 3 failed: f32 lane returned bad rows")
 
     lanes = {}
-    for tag, cd, rt, rerank in (("fused+rerank", "fused", 1.0, True),
-                                ("bf16+rerank", "bf16", 0.98, True),
-                                ("bf16-raw", "bf16", 0.99, False)):
+    # the int8 lane re-ranks 64 candidates, as the JAX package's bench
+    # does: int8 rank noise needs the wider overfetch
+    for tag, cd, rt, rerank, rk in (
+            ("fused+rerank", "fused", 1.0, True, None),
+            ("bf16+rerank", "bf16", 0.98, True, None),
+            ("bf16-raw", "bf16", 0.99, False, None),
+            ("i8+rerank", "i8", 0.98, True, 64)):
+        torch.cuda.reset_peak_memory_stats()
         sweep_search(index, qs, K, rt=rt, compute_dtype=cd,
-                     exact_rerank=rerank)  # warm
+                     exact_rerank=rerank, rerank_k=rk)  # warm
         per_rep = []
-        for _ in range(reps):
+        for _ in range(reps if cd == "fused" else OTHER_LANE_REPS):
             t0 = time.time()
             ids, dists = sweep_search(index, qs, K, rt=rt, compute_dtype=cd,
-                                      exact_rerank=rerank)
+                                      exact_rerank=rerank, rerank_k=rk)
             per_rep.append(NQ / (time.time() - t0))
         r = recall(ids, gt)
         ok = (ids.shape == (NQ, K) and np.isfinite(dists[ids >= 0]).all()
               and r >= BARS[tag])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         lanes[tag] = {"qps_median": float(np.median(per_rep)),
                       "qps_min": float(min(per_rep)), "per_rep_qps": per_rep,
-                      "recall@10": r}
+                      "recall@10": r, "peak_device_gb": peak_gb}
         say(f"phase 3 lane {tag}: median {np.median(per_rep):.1f} QPS "
-            f"min {min(per_rep):.1f} recall@10 {r:.4f} "
-            f"(bar {BARS[tag]}) {'ok' if ok else 'FAIL'}")
+            f"min {min(per_rep):.1f} recall@10 {r:.5f} "
+            f"(bar {BARS[tag]}) peak device memory {peak_gb:.2f} GB "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"phase 3 failed: lane {tag}")
     launches = dict(fs.fused_sweep.route_launches)
@@ -246,9 +374,225 @@ def phase_main(n, reps):
     if launches[main_route] < 1 or \
             sum(launches.values()) != fs.fused_sweep.launches:
         raise SystemExit("phase 3 failed: fused_sweep never launched")
+    lanes["quant"] = phase_quant_dispatch(index, qs, gt)
+    beam = phase_beam_main(index, qs, gt)
+    launches["beam_search"] = beam["launches"]
     say("phase 3 summary " + json.dumps(
-        {"n": n, "nq": NQ, "build_s": build_s, "lanes": lanes}))
-    return index, qs, launches
+        {"n": n, "nq": NQ, "build_s": build_s, "lanes": lanes,
+         "beam_search": beam}))
+    return index, qs, data, launches
+
+
+def phase_quant_dispatch(index, qs, gt):
+    """The quant lane through `HnswIndex.search`, the f32 budget lowered
+    for these calls only so that the table counts as past it."""
+    from cozo_tpu_torch.ops.quant_knn import quant_search
+
+    os.environ["COZO_TPU_F32_TABLE_MAX"] = "1"
+    try:
+        t0 = time.time()
+        index.search(qs, K, 64)  # first use: quantises and loads the table
+        load_s = time.time() - t0
+        qps, scan_s, rerank_s = [], [], []
+        for _ in range(OTHER_LANE_REPS):
+            t0 = time.time()
+            ids, dists = index.search(qs, K, 64)
+            qps.append(NQ / (time.time() - t0))
+            scan_s.append(quant_search.last_timing[0])
+            rerank_s.append(quant_search.last_timing[1])
+    finally:
+        del os.environ["COZO_TPU_F32_TABLE_MAX"]
+    r = recall(ids, gt)
+    ok = (index._quant_sweep is not None and ids.shape == (NQ, K)
+          and np.isfinite(dists[ids >= 0]).all() and r >= BARS["quant"])
+    say(f"phase 3 lane quant (HnswIndex.search past the budget): median "
+        f"{np.median(qps):.1f} QPS min {min(qps):.1f} (device scan + pull "
+        f"{np.median(scan_s):.3f}s, host re-rank {np.median(rerank_s):.3f}s; "
+        f"first call with the table load {load_s:.2f}s) recall@10 {r:.5f} "
+        f"(bar {BARS['quant']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 3 failed: lane quant")
+    return {"qps_median": float(np.median(qps)), "qps_min": float(min(qps)),
+            "scan_s": float(np.median(scan_s)),
+            "rerank_s": float(np.median(rerank_s)), "load_s": load_s,
+            "recall@10": r}
+
+
+def phase_beam_main(index, qs, gt):
+    """Small batches through `HnswIndex.search`: the beam-search kernel on
+    the full index, beside the host search; then the mirror's incremental
+    update."""
+    from cozo_tpu_torch.ops import vector_search as vs
+
+    nb = 252  # four batches of 63: the bar is held on paired queries
+    t0 = time.time()
+    ids_h, _ = index.search(qs[:nb], K, 64, use_tpu=False)
+    host_s = time.time() - t0
+    r_host = recall(ids_h, gt[:nb])
+    say(f"phase 3 host search (use_tpu=False, {nb} queries, ef=64): "
+        f"recall@10 {r_host:.4f}, {host_s / nb * 1e3:.2f} ms per query")
+    vs.beam_search.launches = 0  # counts of this path only
+    out = {"host_recall@10": r_host, "per_batch": {}}
+    t0 = time.time()
+    index.search(qs[:16], K, 64)
+    say(f"phase 3 beam search: first call (mirror upload) "
+        f"{time.time() - t0:.2f}s")
+    for B in (16, 1, 4, 63):
+        before = vs.beam_search.launches
+        lat = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            # below B = 4 the default rule takes the host search
+            ids, dists = index.search(qs[:B], K, 64,
+                                      use_tpu=True if B < 4 else None)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        counted = vs.beam_search.launches - before
+        r, r_h = recall(ids, gt[:B]), recall(ids_h[:B], gt[:B])
+        ok = (counted == 20 and ids.shape == (B, K)
+              and np.isfinite(dists[ids >= 0]).all())
+        out["per_batch"][B] = {"recall@10": r, "host_recall@10": r_h,
+                               "ms_median": float(np.median(lat)),
+                               "ms_min": float(min(lat)), "launches": counted}
+        say(f"phase 3 beam search B={B}: search(k=10, ef=64) median "
+            f"{np.median(lat):.3f} ms min {min(lat):.3f} ms per call, "
+            f"recall@10 {r:.4f} (host search on the same queries {r_h:.4f}), "
+            f"kernel launches {counted} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase 3 failed: beam search at B={B}")
+    ids_d = np.concatenate([index.search(qs[b:b + 63], K, 64)[0]
+                            for b in range(0, nb, 63)])
+    r_dev = recall(ids_d, gt[:nb])
+    out["recall@10"] = r_dev
+    ok = r_dev >= r_host - 0.02
+    say(f"phase 3 beam search on the host search's {nb} queries (4 calls of "
+        f"B=63): recall@10 {r_dev:.4f} against the host search's "
+        f"{r_host:.4f} (bar: at most 0.02 lower) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 3 failed: beam search recall")
+    # a few inserts and removals: the mirror takes the incremental route
+    cache = index._dev_cache
+    vectors_before = cache["vectors"]
+    new = [index.insert(qs[100 + i]) for i in range(4)]
+    gone = [int(s) for s in gt[:4, 0]]
+    for s in gone:
+        index.remove(s)
+    ids_inc, d_inc = index.search(qs[:16], K, 64)
+    in_place = (index._dev_cache is cache
+                and cache["vectors"] is vectors_before
+                and cache["version"] == index.version
+                and not index.dev_pending)
+    rows_match = (
+        np.array_equal(cache["vectors"][new].cpu().numpy(), index.vectors[new])
+        and np.array_equal(cache["nb0"][new].cpu().numpy(),
+                           index.neighbors[0][new])
+        and bool(cache["alive"][new].all())
+        and not bool(cache["alive"][gone].any()))
+    index._dev_cache = None  # a full re-push must answer alike
+    ids_full, d_full = index.search(qs[:16], K, 64)
+    same = (np.array_equal(ids_inc, ids_full)
+            and np.array_equal(d_inc, d_full))
+    ok = (in_place and rows_match and same
+          and not np.isin(ids_inc, gone).any())
+    say(f"phase 3 beam search after 4 inserts and 4 removals: mirror updated "
+        f"in place {in_place}, its rows equal the host's {rows_match}, "
+        f"removed rows absent {not np.isin(ids_inc, gone).any()}, same "
+        f"answer as a full re-push {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 3 failed: incremental mirror update")
+    out["launches"] = vs.beam_search.launches
+    if out["launches"] < 1:
+        raise SystemExit("phase 3 failed: beam_search never launched")
+    say(f"phase 3 beam_search launches on the main path: {out['launches']}")
+    return out
+
+
+def phase_quant_wide():
+    """Phase 3b: the quant lane at its own width."""
+    import torch
+
+    from cozo_tpu_torch.ops.quant_knn import QuantSweepTable, quant_search
+    from cozo_tpu_torch.ops.vector_search import brute_force_knn
+    from cozo_tpu_torch.utils.datasets import glove_like
+
+    say(f"quant cut: {QUANT_N:,} rows instead of 10,000,000")
+    t0 = time.time()
+    data = glove_like(QUANT_N + QUANT_NQ, QUANT_D, seed=43)
+    qs, data = data[QUANT_N:], data[:QUANT_N]
+    say(f"phase 3b datagen {QUANT_N} + {QUANT_NQ} x {QUANT_D} in "
+        f"{time.time() - t0:.1f}s")
+    t0 = time.time()
+    table = QuantSweepTable().load(data, "Cosine")
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    quant_search(data, table, qs, K)  # warm
+    qps = []
+    for _ in range(OTHER_LANE_REPS):
+        t0 = time.time()
+        ids, dists = quant_search(data, table, qs, K)
+        qps.append(QUANT_NQ / (time.time() - t0))
+    scan_s, rerank_s = quant_search.last_timing
+    norms = np.concatenate([
+        np.einsum("nd,nd->n", blk, blk) for blk in np.array_split(data, 16)])
+    gt = np.concatenate([
+        brute_force_knn(data, norms, qs[b0:b0 + 512], K, "Cosine")[0]
+        for b0 in range(0, QUANT_GT, 512)])
+    torch.cuda.empty_cache()
+    r = recall(ids[:QUANT_GT], gt)
+    ok = (ids.shape == (QUANT_NQ, K) and np.isfinite(dists).all()
+          and (np.diff(dists, axis=1) >= -1e-6).all() and r >= BARS["quant"])
+    say(f"phase 3b quant lane {QUANT_N} x {QUANT_D} cosine (int8 table "
+        f"{table.tbl.numel() / 1e9:.2f} GB on the device, load {load_s:.1f}s): "
+        f"B={QUANT_NQ} median {np.median(qps):.1f} QPS min {min(qps):.1f} "
+        f"(last rep: device scan + pull {scan_s:.3f}s, host re-rank "
+        f"{rerank_s:.3f}s) recall@10 {r:.5f} on {QUANT_GT} queries against "
+        f"brute_force_knn (bar {BARS['quant']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 3b failed: quant lane")
+
+
+def phase_i8_build(data, qs):
+    """Phase 3c: the int8 build against the f32 build of the same rows."""
+    import torch
+
+    from cozo_tpu_torch import HnswIndex
+    from cozo_tpu_torch.ops.vector_search import brute_force_knn
+
+    rows, q = data[:I8_BUILD_N], qs[:256]
+    norms = np.einsum("nd,nd->n", rows, rows, dtype=np.float64)
+    gt, _ = brute_force_knn(rows, norms, q, K, "Cosine")
+    res = {}
+    for mode, budget in (("i8", "1"), ("f32", None)):
+        if budget:
+            os.environ["COZO_TPU_F32_TABLE_MAX"] = budget
+        try:
+            t0 = time.time()
+            index = HnswIndex(dim=D, m=16, ef_construction=200,
+                              distance="Cosine")
+            index.bulk_build(rows, wave=8192)
+            torch.cuda.synchronize()
+            build_s = time.time() - t0
+            served = None
+            if mode == "i8":  # the build's table serves, through the dispatcher
+                qt = index._quant_sweep
+                ids_s, _ = index.search(qs[:256], K, 64)
+                gt_s, _ = brute_force_knn(rows, norms, qs[:256], K, "Cosine")
+                served = (qt is not None and index._quant_sweep is qt
+                          and index._quant_sweep_version == index.version
+                          and index._sweep_table is None
+                          and recall(ids_s, gt_s) > 0.95)
+        finally:
+            os.environ.pop("COZO_TPU_F32_TABLE_MAX", None)
+        ids_h, _ = index.search(q, K, 64, use_tpu=False)
+        res[mode] = (recall(ids_h, gt), build_s, served)
+        say(f"phase 3c {mode} build of {I8_BUILD_N} x {D}: {build_s:.1f}s, host "
+            f"search recall@10 {res[mode][0]:.4f} against exact"
+            + (f", QuantSweepTable installed and serving {served}"
+               if mode == "i8" else ""))
+    ok = res["i8"][0] >= res["f32"][0] - 0.01 and res["i8"][2] is True
+    say(f"phase 3c i8 graph at most 0.01 below the f32 graph: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 3c failed: int8 build")
 
 
 def time_route(qb, tbl, bias, launches, reps, what):
@@ -329,6 +673,74 @@ def synthetic_main_shape(dev):
     return qb, tbl, bias
 
 
+def time_beam(index, qs, launches):
+    """Phase 4 for `beam_search` on the full index at B = 16 and B = 63:
+    agreement, the kernel's and the plain version's time, and the bound
+    from the run's own counters.  Returns its entry of the `kernels` line
+    (the B = 16 numbers; B = 63 beside them)."""
+    import torch
+
+    from cozo_tpu_torch.ops import vector_search as vs
+
+    trip_ms = vs.memory_round_trip_ms()
+    say(f"phase 4 one dependent device-memory load: {trip_ms * 1e6:.0f} ns")
+    shapes = {}
+    for B in (16, 63):
+        args = beam_args(index, qs[:B], K, 64)
+        vectors, nb0, up_nb = args[0], args[1], args[2]
+        d, m0, m_up = vectors.shape[1], nb0.shape[1], up_nb.shape[2]
+        out_k = vs.beam_search(*args)
+        stats = vs.beam_search.last_stats.cpu().numpy().astype(np.int64)
+        out_again = vs.beam_search(*args)
+        out_p = vs.beam_search_plain(*args)
+        same_twice = all(torch.equal(a, b) for a, b in zip(out_k, out_again))
+        c = compare_beam(out_k, out_p, args[3])
+        if not (beam_ok(c) and same_twice):
+            raise SystemExit("phase 4 failed: beam_search disagrees with plain")
+        ms = cuda_ms(lambda: vs.beam_search(*args), 20)
+        plain_ms = cuda_ms(lambda: vs.beam_search_plain(*args), 2)
+        steps, rounds, rows, lists = stats.sum(0).tolist()
+        # bytes this run's data needs: the rows scored, the neighbour lists
+        # read (upper-level lists are m_up wide), queries in, results out
+        nbytes = (rows * d * 4 + (lists - steps) * m0 * 4 + steps * m_up * 4
+                  + B * d * 4 + B * K * 8)
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = 4.0 * rows * d / PEAK_F32 * 1e3
+        bound = max(t_bytes, t_ops)
+        # beside it: the longest query's chain of dependent rounds, each at
+        # least one trip for its lists and one for its rows
+        chain = int((stats[:, 0] + stats[:, 1]).max())
+        chain_ms = 2 * chain * trip_ms
+        say(f"phase 4 beam_search B={B} (n_pad={vectors.shape[0]} d={d} "
+            f"m0={m0} beam={args[7]} expand={args[11]}): {ms:.4f} ms, plain "
+            f"{plain_ms:.2f} ms; ids {c['ids']:.6f} rows exact "
+            f"{c['rows_exact']:.4f} max_abs_err {c['err']:.3e}; descent steps "
+            f"{steps} rounds {rounds} rows {rows} lists {lists}; bound "
+            f"{bound:.5f} ms (bytes {t_bytes:.5f}, operations {t_ops:.5f}); "
+            f"chain of {chain} dependent rounds x 2 trips = {chain_ms:.4f} ms "
+            f"({'the chain' if chain_ms > bound else 'the bound'} is larger)")
+        shapes[B] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "chain_ms": chain_ms, "max_abs_err": c["err"],
+                     "ids_agree": c["ids"], "rows": rows, "rounds": rounds,
+                     "descent_steps": steps}
+    main = shapes[16]
+    return {
+        "name": "beam_search", "route": "cuda",
+        "source": "cozo_tpu_torch/csrc/beam_search.cu",
+        "replaces": "cozo_tpu/ops/vector_search.py:81",
+        "launches": launches["beam_search"],
+        "max_abs_err": main["max_abs_err"], "ids_agree": main["ids_agree"],
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this function
+        "chain_ms": main["chain_ms"], "memory_round_trip_ms": trip_ms,
+        "shape": {"B": 16, "n_pad": int(index._dev_cache["n_pad"]), "d": D,
+                  "beam": 64, "expand": 8, "k": K},
+        "B63": shapes[63],
+    }
+
+
 def phase_kernel_timing(main_inputs, launches, reps, dev):
     kernels = [time_route(*main_inputs, launches, reps, "the main-path shape")]
     B, n_total, d_pad, dead = PHASE2_SHAPES[-1]
@@ -365,6 +777,7 @@ def main():
     t_all = time.time()
     phase_build()
     phase_kernel_vs_plain(dev)
+    phase_beam_vs_plain()
     if args.kernels_only:
         from cozo_tpu_torch.ops import fused_sweep as fs
 
@@ -372,9 +785,16 @@ def main():
         main_inputs = synthetic_main_shape(dev)
         launches = dict.fromkeys(fs.ROUTES, 0)
     else:
-        index, qs, launches = phase_main(args.n, args.reps)
+        index, qs, data, launches = phase_main(args.n, args.reps)
         main_inputs = main_path_inputs(index, qs)
     kernels = phase_kernel_timing(main_inputs, launches, args.reps, dev)
+    if not args.kernels_only:
+        kernels.append(time_beam(index, qs, launches))
+        del main_inputs, index
+        torch.cuda.empty_cache()
+        phase_i8_build(data, qs)
+        del data
+        phase_quant_wide()
     say(f"total {time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

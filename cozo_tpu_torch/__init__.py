@@ -2,11 +2,14 @@
 
 This package imports PyTorch and numpy, never JAX and nothing of
 `cozo_tpu`.  It mirrors the JAX package's layout and names.  So far it
-carries the vector-serving path: `HnswIndex` (host graph code, device
-bulk build) and `sweep_search` (the chunked sweep with its f32, bf16 and
-fused lanes; the fused lane is the hand-written CUDA kernel
-`csrc/fused_sweep.cu`).  Device entry points run on the card unless the
-caller passes device="cpu".
+carries the vector index: `HnswIndex` (host graph code, device bulk build
+on an f32 or int8 table, and every dispatch of `search` but the
+`COZO_TPU_MESH` mesh sweep: the chunked sweep, the int8 quant lane past
+the f32 budget, the device beam search for small batches) and
+`sweep_search` (the chunked sweep with its f32, bf16, i8 and fused
+lanes).  Two hand-written CUDA kernels: `csrc/fused_sweep.cu` (the fused
+lane) and `csrc/beam_search.cu` (the batched HNSW search).  Device entry
+points run on the card unless the caller passes device="cpu".
 
 The `Db` chain (parser, planner, evaluation, storage) is a later slice.
 """

@@ -30,6 +30,30 @@ DIST_L2 = "L2"
 DIST_IP = "IP"
 DIST_COSINE = "Cosine"
 
+# Largest f32 sweep table (rows x d_pad x 4 bytes = T) that `search` and
+# `bulk_build` keep on the device; past it they take the int8 table
+# (ops/quant_knn.py, `_build_step_i8`).  Sized for one 80 GB card (79.6 GiB
+# usable) on which everything one index can hold there is resident at once:
+#   the f32 table                                              T
+#   its bf16 copy (fused lane) and int8 copy (i8 lane)         T/2 + T/4
+#   the beam search's mirror: f32 rows padded to a power of    <= 2 T
+#     two (up to twice the rows), unpadded width
+#   the mirror's neighbour lists, (m0 + levels x m) x 4 bytes  <= 1.75 T
+#     a row (448 at m = 16 with 5 upper levels) on up to twice
+#     the rows: as large as the rows themselves at d_pad = 128
+#   one batch's score slabs at B = 16,384: [B, 131,072] f32 is
+#     8 GiB, and the i8 lane holds its int32 products, their
+#     f32 rescale and the bf16 slab together                   20 GiB
+#   `torch.topk`'s workspace over a slab (allowed one more)    8 GiB
+# 5.5 T + 28 GiB <= 79.6 GiB gives T <= 9.3 GiB: the JAX package's 8 GiB
+# stays, now for this sum and not for a 16 GB device.  The environment
+# variable COZO_TPU_F32_TABLE_MAX overrides it.
+F32_TABLE_MAX = 8 << 30
+
+
+def f32_table_budget() -> int:
+    return int(os.environ.get("COZO_TPU_F32_TABLE_MAX", F32_TABLE_MAX))
+
 
 class HnswIndex:
     def __init__(
@@ -78,6 +102,11 @@ class HnswIndex:
         self.sweep_pending: set = set()
         # device serving table (ops/exact_knn.SweepTable), made on first use
         self._sweep_table = None
+        # int8 serving table past the f32 budget (ops/quant_knn)
+        self._quant_sweep = None
+        self._quant_sweep_version = -1
+        # device mirror for the beam search (ops/vector_search)
+        self._dev_cache = None
 
     # ------------------------------------------------------------------ state
 
@@ -444,27 +473,34 @@ class HnswIndex:
                 "item: mesh sharding via torch.distributed)"
             )
         if use_tpu:
+            # past the f32 budget: the int8-quantized sweep + host f32
+            # re-rank (ops/quant_knn.py)
             d_pad = max(128, -(-self.dim // 128) * 128)
-            f32_bytes = int(self.n) * d_pad * 4
-            budget = int(os.environ.get("COZO_TPU_F32_TABLE_MAX", 8 << 30))
-            if f32_bytes > budget:
-                raise NotImplementedError(
-                    "the int8 quant lane (f32 table past "
-                    "COZO_TPU_F32_TABLE_MAX) is not ported yet (ROADMAP port "
-                    "item: quant lane + i8 build)"
+            if int(self.n) * d_pad * 4 > f32_table_budget():
+                from ..ops.quant_knn import QuantSweepTable, quant_search
+
+                qt = self._quant_sweep
+                if qt is None or self._quant_sweep_version != self.version:
+                    qt = QuantSweepTable(self.device).load(
+                        self.vectors[: self.n], self.distance,
+                        alive=self.alive[: self.n],
+                    )
+                    self._quant_sweep = qt
+                    self._quant_sweep_version = self.version
+                return quant_search(
+                    self.vectors, qt, qs, k, sq_norms=self.norms
                 )
             # Large query batches (or single-chunk tables): the chunked
             # sweep (ops/exact_knn.py).  Small batches on big tables take
-            # the device beam search in the JAX package.
+            # the beam-search kernel (reads O(B·beam·m) rows, not the
+            # table).
             if B >= 64 or self.n <= 131_072:
                 from ..ops.exact_knn import sweep_search
 
                 return sweep_search(self, qs, k)
-            raise NotImplementedError(
-                "device beam search for B < 64 on tables past 131,072 rows "
-                "is not ported yet (ROADMAP port item: device beam search); "
-                "pass use_tpu=False for the host search"
-            )
+            from ..ops.vector_search import hnsw_search_device
+
+            return hnsw_search_device(self, qs, k, ef)
         out_ids = np.full((B, k), -1, dtype=np.int64)
         out_d = np.full((B, k), np.inf)
         top = int(self.levels[self.entry])

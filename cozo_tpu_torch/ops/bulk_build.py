@@ -32,8 +32,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..utils.device import default_device, mm_bf16, PendingPull, to_device
-from .exact_knn import SweepTable, _chunking
+from ..utils.device import (default_device, mm_bf16, PendingPull,
+                            quantize_i8, to_device)
+from .exact_knn import merge_chunks, SweepTable, _chunking
 
 
 def _select(tbl: torch.Tensor, bias: torch.Tensor, pool_ids: torch.Tensor,
@@ -52,6 +53,14 @@ def _select(tbl: torch.Tensor, bias: torch.Tensor, pool_ids: torch.Tensor,
     safe = safe.long()
     rows = flat[safe]  # [W, P, d_pad]
     b = bflat[safe]  # [W, P]
+    return _dominance(rows, b, pool_ids, pool_d, mmax, metric)
+
+
+def _dominance(rows: torch.Tensor, b: torch.Tensor, pool_ids: torch.Tensor,
+               pool_d: torch.Tensor, mmax: int, metric: str) -> torch.Tensor:
+    """The selection scan on gathered candidate rows [W, P, d_pad] f32 and
+    their biases [W, P]: pairwise candidate distances from one batched
+    product, then the sequential dominance loop over P."""
     dots = torch.bmm(rows, rows.transpose(1, 2))
     if metric == "L2":
         pair = -b[:, :, None] - b[:, None, :] - dots * 0.5
@@ -59,15 +68,38 @@ def _select(tbl: torch.Tensor, bias: torch.Tensor, pool_ids: torch.Tensor,
         pair = 1.0 - dots
     valid = (pool_ids >= 0) & torch.isfinite(pool_d)
     W, P = pool_ids.shape
-    dominated = torch.zeros((W, P), dtype=torch.bool, device=tbl.device)
-    count = torch.zeros((W,), dtype=torch.int32, device=tbl.device)
-    sel = torch.zeros((W, P), dtype=torch.bool, device=tbl.device)
+    dominated = torch.zeros((W, P), dtype=torch.bool, device=rows.device)
+    count = torch.zeros((W,), dtype=torch.int32, device=rows.device)
+    sel = torch.zeros((W, P), dtype=torch.bool, device=rows.device)
     for i in range(P):
         can = (~dominated[:, i]) & (count < mmax) & valid[:, i]
         sel[:, i] = can
         count += can.to(torch.int32)
         dominated |= can[:, None] & (pair[:, i, :] < pool_d)
     return sel
+
+
+def _pool(nds, nis, slots: torch.Tensor, P: int, qn, metric: str):
+    """The wave's candidate pool from the per-chunk top-(P+1): merge, mask
+    self-matches, keep the top P; distances from the scores (L2 with the
+    wave's squared norms `qn`)."""
+    scores, ids = merge_chunks(nds, nis, P + 1)
+    scores = torch.where(ids == slots[:, None],
+                         torch.full_like(scores, -math.inf), scores)
+    scores, ti = torch.topk(scores, P)
+    pool_ids = torch.gather(ids, 1, ti)
+    pool_d = qn - scores if metric == "L2" else 1.0 - scores
+    pool_d = torch.where(torch.isfinite(scores), pool_d,
+                         torch.full_like(pool_d, math.inf))
+    return pool_ids, pool_d
+
+
+def _pack(pool_ids, pool_d, sel) -> torch.Tensor:
+    return torch.cat(
+        [pool_ids.to(torch.int32), pool_d.float().view(torch.int32),
+         sel.to(torch.int32)],
+        dim=1,
+    )
 
 
 def _build_step(tbl: torch.Tensor, bias: torch.Tensor, new_rows: torch.Tensor,
@@ -94,31 +126,57 @@ def _build_step(tbl: torch.Tensor, bias: torch.Tensor, new_rows: torch.Tensor,
         del s  # free the [W, chunk] slab before the next chunk's
         nds.append(nd)
         nis.append(ni + c * chunk)
-    alld = torch.cat(nds, dim=1)
-    alli = torch.cat(nis, dim=1)
-    if alld.shape[1] == P + 1:
-        scores, ids = alld, alli
-    else:
-        scores, sel_t = torch.topk(alld, P + 1)
-        ids = torch.gather(alli, 1, sel_t)
-    # mask self-matches, keep top P
-    scores = torch.where(ids == slots[:, None],
-                         torch.full_like(scores, -math.inf), scores)
-    scores, ti = torch.topk(scores, P)
-    pool_ids = torch.gather(ids, 1, ti)
-    if metric == "L2":
-        qn = torch.sum(qs * qs, dim=1, keepdim=True)
-        pool_d = qn - scores
-    else:
-        pool_d = 1.0 - scores
-    pool_d = torch.where(torch.isfinite(scores), pool_d,
-                         torch.full_like(pool_d, math.inf))
+    qn = torch.sum(qs * qs, dim=1, keepdim=True) if metric == "L2" else None
+    pool_ids, pool_d = _pool(nds, nis, slots, P, qn, metric)
     sel = _select(tbl, bias, pool_ids, pool_d, mmax, metric)
-    return torch.cat(
-        [pool_ids.to(torch.int32), pool_d.float().view(torch.int32),
-         sel.to(torch.int32)],
-        dim=1,
-    )
+    return _pack(pool_ids, pool_d, sel)
+
+
+def _build_step_i8(tbl_i8: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, new_rows: torch.Tensor,
+                   new_bias: torch.Tensor, slots: torch.Tensor, P: int,
+                   mmax: int, metric: str) -> torch.Tensor:
+    """int8 variant of `_build_step` for tables past the f32 budget
+    (counterpart of `_build_step_fn_i8`; COZO_TPU_F32_TABLE_MAX).
+
+    Rows are quantized ON DEVICE per wave (max-abs per-row scale, the
+    `ops/quant_knn.py` scheme) and scattered in place; queries stay exact —
+    asymmetric scoring:
+        score = (q_bf16 . row_i8) * scale_row + bias_row
+    The candidate-pool distances and the selection heuristic's pairwise
+    distances (from rows dequantised in bf16, as the JAX step does) carry
+    quantization noise, which neighbor selection tolerates (serving
+    corrects final ranks by exact re-rank anyway)."""
+    n_chunks, chunk, d_pad = tbl_i8.shape
+    q_i8, sc = quantize_i8(new_rows, reciprocal=True)
+    tbl_i8.view(-1, d_pad).index_put_((slots,), q_i8)
+    scale.view(-1).index_put_(
+        (slots,), torch.where(torch.isfinite(new_bias), sc,
+                              torch.zeros_like(sc)))
+    bias.view(-1).index_put_((slots,), new_bias)
+    qs = new_rows * 0.5 if metric == "L2" else new_rows
+
+    nds, nis = [], []
+    for c in range(n_chunks):
+        s = mm_bf16(qs, tbl_i8[c])
+        s *= scale[c][None, :]
+        s += bias[c][None, :]
+        nd, ni = torch.topk(s, P + 1)
+        del s
+        nds.append(nd)
+        nis.append(ni + c * chunk)
+    qn = (torch.sum(new_rows * new_rows, dim=1, keepdim=True) * 0.25
+          if metric == "L2" else None)
+    pool_ids, pool_d = _pool(nds, nis, slots, P, qn, metric)
+
+    # pairwise candidate distances from rows dequantised in bf16
+    safe = torch.where(pool_ids >= 0, pool_ids, torch.zeros_like(pool_ids))
+    safe = safe.long()
+    rows = (tbl_i8.view(-1, d_pad)[safe].to(torch.bfloat16)
+            * scale.view(-1)[safe][..., None].to(torch.bfloat16)).float()
+    sel = _dominance(rows, bias.view(-1)[safe], pool_ids, pool_d, mmax,
+                     metric)
+    return _pack(pool_ids, pool_d, sel)
 
 
 def bulk_build_device(index, data: np.ndarray, wave: int = 4096,
@@ -140,21 +198,27 @@ def bulk_build_device(index, data: np.ndarray, wave: int = 4096,
     index._grow(n_new)
     chunk, n_chunks = _chunking(n_new)
     d_pad = max(128, int(math.ceil(index.dim / 128) * 128))
-    # past the f32 budget the JAX build runs on an int8 table
-    budget = int(os.environ.get("COZO_TPU_F32_TABLE_MAX", 8 << 30))
-    if n_chunks * chunk * d_pad * 4 > budget:
-        raise NotImplementedError(
-            "int8 bulk build (f32 table past COZO_TPU_F32_TABLE_MAX) is not "
-            "ported yet (ROADMAP port item: quant lane + i8 build)"
-        )
-    st = SweepTable(dev)
-    st.reserve = n_new
-    index._sweep_table = st
-    st.chunk, st.n_chunks, st.d_pad = chunk, n_chunks, d_pad
-    st.tbl = torch.zeros((n_chunks, chunk, d_pad), dtype=torch.float32,
-                         device=dev)
-    st.bias = torch.full((n_chunks, chunk), -math.inf, dtype=torch.float32,
-                         device=dev)
+    # past the f32 budget the build runs on an int8 table
+    # (quantize-on-device, asymmetric scoring — see _build_step_i8)
+    from ..models.hnsw_index import f32_table_budget
+
+    use_i8 = n_chunks * chunk * d_pad * 4 > f32_table_budget()
+    st = None
+    tbl_bias = torch.full((n_chunks, chunk), -math.inf, dtype=torch.float32,
+                          device=dev)
+    if use_i8:
+        tbl_i8 = torch.zeros((n_chunks, chunk, d_pad), dtype=torch.int8,
+                             device=dev)
+        tbl_scale = torch.zeros((n_chunks, chunk), dtype=torch.float32,
+                                device=dev)
+    else:
+        st = SweepTable(dev)
+        st.reserve = n_new
+        index._sweep_table = st
+        st.chunk, st.n_chunks, st.d_pad = chunk, n_chunks, d_pad
+        st.tbl = torch.zeros((n_chunks, chunk, d_pad), dtype=torch.float32,
+                             device=dev)
+        st.bias = tbl_bias
 
     # level 0 link bookkeeping (vectorized reverse links need distances)
     cap = index.vectors.shape[0]
@@ -210,12 +274,14 @@ def bulk_build_device(index, data: np.ndarray, wave: int = 4096,
             bias_w = np.concatenate([bias_w, np.repeat(bias_w[:1], w_pad - W)])
         slots_p = np.full(w_pad, slots[0], dtype=np.int64)
         slots_p[:W] = slots
-        packed_d = _build_step(
-            st.tbl, st.bias, to_device(rows_w, dev),
-            to_device(np.ascontiguousarray(bias_w), dev),
-            to_device(slots_p, dev), P, m0, index.distance,
-        )
-        st.version = index.version
+        wave_in = (to_device(rows_w, dev),
+                   to_device(np.ascontiguousarray(bias_w), dev),
+                   to_device(slots_p, dev), P, m0, index.distance)
+        if use_i8:
+            packed_d = _build_step_i8(tbl_i8, tbl_scale, tbl_bias, *wave_in)
+        else:
+            packed_d = _build_step(st.tbl, st.bias, *wave_in)
+            st.version = index.version
         index.sweep_pending.clear()
         pull = PendingPull(packed_d)
         ph_dispatch = time.time() - t_ph
@@ -228,6 +294,23 @@ def bulk_build_device(index, data: np.ndarray, wave: int = 4096,
 
     if pending is not None:
         _process_wave(*pending)
+
+    if use_i8:
+        # hand the finished int8 table to the serving path: the build's
+        # storage form (cosine rows pre-normalized, L2 rows as 2v with
+        # bias -||v||^2, max-abs row scales) is exactly
+        # `QuantSweepTable.quantize_rows` scoring form, so serving starts
+        # without re-quantizing the rows through the host
+        from .quant_knn import QuantSweepTable
+
+        qt = QuantSweepTable(dev)
+        qt.tbl, qt.scales, qt.bias = tbl_i8, tbl_scale, tbl_bias
+        qt.chunk, qt.n_chunks, qt.d_pad = chunk, n_chunks, d_pad
+        qt.n = n_new
+        qt.distance = index.distance
+        qt.version = index.version
+        index._quant_sweep = qt
+        index._quant_sweep_version = index.version
     return slots_all.tolist()
 
 

@@ -17,9 +17,12 @@ Distance handling reduces every metric to a max-similarity problem:
   IP:     s = q·v                      (d = 1 - s)
   Cosine: s = q̂·v̂ (rows pre-normalized; d = 1 - s)
 
-Lanes: `f32` (exact), `bf16` (+ exact re-rank, or raw), and `fused` (the
-CUDA kernel of `ops/fused_sweep.py`, always re-ranked).  The int8 lane is
-not ported yet.
+Lanes: `f32` (exact), `bf16` (+ exact re-rank, or raw), `i8` (int8 x
+int8 -> int32 products rescaled to a bf16 score slab, always re-ranked)
+and `fused` (the CUDA kernel of `ops/fused_sweep.py`, always re-ranked).
+Queries are uploaded as f32 through pinned memory and prepared on the
+device (`utils/device.prepare_queries`: cosine normalise, the f16 round
+of the JAX package's upload, zero-pad, int8 quantisation).
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.device import default_device, mm_bf16, to_device
+from ..utils.device import (default_device, int_mm, mm_bf16,
+                            prepare_queries, quantize_i8, to_device)
 from . import fused_sweep as _fs
 
 MAX_CHUNK = 1 << 17
@@ -76,18 +80,26 @@ def rerank_pack(flat: torch.Tensor, qs: torch.Tensor, ids: torch.Tensor,
     return torch.cat([out_i.to(torch.int32), ts.view(torch.int32)], dim=1)
 
 
-def _sweep(tbl: torch.Tensor, bias: torch.Tensor, qs_in: torch.Tensor,
+def merge_chunks(nds, nis, kf: int):
+    """The best kf of the per-chunk candidates (scores, global ids)."""
+    alld = torch.cat(nds, dim=1)
+    alli = torch.cat(nis, dim=1)
+    if alld.shape[1] == kf:
+        return alld, alli
+    bs, sel = torch.topk(alld, min(kf, alld.shape[1]))
+    return bs, torch.gather(alli, 1, sel)
+
+
+def _sweep(tbl: torch.Tensor, bias: torch.Tensor, qs: torch.Tensor,
            k: int, compute_dtype: str, rerank_k: int = 0,
-           metric: str = "IP", d_in: int = 0) -> torch.Tensor:
-    """Counterpart of `_sweep_fn`.  rerank_k > 0: over-fetch rerank_k
+           metric: str = "IP") -> torch.Tensor:
+    """Counterpart of `_sweep_fn`; `qs` [B, d_pad] f32 as
+    `prepare_queries` gives them.  rerank_k > 0: over-fetch rerank_k
     candidates in the scan, then re-score them in true f32 (L2 in the
     cancellation-free diff form) and return the exact top-k.  Returns
     the packed int32 [B, 2k'] (ids | score bits)."""
     n_chunks, chunk, d_pad = tbl.shape
     kf = max(k, rerank_k)
-    qs = qs_in.float()
-    if d_in and d_in < d_pad:
-        qs = torch.nn.functional.pad(qs, (0, d_pad - d_in))
     kc = min(kf, chunk)
     nds, nis = [], []
     for c in range(n_chunks):
@@ -100,16 +112,48 @@ def _sweep(tbl: torch.Tensor, bias: torch.Tensor, qs_in: torch.Tensor,
         del s  # free the [B, chunk] slab before the next chunk's
         nds.append(nd)
         nis.append(ni + c * chunk)
-    alld = torch.cat(nds, dim=1)
-    alli = torch.cat(nis, dim=1)
-    if alld.shape[1] == kf:
-        bs, bi = alld, alli
-    else:
-        bs, sel = torch.topk(alld, min(kf, alld.shape[1]))
-        bi = torch.gather(alli, 1, sel)
+    bs, bi = merge_chunks(nds, nis, kf)
     if rerank_k <= 0:
         return torch.cat([bi.to(torch.int32), bs.view(torch.int32)], dim=1)
     valid = (bi >= 0) & torch.isfinite(bs)
+    return rerank_pack(tbl.reshape(-1, d_pad), qs, bi, valid, k, metric)
+
+
+def quantize_tbl(tbl: torch.Tensor, bias: torch.Tensor):
+    """The int8 lane's table from the resident f32 table, on the device
+    (counterpart of `_quantize_tbl_fn`; re-run per version): int8 rows
+    [n_chunks, chunk, d_pad] and per-row max-abs scales, 0 on dead rows."""
+    q = torch.empty(tbl.shape, dtype=torch.int8, device=tbl.device)
+    sc = torch.empty(bias.shape, dtype=torch.float32, device=tbl.device)
+    for c in range(tbl.shape[0]):  # chunk by chunk: bounds the temporaries
+        q[c], sc[c] = quantize_i8(tbl[c], reciprocal=True)
+    return q, torch.where(torch.isfinite(bias), sc, torch.zeros_like(sc))
+
+
+def _sweep_i8(tbl_i8: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              tbl: torch.Tensor, qs: torch.Tensor, q_i8: torch.Tensor,
+              q_scale: torch.Tensor, k: int, rerank_k: int,
+              metric: str) -> torch.Tensor:
+    """Counterpart of `_sweep_fn_i8`: int8 x int8 -> int32 products per
+    chunk, rescaled by the row and query scales, biased and rounded to a
+    bf16 slab as the JAX lane does; per-chunk top candidates, one merge,
+    then the same exact f32 re-rank of the over-fetched candidates as
+    `_sweep`.  `qs` / `q_i8` / `q_scale` come from `prepare_queries`."""
+    n_chunks, chunk, d_pad = tbl.shape
+    kf = max(k, rerank_k)
+    kc = min(kf, chunk)
+    nds, nis = [], []
+    for c in range(n_chunks):
+        s = int_mm(q_i8, tbl_i8[c]).float()
+        s *= scale[c][None, :]
+        s *= q_scale[:, None]
+        s += bias[c][None, :]
+        nd, ni = torch.topk(s.to(torch.bfloat16), kc)
+        del s
+        nds.append(nd)
+        nis.append(ni + c * chunk)
+    bs, bi = merge_chunks(nds, nis, kf)
+    valid = (bi >= 0) & torch.isfinite(bs.float())
     return rerank_pack(tbl.reshape(-1, d_pad), qs, bi, valid, k, metric)
 
 
@@ -128,6 +172,11 @@ class SweepTable:
         # capacity hint: size chunking for this many rows up-front so a
         # growing bulk build keeps one table shape
         self.reserve = 0
+        # int8 lane (compute_dtype="i8"): int8 rows + per-row scales,
+        # derived on device from the f32 table per version
+        self.tbl_i8: Optional[torch.Tensor] = None
+        self.scale_i8: Optional[torch.Tensor] = None
+        self.i8_version = -1
         # fused lane (compute_dtype="fused"): flat bf16 table + finite-min
         # bias, derived on device per version
         self.tbl_fused: Optional[torch.Tensor] = None
@@ -215,32 +264,8 @@ class SweepTable:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """`rt` is accepted for parity with the JAX signature; the
         per-chunk selection here is an exact top-k at every rt."""
-        if compute_dtype == "i8":
-            raise NotImplementedError(
-                "compute_dtype='i8' is not ported yet (ROADMAP port item: "
-                "i8 sweep lane)"
-            )
         self.refresh(index)
-        d = index.dim
         q = np.asarray(qs, dtype=np.float32)
-        B = q.shape[0]
-        # f16 query upload as in the JAX package, so the lanes score the
-        # same inputs in both; the f32 lane stays bit-exact
-        qdt = np.float16 if compute_dtype in ("bf16", "fused") else np.float32
-        if qdt == np.float16 and index.distance != "Cosine":
-            # f16 overflows to inf past 65504 and every score in the
-            # affected row goes inf/NaN.  Cosine queries are normalized
-            # below; L2/IP keep f32 for out-of-range batches.
-            amax = float(np.max(np.abs(q))) if q.size else 0.0
-            if not (amax < 6.0e4):  # also catches nan/inf inputs
-                qdt = np.float32
-        qp = np.empty((B, d), dtype=qdt)
-        if index.distance == "Cosine":
-            nrm = np.linalg.norm(q, axis=1, keepdims=True)
-            nrm = np.where(nrm > 0, nrm, 1.0)
-            qp[:] = q / nrm
-        else:
-            qp[:] = q
         # overfetch width: k+16 covers bf16 rank noise at the 0.999
         # operating point
         rerank_k = (
@@ -248,7 +273,14 @@ class SweepTable:
             if exact_rerank
             else 0
         )
-        q_dev = to_device(qp, self.device)
+        # f32 upload through pinned memory; normalise, f16 round (as the
+        # JAX package uploads for these lanes; the f32 lane stays exact),
+        # pad and int8 quantisation run on the device
+        prepared = prepare_queries(
+            to_device(np.ascontiguousarray(q), self.device), index.distance,
+            self.d_pad, half=compute_dtype in ("bf16", "i8", "fused"),
+            quantize=compute_dtype == "i8", reciprocal=True,
+        )
         if compute_dtype == "fused":
             # fused scoring + segment-top2 (ops/fused_sweep.py): the score
             # slab never reaches device memory.  Always exact-reranked.
@@ -256,14 +288,24 @@ class SweepTable:
                 self.tbl_fused, self.bias_fused = _fs.prep(self.tbl, self.bias)
                 self.fused_version = self.version
             packed_d = _fs.serve(
-                self.tbl_fused, self.bias_fused, self.tbl, q_dev, k,
-                max(rerank_k, k + 16), index.distance, d, self.d_pad,
+                self.tbl_fused, self.bias_fused, self.tbl, prepared, k,
+                max(rerank_k, k + 16), index.distance, 0, self.d_pad,
+            )
+            exact_rerank = True
+        elif compute_dtype == "i8":
+            # int8 lane (always exact-reranked)
+            if self.i8_version != self.version or self.tbl_i8 is None:
+                self.tbl_i8, self.scale_i8 = quantize_tbl(self.tbl, self.bias)
+                self.i8_version = self.version
+            packed_d = _sweep_i8(
+                self.tbl_i8, self.scale_i8, self.bias, self.tbl, *prepared,
+                k, max(rerank_k, k + 16), index.distance,
             )
             exact_rerank = True
         else:
             packed_d = _sweep(
-                self.tbl, self.bias, q_dev, k, compute_dtype,
-                rerank_k=rerank_k, metric=index.distance, d_in=d,
+                self.tbl, self.bias, prepared, k, compute_dtype,
+                rerank_k=rerank_k, metric=index.distance,
             )
         packed = packed_d.cpu().numpy()
         kk = packed.shape[1] // 2

@@ -1,6 +1,7 @@
-"""Tests of the port that need an NVIDIA card (marker `cuda`): the CUDA
-kernel against its plain PyTorch version, and the fused lane end to end
-through the kernel.  They skip where CUDA is absent.  This file imports
+"""Tests of the port that need an NVIDIA card (marker `cuda`): each CUDA
+kernel (`fused_sweep`, `beam_search`) against its plain PyTorch version,
+the lanes end to end through the kernels, and the card's int8 product
+against the CPU's.  They skip where CUDA is absent.  This file imports
 neither JAX nor `cozo_tpu`, so it runs on a machine that has only the
 port's dependencies:
 
@@ -11,10 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import BEAM_CASES
 from chip_smoke import PHASE2_SHAPES as SHAPES
-from chip_smoke import agreement_ok, compare_fused, random_case
+from chip_smoke import (agreement_ok, beam_args, beam_case, beam_ok,
+                        compare_beam, compare_fused, random_case)
 from cozo_tpu_torch import HnswIndex, sweep_search
 from cozo_tpu_torch.ops import fused_sweep as fs
+from cozo_tpu_torch.ops import vector_search as vs
+from cozo_tpu_torch.utils.device import int_mm
 
 
 @pytest.fixture
@@ -83,3 +88,75 @@ def test_fused_lane_goes_through_the_kernel(cuda):
     overlap = np.mean([len(set(ids_f[i]) & set(ids_b[i])) / 10
                        for i in range(256)])
     assert overlap > 0.98
+
+
+# ---- beam_search -----------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BEAM_CASES, ids=lambda c: f"{c[0]}-B{c[4]}")
+def test_beam_search_matches_plain(cuda, case):
+    """At `chip_smoke.py` phase 2's shapes and by its measure: ids equal on
+    >= 99% of (query, rank) entries (the kernel's sums differ from the
+    plain version's in the last bits, so two near-tied entries may swap),
+    distances within 1e-4 where ids match, no dead row, two runs
+    bit-identical, one count per launch."""
+    idx, qs = beam_case(*case)
+    args = beam_args(idx, qs, case[6], case[5])
+    before = vs.beam_search.launches
+    out = vs.beam_search(*args)
+    again = vs.beam_search(*args)
+    assert vs.beam_search.launches == before + 2
+    ref = vs.beam_search_plain(*args)
+    torch.cuda.synchronize()
+    assert vs.beam_search.launches == before + 2  # the plain version: none
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    c = compare_beam(out, ref, args[3])
+    assert beam_ok(c), c
+    stats = vs.beam_search.last_stats.cpu().numpy()
+    assert (stats[:, 1] >= 1).all() and (stats[:, 2] >= stats[:, 1]).all()
+    assert (stats[:, 0] == 0).all() == (args[8] == 0)
+
+
+@pytest.mark.cuda
+def test_beam_search_refuses_a_beam_past_shared_memory(cuda):
+    idx, qs = beam_case(*BEAM_CASES[3])
+    with pytest.raises(ValueError, match="more than the kernel takes"):
+        vs.beam_search(*beam_args(idx, qs, 3, 8192))
+
+
+@pytest.mark.cuda
+def test_small_batch_search_goes_through_the_kernel(cuda):
+    rng = np.random.default_rng(3)
+    data = rng.standard_normal((140_000, 16)).astype(np.float32)
+    idx = HnswIndex(dim=16, m=8, ef_construction=50, distance="L2")
+    idx.bulk_build(data, wave=8192)
+    qs = data[:16] + 0.01 * rng.standard_normal((16, 16)).astype(np.float32)
+    before = vs.beam_search.launches
+    ids, _ = idx.search(qs, k=10, ef=64)
+    assert vs.beam_search.launches == before + 1
+    assert float(np.mean(ids[:, 0] == np.arange(16))) > 0.9
+
+
+@pytest.mark.cuda
+def test_int_mm_lane_matches_the_cpu_int32_product(cuda):
+    """`torch._int_mm` on the card gives the integers of the CPU's int32
+    matmul, padded small batches included; and the i8 lane through it
+    clears the lane's recall bar."""
+    rng = np.random.default_rng(5)
+    for B in (1, 16, 17, 300):
+        a = torch.from_numpy(rng.integers(-127, 128, (B, 128), dtype=np.int8))
+        b = torch.from_numpy(rng.integers(-127, 128, (4096, 128), dtype=np.int8))
+        got = int_mm(a.to(cuda), b.to(cuda))
+        assert got.shape == (B, 4096) and got.dtype == torch.int32
+        assert torch.equal(got.cpu(), int_mm(a, b))
+    data = rng.standard_normal((20_000, 64)).astype(np.float32)
+    idx = HnswIndex(dim=64, m=8, ef_construction=50, distance="Cosine")
+    idx.bulk_build(data, wave=4096)
+    qs = data[:256] + 0.01 * rng.standard_normal((256, 64)).astype(np.float32)
+    for nq in (256, 5):  # 5: the product pads the batch
+        ids_i, _ = sweep_search(idx, qs[:nq], 10, compute_dtype="i8")
+        ids_f, _ = sweep_search(idx, qs[:nq], 10, compute_dtype="f32", rt=1.0)
+        overlap = np.mean([len(set(ids_i[i]) & set(ids_f[i])) / 10
+                           for i in range(nq)])
+        assert overlap > 0.98

@@ -109,7 +109,7 @@ def test_search_dispatches_to_sweep():
 
 def test_rerank_k_override_matches_default():
     """A wider exact-rerank overfetch must not change the returned top-k
-    on an easy table (bf16 lane; the i8 lane is not ported yet)."""
+    on an easy table (bf16 lane; the i8 case is in tests/test_torch_i8.py)."""
     rng, data, jidx, tidx = _pair("Cosine", 5_000, 16, 11, insert=False)
     B, k = 64, 5
     qs = data[:B] + 1e-3 * rng.standard_normal((B, 16)).astype(np.float32)
@@ -126,6 +126,9 @@ def test_rerank_k_override_matches_default():
 
 
 def test_i8_lane_not_ported_raises():
+    """`compute_dtype="i8"` raised NotImplementedError until the lane was
+    ported; now the branch answers, with the self row first."""
     _, data, _, tidx = _pair("L2", 64, 8, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sweep_search(tidx, data[:4], 3, compute_dtype="i8")
+    ids, dists = sweep_search(tidx, data[:4], 3, compute_dtype="i8")
+    assert (ids[:, 0] == np.arange(4)).all()
+    assert np.allclose(dists[:, 0], 0.0, atol=1e-5)

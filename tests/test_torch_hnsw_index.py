@@ -71,25 +71,57 @@ def _big_index(n=131_073, d=4):
     """An index past one sweep chunk, without a graph (dispatch only)."""
     idx = HnswIndex(dim=d, m=4, ef_construction=8, device="cpu")
     state = idx.to_state()
-    state.update(vectors=np.zeros((n, d), np.float32),
-                 norms=np.zeros(n), levels=np.zeros(n, np.int32),
+    rng = np.random.default_rng(0)
+    vectors = rng.standard_normal((n, d)).astype(np.float32)
+    state.update(vectors=vectors,
+                 norms=(vectors.astype(np.float64) ** 2).sum(1),
+                 levels=np.zeros(n, np.int32),
                  alive=np.ones(n, bool), n=n, entry=0,
                  neighbors=[np.full((n, 8), -1, np.int32)])
     return HnswIndex.from_state(state, device="cpu")
 
 
 def test_unported_paths_raise(monkeypatch):
+    """Of the dispatcher's branches only the `COZO_TPU_MESH` mesh sweep is
+    still unported: it raises naming its ROADMAP item.  The two that raised
+    before (the device beam search for small batches on a big table, the
+    quant lane past the f32 budget) now answer."""
     idx = _big_index()
-    qs = np.zeros((8, 4), np.float32)
-    # small batches on a big table take the device beam search in JAX
-    with pytest.raises(NotImplementedError, match="beam search"):
-        idx.search(qs, k=3, ef=8, use_tpu=True)
+    qs = idx.vectors[:8].copy()
+    monkeypatch.setenv("COZO_TPU_F32_TABLE_MAX", str(8 << 30))  # pin the lane
+    # small batches on a big table: the device beam search (no links in
+    # this graph, so it returns the entry point alone)
+    ids, dists = idx.search(qs, k=3, ef=8, use_tpu=True)
+    assert idx._dev_cache is not None
+    assert (ids[:, 0] == 0).all() and (ids[:, 1:] == -1).all()
+    assert np.isfinite(dists[:, 0]).all() and np.isinf(dists[:, 1:]).all()
     # the quant lane past the f32 budget
     monkeypatch.setenv("COZO_TPU_F32_TABLE_MAX", "1024")
-    with pytest.raises(NotImplementedError, match="quant lane"):
-        idx.search(np.zeros((64, 4), np.float32), k=3, ef=8, use_tpu=True)
-    monkeypatch.delenv("COZO_TPU_F32_TABLE_MAX")
+    ids, _ = idx.search(np.tile(qs, (8, 1)), k=3, ef=8, use_tpu=True)
+    assert idx._quant_sweep is not None
+    assert (ids[:8, 0] == np.arange(8)).all()
     # the mesh sweep
     monkeypatch.setenv("COZO_TPU_MESH", "1")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="mesh sharding"):
         idx.search(qs, k=3, ef=8)
+
+
+@pytest.mark.parametrize("budget,B,lane", [
+    ("1024", 64, "quant"), ("1024", 8, "quant"),
+    (str(8 << 30), 64, "sweep"), (str(8 << 30), 8, "beam"),
+])
+def test_dispatcher_branches_with_the_lane_pinned(monkeypatch, budget, B, lane):
+    """Each branch of `HnswIndex.search` is reached with the f32 budget
+    pinned by COZO_TPU_F32_TABLE_MAX, so a re-derived default cannot move
+    the lane under the test."""
+    from cozo_tpu_torch.models.hnsw_index import F32_TABLE_MAX, f32_table_budget
+
+    assert f32_table_budget() == F32_TABLE_MAX == 8 << 30
+    monkeypatch.setenv("COZO_TPU_F32_TABLE_MAX", budget)
+    assert f32_table_budget() == int(budget)
+    idx = _big_index()
+    idx.search(idx.vectors[:B].copy(), k=3, ef=8, use_tpu=True)
+    reached = {"quant": idx._quant_sweep is not None,
+               "sweep": idx._sweep_table is not None,
+               "beam": idx._dev_cache is not None}
+    assert reached == {k: k == lane for k in reached}

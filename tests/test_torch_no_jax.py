@@ -41,6 +41,25 @@ for cd in ("f32", "bf16", "fused"):
 ids, _ = idx.search(data[:8], k=5, ef=32, use_tpu=False)
 assert (ids[:, 0] == np.arange(8)).all()
 
+# the i8 lane, the beam search, the quant lane and the i8 build
+import os
+from cozo_tpu_torch.ops import quant_knn, vector_search
+from cozo_tpu_torch.ops.bulk_build import bulk_build_device
+ids, _ = sweep_search(idx, data[:64], 5, compute_dtype="i8")
+assert (ids[:, 0] == np.arange(64)).all()
+ids, _ = vector_search.hnsw_search_device(idx, data[:8], 5, 32)
+assert (ids[:, 0] == np.arange(8)).all()
+qt = quant_knn.QuantSweepTable("cpu").load(data, "Cosine")
+ids, _ = quant_knn.quant_search(data, qt, data[:16], 5)
+assert (ids[:, 0] == np.arange(16)).all()
+os.environ["COZO_TPU_F32_TABLE_MAX"] = "1"
+idx8 = HnswIndex(dim=24, m=8, ef_construction=32, distance="Cosine",
+                 device="cpu")
+bulk_build_device(idx8, data, wave=2048)
+assert idx8._quant_sweep is not None
+ids, _ = idx8.search(data[:64], k=5, ef=32, use_tpu=True)
+assert (ids[:, 0] == np.arange(64)).mean() > 0.95
+
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "cozo_tpu")
                for m in sys.modules)
 print("NO_JAX_OK")
@@ -68,8 +87,8 @@ def _port_sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
-    yield os.path.join(_ROOT, "chip_smoke.py")
-    yield os.path.join(_ROOT, "chip_profile.py")
+    for script in ("chip_smoke.py", "chip_profile.py", "chip_ubench.py"):
+        yield os.path.join(_ROOT, script)
 
 
 def test_no_source_imports_jax_or_cozo_tpu():
@@ -80,6 +99,26 @@ def test_no_source_imports_jax_or_cozo_tpu():
         with open(path) as f:
             hit = pat.search(f.read())
         assert hit is None, f"{path}: {hit.group(0)!r}"
+
+
+def test_new_modules_are_among_the_scanned_sources():
+    names = {os.path.relpath(p, _ROOT) for p in _port_sources()}
+    for mod in ("ops/quant_knn.py", "ops/vector_search.py",
+                "ops/exact_knn.py", "ops/bulk_build.py", "utils/device.py"):
+        assert os.path.join("cozo_tpu_torch", mod) in names
+
+
+def test_only_the_mesh_branch_is_unported():
+    """`NotImplementedError` appears once in the package: the
+    `COZO_TPU_MESH` raise of `HnswIndex.search`."""
+    hits = []
+    for path in _port_sources():
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if "NotImplementedError" in line:
+                    hits.append((os.path.relpath(path, _ROOT), i))
+    assert len(hits) == 1 and hits[0][0] == os.path.join(
+        "cozo_tpu_torch", "models", "hnsw_index.py"), hits
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -104,6 +143,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         HnswIndex(dim=8, m=4, ef_construction=16).bulk_build(data)
     with pytest.raises(RuntimeError, match="CUDA"):
         brute_force_knn(data, np.ones(len(data)), data[:2], 3, "L2")
+    # the int8 lanes' and the beam search's entry points
+    from cozo_tpu_torch.ops.quant_knn import QuantSweepTable
+    from cozo_tpu_torch.ops.vector_search import hnsw_search_device
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep_search(idx, data[:4], 3, compute_dtype="i8")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hnsw_search_device(idx, data[:4], 3, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        QuantSweepTable().load(data, "L2")
 
 
 def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):
