@@ -12,8 +12,10 @@ device time.  Then it names the fused lane's host time: the steps of
 `SweepTable.search` re-enacted one by one on the same batch, with the
 device drained after each, and each step's share of their sum (the query
 preparation runs on the device; the numpy form it replaced is timed
-beside it).  Last, one small-batch
-`HnswIndex.search` through the beam-search kernel under the profiler.
+beside it).  Last, the small-batch path: one `HnswIndex.search` through
+the beam-search kernel under the profiler, then the steps of
+`hnsw_search_device` re-enacted one by one in the same way (staging copy,
+launch, wait, unpack) at B = 1, 4, 16, 63.
 Needs CUDA; it measures, it checks nothing (chip_smoke.py checks).
 """
 
@@ -87,6 +89,73 @@ def fused_lane_steps(index, qs, reps=5):
     return ids, dists
 
 
+def beam_call_steps(index, qs, B, reps=20):
+    """The steps of `hnsw_search_device` on one batch of B queries, each
+    timed by itself (the launch up to the return of the enqueue, the
+    kernel as the wait for the stream after it; the device is idle before
+    each): median milliseconds over `reps` rounds after a warm one, beside
+    the whole `HnswIndex.search` call.  Nothing of the call is changed;
+    this follows it line by line."""
+    import torch
+
+    from cozo_tpu_torch.ops import vector_search as vs
+
+    q = np.asarray(qs[:B], dtype=index.dtype)
+    index.search(q, K, 64, use_tpu=True)  # the mirror and the staging buffers
+    names = ("mirror, parameters and their checks, staging lookup, stream "
+             "(host)",
+             "staging copy (numpy -> pinned)",
+             "launch: enqueue (host only, not drained)",
+             "the kernel, reading and writing the pinned buffers (stream "
+             "synchronize)",
+             "unpack ids / distances (numpy)")
+    rounds, calls = [], []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+
+        def lap(drain=True):
+            if drain:
+                torch.cuda.synchronize()
+            t.append(time.perf_counter())
+
+        dev = vs._device_arrays(index)
+        beam, max_iters, expand = vs.beam_params(K, 64, None)
+        device = dev["vectors"].device
+        vs._check_params(K, beam, dev["n_levels"], expand)
+        vs._check_layout(index.dim, dev["nb0"].shape[1], dev["m_up"], beam,
+                         expand)
+        st = vs._staging(dev, B, index.dim, K)
+        stream = torch.cuda.current_stream(device)
+        lap()
+        np.copyto(st["q_np"], q, casting="same_kind")
+        lap()
+        vs._launch(dev["vectors"], dev["nb0"], dev["up_nb"], dev["alive"],
+                   dev["entry"], st["q_host"], st["out_host"], K, beam,
+                   dev["n_levels"], vs.DIST_KINDS[index.distance], max_iters,
+                   expand, stream.cuda_stream)
+        lap(drain=False)
+        stream.synchronize()
+        lap(drain=False)
+        packed = st["out_np"]
+        ids = packed[:, :K].astype(np.int64)
+        dists = packed[:, K:].view(np.float32).astype(np.float64)
+        lap()
+        rounds.append(np.diff(t) * 1e3)
+        t0 = time.perf_counter()
+        index.search(q, K, 64, use_tpu=True)
+        calls.append((time.perf_counter() - t0) * 1e3)
+    med = np.median(np.array(rounds[1:]), axis=0)
+    call = float(np.median(calls[1:]))
+    print(f"beam search B={B}, steps of one call (median of {reps}): sum "
+          f"{med.sum():.4f} ms; HnswIndex.search "
+          f"itself {call:.4f} ms median, {min(calls[1:]):.4f} ms min",
+          flush=True)
+    for name, ms in zip(names, med):
+        print(f"  {ms:8.4f} ms {100 * ms / med.sum():5.1f}%  {name}", flush=True)
+    return ids, dists
+
+
 def beam_recall_curve(index, qs, nq=252):
     """recall@10 of the graph search against the exact f32 lane on `nq`
     queries, the host search (`use_tpu=False`) beside the beam-search
@@ -137,8 +206,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=N)
     ap.add_argument("--beam-only", action="store_true",
-                    help="after the build, only the graph-search recall "
-                         "curve (host search beside the kernel)")
+                    help="after the build, only the small-batch path: the "
+                         "steps of a call and the graph-search recall curve "
+                         "(host search beside the kernel)")
     args = ap.parse_args()
 
     import torch
@@ -162,6 +232,8 @@ def main():
     print(f"build {args.n} rows: {time.time() - t0:.1f}s", flush=True)
 
     if args.beam_only:
+        for B in (1, 4, 16, 63):
+            beam_call_steps(index, qs, B)
         beam_recall_curve(index, qs)
         return 0
 
@@ -222,6 +294,8 @@ def main():
         walls.append((time.perf_counter() - t0) * 1e3)
     print(f"HnswIndex.search B=16 without the profiler: median "
           f"{np.median(walls):.3f} ms, min {min(walls):.3f} ms", flush=True)
+    for B in (1, 4, 16, 63):
+        beam_call_steps(index, qs, B)
     beam_recall_curve(index, qs)
     subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"], check=False)

@@ -14,8 +14,11 @@ Phases, each reported on its own line; any failure exits non-zero:
      segment): the ids carried in the packed output agree on >= 99.9% of
      entries, no dead row is live, two runs of a shape are bit-identical.
      `beam_search`: small built indexes covering L2 / IP / Cosine, B = 1,
-     a flat index, d not a multiple of 32, d = 768, removed rows, beam 8,
-     64 and 2048 (the largest sort the kernel takes):
+     a flat index, d not a multiple of 4, d = 768, removed rows, beam 8,
+     64, 200 (the build's k = ef) and 2048, one and sixteen entries
+     expanded a round, neighbour lists 128 wide (more candidates nearer
+     than the beam's last than the kernel places by counting: its sorted
+     merge), many duplicate rows:
      ids equal on >= 99% of (query, rank) entries, distances within 1e-4
      where ids match, no dead row returned, two runs identical;
   3. drive the main path through the user entry points: `glove_like`
@@ -26,8 +29,9 @@ Phases, each reported on its own line; any failure exits non-zero:
      holding each lane's recall@10 to its bar; then `HnswIndex.search`
      alone: the quant lane (the f32 budget lowered for that call), small
      batches (B = 16, 1, 4, 63) through the beam-search kernel with
-     recall beside the host search's and latency per call, and the device
-     mirror's incremental update after inserts and removals.  Each
+     recall beside the host search's, latency per call beside the
+     kernel's own time, and the device mirror's incremental update after
+     inserts and removals.  Each
      kernel's launch count is zeroed just before its path and read just
      after;
   3b. the quant lane at its own width: a 768-wide cosine table of
@@ -42,9 +46,10 @@ Phases, each reported on its own line; any failure exits non-zero:
   5. print the kernels' JSON line, the card's name and power limit, and
      as the last line {"ok": true, "device": {...}}.
 
-`--kernels-only` skips phases 3-3c and times the fused main-path route on a
-random table of the main-path shape: a quick check of the kernels alone,
-which prints no `{"ok": ...}` line.
+`--kernels-only` skips phases 3-3c, times the fused main-path route on a
+random table of the main-path shape and `beam_search` (kernel and call) on
+a built index of 262,144 rows: a quick check of the kernels alone, which
+prints no `{"ok": ...}` line.
 """
 
 import argparse
@@ -199,17 +204,26 @@ def phase_kernel_vs_plain(dev):
         raise SystemExit(f"phase 2 failed: routes reached {sorted(reached)}")
 
 
-# (distance, n, d, m, B, ef, k, flat, removed rows): every metric and edge
+# (distance, n, d, m, B, ef, k, flat, removed rows, expand, duplicate rows):
+# every metric and edge
 BEAM_CASES = (
-    ("L2", 6000, 100, 16, 16, 64, 10, False, 0),
-    ("IP", 5000, 24, 8, 1, 64, 10, False, 0),        # B = 1
-    ("Cosine", 5000, 37, 8, 8, 64, 10, False, 60),   # d % 32 != 0, removals
-    ("L2", 5000, 16, 8, 5, 8, 3, True, 0),           # flat index, beam 8
-    ("Cosine", 8000, 100, 16, 63, 64, 10, False, 100),
-    ("IP", 5000, 48, 4, 7, 8, 5, True, 25),
-    ("Cosine", 5000, 768, 8, 3, 64, 10, False, 0),   # wide rows
-    # beam 2048: a sort of 4096 keys, shared memory past the 48 KB default
-    ("IP", 5000, 32, 8, 2, 2048, 10, False, 30),
+    ("L2", 6000, 100, 16, 16, 64, 10, False, 0, 8, 0),
+    ("IP", 5000, 24, 8, 1, 64, 10, False, 0, 8, 0),        # B = 1
+    ("Cosine", 5000, 37, 8, 8, 64, 10, False, 60, 8, 0),   # d % 4 != 0, removals
+    ("L2", 5000, 16, 8, 5, 8, 3, True, 0, 8, 0),           # flat index, beam 8
+    ("Cosine", 8000, 100, 16, 63, 64, 10, False, 100, 8, 0),
+    ("IP", 5000, 48, 4, 7, 8, 5, True, 25, 8, 0),
+    ("Cosine", 5000, 768, 8, 3, 64, 10, False, 0, 8, 0),   # wide rows
+    # beam 2048: a table of 8192 slots, shared memory past the 48 KB default
+    ("IP", 5000, 32, 8, 2, 2048, 10, False, 30, 8, 0),
+    # 512 candidates a round into a wide beam: more of them nearer than the
+    # beam's last than are placed by counting, so the list is sorted
+    ("L2", 6000, 32, 32, 4, 512, 10, False, 0, 8, 0),
+    ("L2", 5000, 20, 64, 3, 64, 10, False, 0, 16, 0),      # m0 = 128, expand 16
+    ("Cosine", 5000, 12, 16, 6, 64, 10, False, 0, 1, 0),   # expand 1
+    ("L2", 6000, 100, 16, 4, 200, 200, False, 0, 8, 0),    # the build's k = ef
+    # a third of the rows are copies: equal distances, the tie rule decides
+    ("L2", 6000, 16, 8, 8, 32, 10, False, 20, 8, 2000),
 )
 
 
@@ -228,13 +242,15 @@ def beam_args(index, qs_np, k, ef, expand=8):
             vs.DIST_KINDS[index.distance], max_iters, expand)
 
 
-def beam_case(distance, n, d, m, B, ef, k, flat, removed):
+def beam_case(distance, n, d, m, B, ef, k, flat, removed, expand, dup):
     """A small built index and B queries near its rows, for one entry of
     BEAM_CASES."""
     from cozo_tpu_torch import HnswIndex
 
     rng = np.random.default_rng(n + d + B)
     data = rng.standard_normal((n, d)).astype(np.float32)
+    if dup:
+        data[n - dup:] = data[rng.integers(0, n - dup, dup)]
     index = HnswIndex(dim=d, m=m, ef_construction=50, distance=distance)
     index.bulk_build(data, wave=2048)
     for s in range(0, 3 * removed, 3):
@@ -275,9 +291,9 @@ def phase_beam_vs_plain():
     from cozo_tpu_torch.ops import vector_search as vs
 
     for case in BEAM_CASES:
-        distance, n, d, m, B, ef, k, flat, removed = case
+        distance, n, d, m, B, ef, k, flat, removed, expand, dup = case
         index, qs = beam_case(*case)
-        args = beam_args(index, qs, k, ef)
+        args = beam_args(index, qs, k, ef, expand)
         before = vs.beam_search.launches
         out_k = vs.beam_search(*args)
         out_again = vs.beam_search(*args)
@@ -288,7 +304,8 @@ def phase_beam_vs_plain():
         same_twice = all(torch.equal(a, b) for a, b in zip(out_k, out_again))
         c = compare_beam(out_k, out_p, args[3])
         say(f"phase 2 beam_search vs plain {distance} n={n} d={d} m={m} "
-            f"levels={args[8]} B={B} beam={args[7]} k={k} removed={removed}: "
+            f"levels={args[8]} B={B} beam={args[7]} k={k} expand={expand} "
+            f"removed={removed} copies={dup}: "
             f"ids {c['ids']:.6f} rows exact {c['rows_exact']:.4f} "
             f"max_abs_err {c['err']:.3e} dead_hits {c['dead_hits']} "
             f"two runs identical {same_twice} (descent steps, rounds, rows, "
@@ -447,14 +464,22 @@ def phase_beam_main(index, qs, gt):
                                       use_tpu=True if B < 4 else None)
             lat.append((time.perf_counter() - t0) * 1e3)
         counted = vs.beam_search.launches - before
+        # the kernel alone on the same queries: a measurement beside the
+        # path, so its launches are taken out of the path's count again
+        args = beam_args(index, qs[:B], K, 64)
+        kernel_ms = cuda_ms(lambda: vs.beam_search(*args), 20)
+        vs.beam_search.launches = before + counted
         r, r_h = recall(ids, gt[:B]), recall(ids_h[:B], gt[:B])
         ok = (counted == 20 and ids.shape == (B, K)
               and np.isfinite(dists[ids >= 0]).all())
         out["per_batch"][B] = {"recall@10": r, "host_recall@10": r_h,
                                "ms_median": float(np.median(lat)),
-                               "ms_min": float(min(lat)), "launches": counted}
+                               "ms_min": float(min(lat)),
+                               "kernel_ms": kernel_ms, "launches": counted}
         say(f"phase 3 beam search B={B}: search(k=10, ef=64) median "
-            f"{np.median(lat):.3f} ms min {min(lat):.3f} ms per call, "
+            f"{np.median(lat):.3f} ms min {min(lat):.3f} ms per call, the "
+            f"kernel alone {kernel_ms:.4f} ms, the call around it "
+            f"{np.median(lat) - kernel_ms:.3f} ms; "
             f"recall@10 {r:.4f} (host search on the same queries {r_h:.4f}), "
             f"kernel launches {counted} {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -711,6 +736,7 @@ def time_beam(index, qs, launches):
         # least one trip for its lists and one for its rows
         chain = int((stats[:, 0] + stats[:, 1]).max())
         chain_ms = 2 * chain * trip_ms
+        longest = int((stats[:, 0] + stats[:, 1]).argmax())
         say(f"phase 4 beam_search B={B} (n_pad={vectors.shape[0]} d={d} "
             f"m0={m0} beam={args[7]} expand={args[11]}): {ms:.4f} ms, plain "
             f"{plain_ms:.2f} ms; ids {c['ids']:.6f} rows exact "
@@ -718,12 +744,16 @@ def time_beam(index, qs, launches):
             f"{steps} rounds {rounds} rows {rows} lists {lists}; bound "
             f"{bound:.5f} ms (bytes {t_bytes:.5f}, operations {t_ops:.5f}); "
             f"chain of {chain} dependent rounds x 2 trips = {chain_ms:.4f} ms "
-            f"({'the chain' if chain_ms > bound else 'the bound'} is larger)")
+            f"({'the chain' if chain_ms > bound else 'the bound'} is larger); "
+            f"the longest query: {int(stats[longest, 0])} descent steps + "
+            f"{int(stats[longest, 1])} rounds, {ms * 1e3 / chain:.2f} us a "
+            f"step if the launch were all its")
         shapes[B] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "chain_ms": chain_ms, "max_abs_err": c["err"],
                      "ids_agree": c["ids"], "rows": rows, "rounds": rounds,
-                     "descent_steps": steps}
+                     "descent_steps": steps, "chain_steps": chain,
+                     "us_per_step": ms * 1e3 / chain}
     main = shapes[16]
     return {
         "name": "beam_search", "route": "cuda",
@@ -739,6 +769,38 @@ def time_beam(index, qs, launches):
                   "beam": 64, "expand": 8, "k": K},
         "B63": shapes[63],
     }
+
+
+def phase_beam_quick(n):
+    """For --kernels-only: `beam_search` timed on a built index of `n`
+    rows (past the 50 MB L2: the rows alone are 105 MB), the kernel as in
+    phase 4 and the call around it as in phase 3."""
+    from cozo_tpu_torch import HnswIndex
+    from cozo_tpu_torch.ops import vector_search as vs
+    from cozo_tpu_torch.utils.datasets import glove_like
+
+    data = glove_like(n + 64, D, seed=42)
+    qs, data = data[n:], data[:n]
+    t0 = time.time()
+    index = HnswIndex(dim=D, m=16, ef_construction=200, distance="Cosine")
+    index.bulk_build(data, wave=8192)
+    say(f"beam_search index for the quick timing: {n} x {D} built in "
+        f"{time.time() - t0:.1f}s")
+    entry = time_beam(index, qs, {"beam_search": 0})
+    for B in (16, 1, 4, 63):
+        index.search(qs[:B], K, 64, use_tpu=True)
+        lat = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            index.search(qs[:B], K, 64, use_tpu=True)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        args = beam_args(index, qs[:B], K, 64)
+        kernel_ms = cuda_ms(lambda: vs.beam_search(*args), 20)
+        say(f"quick beam search B={B}: search(k=10, ef=64) median "
+            f"{np.median(lat):.3f} ms min {min(lat):.3f} ms per call, the "
+            f"kernel alone {kernel_ms:.4f} ms, the call around it "
+            f"{np.median(lat) - kernel_ms:.3f} ms")
+    return entry
 
 
 def phase_kernel_timing(main_inputs, launches, reps, dev):
@@ -788,7 +850,9 @@ def main():
         index, qs, data, launches = phase_main(args.n, args.reps)
         main_inputs = main_path_inputs(index, qs)
     kernels = phase_kernel_timing(main_inputs, launches, args.reps, dev)
-    if not args.kernels_only:
+    if args.kernels_only:
+        kernels.append(phase_beam_quick(MIN_N))
+    else:
         kernels.append(time_beam(index, qs, launches))
         del main_inputs, index
         torch.cuda.empty_cache()

@@ -14,14 +14,20 @@ The JAX function (`_compiled_search`, `vector_search.py:81-205`) is two
 `lax.while_loop`s that end when NO query has work; eager PyTorch would
 pay a host sync per round.  Here the search is ONE launch of the
 hand-written CUDA kernel `csrc/beam_search.cu` (one thread block per
-query, beam and candidates in shared memory).  A finished query's round
-is a no-op in the JAX loops, so per-query termination gives the same
-result.  `beam_search` launches the kernel for CUDA tensors and runs the
+query, beam and candidates in shared memory; a round dedups through a
+hash table, lists only the candidates nearer than the beam's last and
+merges them in by rank, with no sort of the whole).  A finished query's
+round is a no-op in the JAX loops, so per-query termination gives the
+same result.  `beam_search` launches the kernel for CUDA tensors and runs the
 plain PyTorch version `beam_search_plain` (the JAX algorithm on tensors,
 Python loops) for CPU tensors.
 
 The device mirror of the index (`_device_arrays`) is cached by
-`index.version`; small mutation sets are scattered into it in place.
+`index.version`; small mutation sets are scattered into it in place.  The
+mirror also keeps the staging buffers of `hnsw_search_device` (pinned
+host memory that the kernel reads and writes in place, one set per batch
+size), so a small-batch call allocates nothing and copies nothing on the
+device.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..utils.device import default_device, PendingPull, to_device
+from ..utils.device import default_device, to_device
 from . import _build
 
 
@@ -78,9 +84,9 @@ def brute_force_knn(
 
 DIST_KINDS = {"L2": 0, "IP": 1, "Cosine": 2}
 # what the kernel's shared-memory layout takes (csrc/beam_search.cu): the
-# beam and one round's candidates are sorted together in a power-of-two
-# array of at most MAX_SORT entries, and the whole block state must fit
-# the 227 KB a block may use
+# keys of one round's candidates go into a power-of-two array of at most
+# MAX_SORT entries, and the whole block state must fit the 227 KB a block
+# may use
 MAX_SORT = 4096
 MAX_SMEM = 232_448
 
@@ -200,20 +206,35 @@ def beam_search_plain(vectors, nb0, up_nb, alive, entry: int, qs, k: int,
     return out_ids, out_d
 
 
-def sort_size(beam: int, expand: int, m0: int) -> int:
-    """Entries of the kernel's sort array: beam + one round's candidates,
-    rounded up to a power of two."""
-    return _pad_pow2(beam + expand * m0)
+def sort_size(expand: int, m0: int) -> int:
+    """Entries of the kernel's key array: one round's candidates, rounded
+    up to a power of two (the block sort's width when most of them are
+    nearer than the beam's last)."""
+    return max(_pad_pow2(expand * m0), 2)
+
+
+def table_size(beam: int, expand: int, m0: int) -> int:
+    """Slots of the kernel's dedup table: a power of two, at least twice
+    the ids one round can enter (the beam's and the candidates')."""
+    return _pad_pow2(2 * (beam + expand * m0))
 
 
 def smem_bytes(d: int, m0: int, m_up: int, beam: int, expand: int) -> int:
     """Dynamic shared memory of one block, as csrc/beam_search.cu lays it
-    out: the sort keys (8 bytes each), the query, the beam (id, distance,
-    expanded flag; double-buffered), the candidates (id, distance,
-    position list) and the round's selection."""
+    out: the round's keys and the dedup table (8 bytes an entry), the query
+    (padded to 4 floats), the beam (id, distance, expanded flag;
+    double-buffered), the candidates (id, distance, position list) and the
+    round's selection."""
     cand = max(expand * m0, m_up)
-    return (8 * sort_size(beam, expand, m0) + 4 * d + 24 * beam + 12 * cand
-            + 4 * expand)
+    return (8 * sort_size(expand, m0) + 8 * table_size(beam, expand, m0)
+            + 4 * (-(-d // 4) * 4) + 24 * beam + 12 * cand + 4 * expand)
+
+
+def out_size(B: int, k: int) -> int:
+    """int32 entries the kernel writes for B queries: [B, 2k] (a query's k
+    ids, then the bits of its k f32 distances) and behind it the counters
+    [B, 4]."""
+    return B * (2 * k + 4)
 
 
 def _check(vectors, nb0, up_nb, alive, qs, k, beam, n_levels, expand):
@@ -228,18 +249,31 @@ def _check(vectors, nb0, up_nb, alive, qs, k, beam, n_levels, expand):
             or up_nb.shape[1] != n_pad or alive.shape != (n_pad,)
             or up_nb.shape[0] < max(n_levels, 1)):
         raise ValueError("beam_search: graph arrays do not match the vectors")
-    if beam < 8 or beam % 8 or not 1 <= k <= beam or expand < 1 \
-            or n_levels < 0:
-        raise ValueError(
-            f"beam_search: needs beam a multiple of 8, 1 <= k <= beam, "
-            f"expand >= 1 (got beam={beam}, k={k}, expand={expand})")
+    _check_params(k, beam, n_levels, expand)
     for t in (vectors, nb0, up_nb, alive, qs):
         if not t.is_contiguous() or t.device != qs.device:
             raise ValueError("beam_search: inputs must be contiguous and on "
                              "one device")
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+def _check_params(k: int, beam: int, n_levels: int, expand: int) -> None:
+    if beam < 8 or beam % 8 or not 1 <= k <= beam or expand < 1 \
+            or n_levels < 0:
+        raise ValueError(
+            f"beam_search: needs beam a multiple of 8, 1 <= k <= beam, "
+            f"expand >= 1 (got beam={beam}, k={k}, expand={expand})")
+
+
+def _check_layout(d: int, m0: int, m_up: int, beam: int, expand: int) -> None:
+    smem = smem_bytes(d, m0, m_up, beam, expand)
+    if sort_size(expand, m0) > MAX_SORT or smem > MAX_SMEM:
+        raise ValueError(
+            f"beam_search: expand * m0 = {expand * m0} candidates a round "
+            f"(limit {MAX_SORT}) / {smem} bytes of shared memory (limit "
+            f"{MAX_SMEM}) is more than the kernel takes")
+
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 
 
 def _lib() -> ctypes.CDLL:
@@ -281,17 +315,41 @@ def memory_round_trip_ms(n: int = 1 << 26, steps: int = 20_000,
     return t0.elapsed_time(t1) / steps
 
 
+def _launch(vectors, nb0, up_nb, alive, entry: int, qs, out, k: int,
+            beam: int, n_levels: int, dist_kind: int, max_iters: int,
+            expand: int, stream: int) -> None:
+    """Enqueues the kernel on `stream` (a raw CUDA stream of the graph
+    arrays' device) for arguments already checked, and counts the launch.
+    `qs` and `out` lie on that device or in pinned host memory, which the
+    device reads and writes in place."""
+    lib = _lib()
+    err = lib.cozo_beam_search(
+        vectors.data_ptr(), nb0.data_ptr(), up_nb.data_ptr(),
+        alive.data_ptr(), qs.data_ptr(), out.data_ptr(),
+        qs.shape[0], vectors.shape[0], vectors.shape[1], nb0.shape[1],
+        up_nb.shape[2], n_levels, int(entry), k, beam, expand, max_iters,
+        dist_kind, vectors.device.index, stream,
+    )
+    _build.check(lib, err, "beam_search launch")
+    beam_search.launches += 1
+
+
 def beam_search(vectors, nb0, up_nb, alive, entry: int, qs, k: int,
                 beam: int, n_levels: int, dist_kind: int, max_iters: int,
-                expand: int):
+                expand: int, out=None):
     """Batched HNSW search, shapes as `beam_search_plain`.  CUDA tensors
     launch the kernel on the current stream (one launch for the whole
-    search; counted in `beam_search.launches`) and leave its per-query
-    counters [B, 4] i32 (descent steps, beam rounds, vector rows read,
-    neighbour lists read) in `beam_search.last_stats`; CPU tensors run
-    `beam_search_plain`.  Raises where the shared-memory layout does not
-    take the shape: sort_size(beam, expand, m0) > MAX_SORT or
-    smem_bytes(...) > MAX_SMEM."""
+    search; counted in `beam_search.launches`); CPU tensors run
+    `beam_search_plain`.
+
+    The kernel writes into ONE int32 buffer of `out_size(B, k)` entries
+    (`out`, allocated here unless given): [B, 2k] with a query's ids and
+    the bits of its distances, then its per-query counters [B, 4]
+    (descent steps, beam rounds, vector rows read, neighbour lists read),
+    left in `beam_search.last_stats`.  The ids and distances returned are
+    views of that buffer.  Raises where the shared-memory layout does not
+    take the shape: sort_size(expand, m0) > MAX_SORT or smem_bytes(...) >
+    MAX_SMEM."""
     _check(vectors, nb0, up_nb, alive, qs, k, beam, n_levels, expand)
     if qs.device.type == "cpu":
         return beam_search_plain(vectors, nb0, up_nb, alive, entry, qs, k,
@@ -299,30 +357,19 @@ def beam_search(vectors, nb0, up_nb, alive, entry: int, qs, k: int,
     if qs.device.type != "cuda":
         raise ValueError(f"beam_search: unsupported device {qs.device}")
     B, d = qs.shape
-    m0, m_up = nb0.shape[1], up_nb.shape[2]
-    smem = smem_bytes(d, m0, m_up, beam, expand)
-    if sort_size(beam, expand, m0) > MAX_SORT or smem > MAX_SMEM:
-        raise ValueError(
-            f"beam_search: beam + expand * m0 = {beam + expand * m0} (limit "
-            f"{MAX_SORT}) / {smem} bytes of shared memory (limit {MAX_SMEM}) "
-            "is more than the kernel takes")
-    lib = _lib()
-    out_ids = torch.empty((B, k), dtype=torch.int32, device=qs.device)
-    out_d = torch.empty((B, k), dtype=torch.float32, device=qs.device)
-    stats = torch.empty((B, 4), dtype=torch.int32, device=qs.device)
-    with torch.cuda.device(qs.device):
-        stream = torch.cuda.current_stream(qs.device).cuda_stream
-        err = lib.cozo_beam_search(
-            vectors.data_ptr(), nb0.data_ptr(), up_nb.data_ptr(),
-            alive.data_ptr(), qs.data_ptr(), out_ids.data_ptr(),
-            out_d.data_ptr(), stats.data_ptr(),
-            B, vectors.shape[0], d, m0, m_up, n_levels, int(entry), k, beam,
-            expand, max_iters, dist_kind, stream,
-        )
-    _build.check(lib, err, "beam_search launch")
-    beam_search.launches += 1
-    beam_search.last_stats = stats
-    return out_ids, out_d
+    _check_layout(d, nb0.shape[1], up_nb.shape[2], beam, expand)
+    if out is None:
+        out = torch.empty(out_size(B, k), dtype=torch.int32, device=qs.device)
+    elif (out.shape != (out_size(B, k),) or out.dtype != torch.int32
+          or out.device != qs.device or not out.is_contiguous()):
+        raise ValueError(f"beam_search: out must be {out_size(B, k)} int32 "
+                         "entries on the queries' device")
+    _launch(vectors, nb0, up_nb, alive, entry, qs, out, k, beam, n_levels,
+            dist_kind, max_iters, expand,
+            torch.cuda.current_stream(qs.device).cuda_stream)
+    packed = out[: B * 2 * k].view(B, 2 * k)
+    beam_search.last_stats = out[B * 2 * k:].view(B, 4)
+    return packed[:, :k], packed[:, k:].view(torch.float32)
 
 
 beam_search.launches = 0
@@ -426,20 +473,71 @@ def beam_params(k: int, ef: int, expand: int = None):
     return beam, (beam + expand - 1) // expand + 8, expand
 
 
+MAX_STAGING = 64  # (batch size, k) pairs whose buffers a mirror keeps
+
+
+def _staging(cache, B: int, d: int, k: int):
+    """The buffers of one small-batch call on the card, kept with the
+    mirror per (B, k) and reused: the queries [B, d] f32 and the kernel's
+    output (`out_size(B, k)` int32; `stats` is its counters' part [B, 4])
+    in pinned host memory, with numpy views (`out_np`: the [B, 2k] ids and
+    distance bits).  Pinned memory is mapped into the card's address
+    space, so the kernel reads the queries and writes its results there
+    directly: a call needs no upload and no pull."""
+    kept = cache.setdefault("staging", {})
+    st = kept.get((B, k))
+    if st is None:
+        if len(kept) >= MAX_STAGING:
+            kept.clear()
+        q_host = torch.empty((B, d), dtype=torch.float32, pin_memory=True)
+        out_host = torch.empty(out_size(B, k), dtype=torch.int32,
+                               pin_memory=True)
+        st = kept[(B, k)] = {
+            "q_host": q_host, "q_np": q_host.numpy(),
+            "out_host": out_host,
+            "out_np": out_host[: B * 2 * k].view(B, 2 * k).numpy(),
+            "stats": out_host[B * 2 * k:].view(B, 4),
+        }
+    return st
+
+
 def hnsw_search_device(index, qs: np.ndarray, k: int, ef: int,
                        expand: int = None):
+    """`index.search` for a small batch through `beam_search`: ids [B, k]
+    int64 and distances [B, k] float64 (missing: -1 / inf).
+
+    On the card the call is one staging copy, one launch of the kernel on
+    the pinned staging buffers kept with the index's device mirror
+    (`_staging`; the counters it leaves in `beam_search.last_stats` are
+    then a pinned host tensor) and one wait for the stream.  It waits for
+    its own launch before it returns, so one caller at a time is safe; a
+    mirror (like `_dev_cache` itself) is not shared between threads
+    without a lock."""
+    if qs.ndim != 2 or qs.shape[0] < 1 or qs.shape[1] != index.dim:
+        raise ValueError(f"hnsw_search_device: qs {qs.shape} must be "
+                         f"[B, {index.dim}]")
     dev = _device_arrays(index)
     beam, max_iters, expand = beam_params(k, ef, expand)
-    q = to_device(np.ascontiguousarray(qs, dtype=np.float32),
-                  dev["vectors"].device)
-    out_ids, out_d = beam_search(
-        dev["vectors"], dev["nb0"], dev["up_nb"], dev["alive"], dev["entry"],
-        q, k, beam, dev["n_levels"], DIST_KINDS[index.distance], max_iters,
-        expand,
-    )
-    # ids and distance bits come back in one pinned pull
-    packed = PendingPull(
-        torch.cat([out_ids, out_d.view(torch.int32)], dim=1)).numpy()
+    device = dev["vectors"].device
+    graph = (dev["vectors"], dev["nb0"], dev["up_nb"], dev["alive"],
+             dev["entry"])
+    tail = (k, beam, dev["n_levels"], DIST_KINDS[index.distance], max_iters,
+            expand)
+    if device.type != "cuda":
+        q = torch.from_numpy(np.ascontiguousarray(qs, dtype=np.float32))
+        out_ids, out_d = beam_search(*graph, q, *tail)
+        return (out_ids.numpy().astype(np.int64),
+                out_d.numpy().astype(np.float64))
+    # the arrays are the mirror's and the staging's own: only the caller's
+    # parameters can be wrong
+    _check_params(k, beam, dev["n_levels"], expand)
+    _check_layout(index.dim, dev["nb0"].shape[1], dev["m_up"], beam, expand)
+    st = _staging(dev, qs.shape[0], index.dim, k)
+    np.copyto(st["q_np"], qs, casting="same_kind")
+    stream = torch.cuda.current_stream(device)
+    _launch(*graph, st["q_host"], st["out_host"], *tail, stream.cuda_stream)
+    beam_search.last_stats = st["stats"]
+    stream.synchronize()
+    packed = st["out_np"]
     return (packed[:, :k].astype(np.int64),
-            np.ascontiguousarray(packed[:, k:]).view(np.float32)
-            .astype(np.float64))
+            packed[:, k:].view(np.float32).astype(np.float64))

@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA card (marker `cuda`): each CUDA
 kernel (`fused_sweep`, `beam_search`) against its plain PyTorch version,
-the lanes end to end through the kernels, and the card's int8 product
+the lanes end to end through the kernels, the staging buffers of a
+small-batch search, and the card's int8 product
 against the CPU's.  They skip where CUDA is absent.  This file imports
 neither JAX nor `cozo_tpu`, so it runs on a machine that has only the
 port's dependencies:
@@ -94,7 +95,9 @@ def test_fused_lane_goes_through_the_kernel(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", BEAM_CASES, ids=lambda c: f"{c[0]}-B{c[4]}")
+@pytest.mark.parametrize(
+    "case", BEAM_CASES,
+    ids=lambda c: f"{c[0]}-d{c[2]}-m{c[3]}-B{c[4]}-ef{c[5]}-x{c[9]}-c{c[10]}")
 def test_beam_search_matches_plain(cuda, case):
     """At `chip_smoke.py` phase 2's shapes and by its measure: ids equal on
     >= 99% of (query, rank) entries (the kernel's sums differ from the
@@ -102,7 +105,7 @@ def test_beam_search_matches_plain(cuda, case):
     distances within 1e-4 where ids match, no dead row, two runs
     bit-identical, one count per launch."""
     idx, qs = beam_case(*case)
-    args = beam_args(idx, qs, case[6], case[5])
+    args = beam_args(idx, qs, case[6], case[5], case[9])
     before = vs.beam_search.launches
     out = vs.beam_search(*args)
     again = vs.beam_search(*args)
@@ -120,22 +123,91 @@ def test_beam_search_matches_plain(cuda, case):
 
 @pytest.mark.cuda
 def test_beam_search_refuses_a_beam_past_shared_memory(cuda):
+    """Past the layout's limits the wrapper raises and launches nothing:
+    a beam whose dedup table does not fit the block's shared memory, more
+    candidates a round than the key array takes, an output buffer of
+    another size."""
     idx, qs = beam_case(*BEAM_CASES[3])
+    before = vs.beam_search.launches
     with pytest.raises(ValueError, match="more than the kernel takes"):
         vs.beam_search(*beam_args(idx, qs, 3, 8192))
+    with pytest.raises(ValueError, match="more than the kernel takes"):
+        vs.beam_search(*beam_args(idx, qs, 3, 64, expand=512))
+    args = beam_args(idx, qs, 3, 64)
+    with pytest.raises(ValueError, match="out must be"):
+        vs.beam_search(*args, out=torch.zeros(7, dtype=torch.int32,
+                                              device=cuda))
+    assert vs.beam_search.launches == before
+    # the largest beam the layout takes still runs
+    beam = 8
+    m0, m_up = args[1].shape[1], args[2].shape[2]
+    while vs.smem_bytes(16, m0, m_up, 2 * beam, 8) <= vs.MAX_SMEM:
+        beam *= 2
+    ids, _ = vs.beam_search(*beam_args(idx, qs, 3, beam))
+    ref, _ = vs.beam_search_plain(*beam_args(idx, qs, 3, beam))
+    torch.cuda.synchronize()
+    assert float((ids == ref).float().mean()) >= 0.99
 
 
-@pytest.mark.cuda
-def test_small_batch_search_goes_through_the_kernel(cuda):
+@pytest.fixture(scope="module")
+def big_index():
+    """A table past 131,072 rows: small batches take the beam-search kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA is not available)")
     rng = np.random.default_rng(3)
     data = rng.standard_normal((140_000, 16)).astype(np.float32)
     idx = HnswIndex(dim=16, m=8, ef_construction=50, distance="L2")
     idx.bulk_build(data, wave=8192)
     qs = data[:16] + 0.01 * rng.standard_normal((16, 16)).astype(np.float32)
+    return idx, qs
+
+
+@pytest.mark.cuda
+def test_small_batch_search_goes_through_the_kernel(cuda, big_index):
+    idx, qs = big_index
     before = vs.beam_search.launches
     ids, _ = idx.search(qs, k=10, ef=64)
     assert vs.beam_search.launches == before + 1
     assert float(np.mean(ids[:, 0] == np.arange(16))) > 0.9
+
+
+@pytest.mark.cuda
+def test_small_batch_searches_reuse_their_staging_buffers(cuda, big_index):
+    """Two batch sizes on one index: each keeps one set of pinned staging
+    buffers with the device mirror (the kernel reads and writes them in
+    place), a repeated call reuses its set (same memory) and answers as a
+    call with fresh buffers does, and what a call returned is its own:
+    later calls do not write over it."""
+    idx, qs = big_index
+    ids16, d16 = idx.search(qs, k=10, ef=64)
+    kept = idx._dev_cache["staging"]
+    assert (16, 10) in kept
+    ptrs = {name: t.data_ptr() for name, t in kept[(16, 10)].items()
+            if isinstance(t, torch.Tensor)}
+    assert kept[(16, 10)]["q_host"].is_pinned()
+    assert kept[(16, 10)]["out_host"].is_pinned()
+    ids16_copy, d16_copy = ids16.copy(), d16.copy()
+    ids5, d5 = idx.search(qs[:5], k=10, ef=64)
+    assert set(kept) >= {(16, 10), (5, 10)}
+    again_ids, again_d = idx.search(qs, k=10, ef=64)
+    assert idx._dev_cache["staging"] is kept
+    assert ptrs == {name: t.data_ptr() for name, t in kept[(16, 10)].items()
+                    if isinstance(t, torch.Tensor)}
+    assert np.array_equal(again_ids, ids16) and np.array_equal(again_d, d16)
+    assert np.array_equal(ids16, ids16_copy) and np.array_equal(d16, d16_copy)
+    assert np.array_equal(ids5, ids16[:5]) and np.array_equal(d5, d16[:5])
+    kept.clear()  # fresh buffers
+    fresh_ids, fresh_d = idx.search(qs, k=10, ef=64)
+    assert np.array_equal(fresh_ids, ids16) and np.array_equal(fresh_d, d16)
+    assert ids16.dtype == np.int64 and d16.dtype == np.float64
+    last = vs.beam_search.last_stats
+    assert last.shape == (16, 4) and bool((last[:, 1] >= 1).all())
+    with pytest.raises(ValueError, match="must be"):
+        vs.hnsw_search_device(idx, qs[:, :1], 10, 64)  # would broadcast
+    # the same kernel on buffers in device memory answers alike
+    dev_ids, dev_d = vs.beam_search(*beam_args(idx, qs, 10, 64))
+    assert np.array_equal(dev_ids.cpu().numpy(), ids16)
+    assert np.array_equal(dev_d.cpu().numpy().astype(np.float64), d16)
 
 
 @pytest.mark.cuda

@@ -70,6 +70,17 @@ def test_beam_search_single_query_and_expand(monkeypatch):
         np.testing.assert_allclose(d_t, d_j, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("shape", [(4, 1), (0, 19), (19,)],
+                         ids=["one column", "no query", "one dimension"])
+def test_search_device_refuses_queries_of_another_shape(shape):
+    """A [B, 1] batch would broadcast into the staging buffer; an empty or
+    flat one has no batch: all raise before anything runs."""
+    rng, data, jidx = _built("L2", n=200, d=19, seed=5, removed=())
+    tidx = carry(jidx)
+    with pytest.raises(ValueError, match="must be"):
+        vs.hnsw_search_device(tidx, np.zeros(shape, dtype=np.float32), 5, 24)
+
+
 def test_device_mirrors_equal():
     """Both packages' `_device_arrays` of one host index hold the same
     bits."""
@@ -169,10 +180,15 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
         vs.beam_search(*args, q.double(), 3, 8, tc["n_levels"], 0, 10, 4)
     # the shared-memory layout, as the wrapper and the launcher compute it
-    assert vs.sort_size(64, 8, 32) == 512
+    assert vs.sort_size(8, 32) == 256 and vs.sort_size(1, 1) == 2
+    assert vs.table_size(64, 8, 32) == 1024  # >= 2 * (64 + 256) slots
     assert vs.smem_bytes(100, 32, 16, 64, 8) == (
-        8 * 512 + 4 * 100 + 24 * 64 + 12 * 256 + 4 * 8)
-    assert vs.sort_size(2048, 64, 64) > vs.MAX_SORT
+        8 * 256 + 8 * 1024 + 4 * 100 + 24 * 64 + 12 * 256 + 4 * 8)
+    assert vs.smem_bytes(37, 16, 8, 64, 8) - vs.smem_bytes(36, 16, 8, 64, 8) == 16
+    assert vs.sort_size(64, 128) > vs.MAX_SORT
+    assert vs.smem_bytes(32, 16, 8, 2048, 8) <= vs.MAX_SMEM  # beam 2048 runs
+    assert vs.smem_bytes(16, 16, 8, 8192, 8) > vs.MAX_SMEM
+    assert vs.out_size(16, 10) == 16 * 24
 
 
 # ---- the kernel's round, re-enacted ---------------------------------------
@@ -185,24 +201,69 @@ def _ordered(d):
     return torch.where(u >= 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
 
 
-def kernel_rounds(ids, dists, expanded, nb0, vectors, qs, expand, dist_kind):
+RANK_MAX = 256  # csrc/beam_search.cu: listed keys placed by counting
+
+
+def _key(d, pos):
+    """csrc/beam_search.cu `make_key`: (ordered distance, position).  The
+    kernel compares it as unsigned 64-bit; here the ordered distance is
+    shifted down by 2^31 so that the signed int64 compares alike."""
+    return ((_ordered(d) - 0x80000000) << 32) | pos
+
+
+def _table_dedup(beam_ids, c_id, n_slots):
+    """The kernel's dedup table, slot by slot: `h_id[slot]` an id,
+    `h_pos[slot]` the lowest position entered for it (-1 for a beam
+    entry), linear probing from a multiplicative hash.  Returns the
+    survivors: not -1, and the table's position for the id is the
+    candidate's own."""
+    log_h = n_slots.bit_length() - 1
+    h_id, h_pos = {}, {}
+
+    def slot_of(i):
+        s = ((i * 2654435761) & 0xFFFFFFFF) >> (32 - log_h)
+        while s in h_id and h_id[s] != i:
+            s = (s + 1) & (n_slots - 1)
+        return s
+
+    def enter(i, pos):
+        s = slot_of(i)
+        h_id[s] = i
+        h_pos[s] = min(h_pos.get(s, 2 ** 31 - 1), pos)
+
+    for i in beam_ids.tolist():
+        if i >= 0:
+            enter(i, -1)
+    cands = c_id.tolist()
+    for p, i in enumerate(cands):
+        if i >= 0:
+            enter(i, p)
+    assert len(h_id) <= n_slots // 2
+    return torch.tensor([i >= 0 and h_pos[slot_of(i)] == p
+                         for p, i in enumerate(cands)], dtype=torch.bool)
+
+
+def kernel_rounds(ids, dists, expanded, nb0, vectors, qs, expand, dist_kind,
+                  rank_max=RANK_MAX):
     """One round of csrc/beam_search.cu, query by query and step by step
     as a block does it: prefix selection over the sorted beam, neighbour
-    gather in selection order, first-occurrence dedup, distances of the
-    survivors only, a sort of 64-bit (ordered distance, position) keys
-    padded to a power of two, the double-buffered beam.  (The distances
-    are taken in one product of the plain version's shape, so that equal
-    rows give equal bits in both.)"""
+    gather in selection order, first-occurrence dedup through the hash
+    table, distances of the survivors only, the threshold filter (strictly
+    below the beam's last), 64-bit (ordered distance, position) keys of
+    the candidates that pass, and the merge by rank: an entry's new place
+    is the number of keys below its own (counted, or by binary search in
+    the sorted list past `rank_max` keys), written into the other beam
+    buffer if inside.  (The distances are taken in one product of the
+    plain version's shape, so that equal rows give equal bits in both.)"""
     B, beam = ids.shape
     m0 = nb0.shape[1]
     C = expand * m0
-    T = vs.sort_size(beam, expand, m0)
+    assert C <= vs.sort_size(expand, m0) <= vs.MAX_SORT
     inf = math.inf
     expanded = expanded.clone()
     c_id = torch.full((B, C), -1, dtype=torch.int32)
     ok = torch.zeros((B, C), dtype=torch.bool)
     idle = []
-    earlier = torch.tril(torch.ones((C, C), dtype=torch.bool), diagonal=-1)
     for b in range(B):
         open_ = ~expanded[b] & (ids[b] >= 0)
         idle.append(not bool(open_.any()))
@@ -212,35 +273,49 @@ def kernel_rounds(ids, dists, expanded, nb0, vectors, qs, expand, dist_kind):
         sel = ids[b][chosen]  # beam order IS ascending (distance, position)
         expanded[b] |= chosen
         c_id[b, : len(sel) * m0] = nb0[sel.long()].reshape(-1)
-        ok[b] = c_id[b] >= 0
-        ok[b] &= ~(c_id[b][:, None] == ids[b][None, :]).any(1)
-        ok[b] &= ~((c_id[b][:, None] == c_id[b][None, :]) & earlier).any(1)
+        ok[b] = _table_dedup(ids[b], c_id[b], vs.table_size(beam, expand, m0))
     c_d = vs._dist(qs, vectors[c_id.clamp(min=0).long()], dist_kind)
-    c_d = torch.where(ok, c_d, torch.full_like(c_d, inf))
-    c_id = torch.where(ok, c_id, torch.full_like(c_id, -1))
     out = []
     for b in range(B):
-        if idle[b]:  # the block has left its loop: nothing changes
+        thr = dists[b, beam - 1]
+        listed = torch.nonzero(ok[b] & (c_d[b] < thr))[:, 0]
+        if idle[b] or len(listed) == 0:
+            # the block has left its loop, or nothing passed: the beam
+            # stays (with the flags of what was expanded)
             out.append((ids[b], dists[b], expanded[b]))
             continue
-        keys = torch.full((T,), -1, dtype=torch.int64)  # all ones: sorts last
-        pos = torch.arange(beam + C)
-        keys[: beam + C] = (_ordered(torch.cat([dists[b], c_d[b]])) << 32) | pos
-        # as unsigned 64-bit: flip the sign bit for a signed sort
-        order = torch.argsort(keys ^ (-(2 ** 63)))[:beam]
-        src = keys[order] & 0xFFFFFFFF
-        out.append((torch.cat([ids[b], c_id[b]])[src],
-                    torch.cat([dists[b], c_d[b]])[src],
-                    torch.cat([expanded[b], c_id[b] < 0])[src]))
+        keys = _key(c_d[b][listed], beam + listed)
+        b_keys = _key(dists[b], torch.arange(beam))
+        if len(listed) > rank_max:  # the block's sort, then binary searches
+            keys, order = torch.sort(keys)
+            listed = listed[order]
+            c_rank = torch.arange(len(keys))
+            b_below = torch.searchsorted(keys, b_keys)
+        else:
+            c_rank = (keys[None, :] < keys[:, None]).sum(1)
+            b_below = (keys[None, :] < b_keys[:, None]).sum(1)
+        cd = c_d[b][listed]
+        # beam entries not farther stay ahead of a candidate
+        c_at = torch.searchsorted(dists[b], cd, right=True) + c_rank
+        b_at = torch.arange(beam) + b_below
+        new = [torch.full((beam,), -7, dtype=torch.int32),
+               torch.full((beam,), math.nan), torch.zeros(beam, dtype=torch.bool)]
+        bk, ck = b_at < beam, c_at < beam
+        new[0][b_at[bk]], new[0][c_at[ck]] = ids[b][bk], c_id[b][listed][ck]
+        new[1][b_at[bk]], new[1][c_at[ck]] = dists[b][bk], cd[ck]
+        new[2][b_at[bk]], new[2][c_at[ck]] = expanded[b][bk], False
+        out.append(tuple(new))  # every place below `beam` was written once
     return [torch.stack(x) for x in zip(*out)]
 
 
+@pytest.mark.parametrize("rank_max", [RANK_MAX, 4], ids=["count", "sort"])
 @pytest.mark.parametrize("distance,expand", [("L2", 4), ("IP", 8),
                                              ("Cosine", 2)])
-def test_kernel_round_reenacted_equals_plain(distance, expand):
-    """The kernel's way of doing a round (prefix select, first-occurrence
-    dedup, unsigned key sort) gives the plain version's beam, round after
-    round, duplicates and ties included."""
+def test_kernel_round_reenacted_equals_plain(distance, expand, rank_max):
+    """The kernel's way of doing a round (prefix select, hash-table dedup,
+    threshold filter, merge by rank; with `rank_max` lowered, its sorted
+    merge) gives the plain version's beam, round after round, duplicates
+    and ties included."""
     rng, data, jidx = _built(distance, n=500, d=16, seed=11)
     # duplicate rows: equal distances, so the tie rule is exercised
     for i in range(60, 90):
@@ -260,12 +335,105 @@ def test_kernel_round_reenacted_equals_plain(distance, expand):
         want = vs.beam_round(ids, dists, expanded, tc["nb0"], tc["vectors"],
                              qs, expand, kind)
         got = kernel_rounds(ids, dists, expanded, tc["nb0"], tc["vectors"],
-                            qs, expand, kind)
+                            qs, expand, kind, rank_max)
         for g, w in zip(got, want):
             assert torch.equal(g, w), rounds
         ids, dists, expanded = want
         rounds += 1
     assert rounds >= 5
+
+
+def _crafted_round(case):
+    """One beam state and graph on a line (row i at x = radius[i], the
+    query at 0, L2: a distance is radius^2, exact in f32), built so that
+    one round meets `case`.  Returns (ids, dists, expanded, nb0, vectors,
+    qs, expand) and what the round must do."""
+    n, m0 = 128, 8
+    radius = np.arange(1, n + 1, dtype=np.float32)
+    nb0 = np.full((n, m0), -1, dtype=np.int32)
+    beam, expand = 8, 2
+    if case == "beam not full":
+        members, flags = [10, 20, 30], [True, False, False]
+        nb0[20] = [5, 40, 10, -1, 41, 42, 5, 43]  # 10 in the beam, 5 twice
+        nb0[30] = [40, 44, 2, 45, 20, -1, 46, 47]  # 40 again, 20 in the beam
+        passed = 9  # 5, 40, 41, 42, 43, 44, 2, 45, 46, 47 less the cut at 8
+    elif case == "no candidate passes":
+        beam = 4
+        members, flags = [1, 2, 3, 4], [True, True, False, False]
+        nb0[3] = [50, 51, 52, 1, 53, 54, 55, 56]
+        nb0[4] = [60, 50, 61, 62, 2, 63, 64, 65]
+        passed = 0
+    elif case == "equal to the last loses":
+        beam = 4
+        members, flags = [1, 2, 3, 4], [True, True, False, False]
+        radius[60] = radius[4]  # the beam's last distance again
+        nb0[3] = [60, 50, 0, 51, 52, 53, 54, 55]  # 0 is nearer than all
+        nb0[4] = [56, 57, 58, 59, 61, 62, 63, 64]
+        passed = 1
+    elif case == "two selected lists alike":
+        members, flags = [3, 9, 12, 15, 18, 21, 24, 27], [True] + [False] * 7
+        nb0[9] = [1, 2, 4, 5, 6, 7, 8, 10]
+        nb0[12] = [1, 2, 4, 5, 6, 7, 8, 10]
+        passed = 8
+    elif case == "more candidates than the beam":
+        expand = 4  # C = 32 > beam = 8
+        members = [40, 41, 42, 43, 44, 45, 46, 47]
+        flags = [False] * 8
+        for r, m in enumerate(members[:4]):
+            nb0[m] = np.arange(8 * r, 8 * r + 8)  # 32 rows, all nearer
+        passed = 32
+    elif case == "more than 32 pass":
+        beam, expand = 64, 8
+        members, flags = list(range(100, 110)), [False] * 10
+        for r, m in enumerate(members[:8]):
+            nb0[m] = np.arange(8 * r, 8 * r + 8)
+        passed = 64
+    else:
+        raise AssertionError(case)
+    vectors = np.zeros((n, 2), dtype=np.float32)
+    vectors[:, 0] = radius
+    ids = torch.full((1, beam), -1, dtype=torch.int32)
+    ids[0, : len(members)] = torch.tensor(members, dtype=torch.int32)
+    dists = torch.full((1, beam), math.inf)
+    dists[0, : len(members)] = torch.from_numpy(radius[members] ** 2)
+    expanded = torch.ones((1, beam), dtype=torch.bool)
+    expanded[0, : len(members)] = torch.tensor(flags)
+    state = (ids, dists, expanded, torch.from_numpy(nb0),
+             torch.from_numpy(vectors), torch.zeros((1, 2)), expand)
+    return state, passed
+
+
+@pytest.mark.parametrize("rank_max", [RANK_MAX, 4], ids=["count", "sort"])
+@pytest.mark.parametrize("case", [
+    "beam not full", "no candidate passes", "equal to the last loses",
+    "two selected lists alike", "more candidates than the beam",
+    "more than 32 pass"])
+def test_kernel_round_on_crafted_states(case, rank_max):
+    """The re-enacted round equals the plain round on states built to meet
+    each branch of the kernel's merge, and the branch is really met: the
+    number of candidates that pass the threshold is the one intended."""
+    (ids, dists, expanded, nb0, vectors, qs, expand), passed = \
+        _crafted_round(case)
+    beam = ids.shape[1]
+    want = vs.beam_round(ids, dists, expanded, nb0, vectors, qs, expand, 0)
+    got = kernel_rounds(ids, dists, expanded, nb0, vectors, qs, expand, 0,
+                        rank_max)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # how many candidates the filter let through: valid, first occurrence,
+    # not in the beam, strictly below the beam's last
+    new_ids = want[0][0]
+    cand = nb0[ids[0][(~expanded[0]) & (ids[0] >= 0)][:expand].long()].reshape(-1)
+    fresh = sorted({int(c) for c in cand if c >= 0} - set(ids[0].tolist()))
+    thr = float(dists[0, beam - 1])
+    n_pass = sum(float(vectors[c, 0]) ** 2 < thr for c in fresh)
+    assert n_pass == (10 if case == "beam not full" else passed)
+    if case == "no candidate passes":
+        assert torch.equal(new_ids, ids[0]) and bool(want[2][0].all())
+    if case == "equal to the last loses":
+        assert 60 not in new_ids.tolist() and new_ids.tolist() == [0, 1, 2, 3]
+    if case == "more than 32 pass":
+        assert new_ids.tolist() == list(range(64))
 
 
 def test_ordered_key_orders_like_floats():
