@@ -16,6 +16,13 @@ beside it).  Last, the small-batch path: one `HnswIndex.search` through
 the beam-search kernel under the profiler, then the steps of
 `hnsw_search_device` re-enacted one by one in the same way (staging copy,
 launch, wait, unpack) at B = 1, 4, 16, 63.
+
+`--db` profiles the Db instead (`chip_smoke.py` phase 5's scripts):
+`Db("mem")` on the card, ingest and `::hnsw create` of `--n` rows, then
+the 4,096-query pivot join, the small join (B = 16) and the 2-hop, each
+warm, under `cProfile`: the host functions that take the time, beside
+the serving call's own time.  The evaluator's share does not depend on
+the table's size (4,096 queries, 40,960 rows), so `--n 262144` will do.
 Needs CUDA; it measures, it checks nothing (chip_smoke.py checks).
 """
 
@@ -202,6 +209,67 @@ def beam_recall_curve(index, qs, nq=252):
               f"({rounds_u:.1f} rounds)", flush=True)
 
 
+def db_profile(data, qs):
+    """`--db`: the phase 5 scripts under cProfile."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    from chip_smoke import (DB_NQ, DB_SMALL, JOIN, TWO_HOP, build_db,
+                            store_queries)
+
+    db, took = build_db(data)
+    print(f"db ingest {len(data)} rows: {took['ingest_s']:.1f}s, ::hnsw "
+          f"create {took['ddl_s']:.1f}s (bulk_build {took['bulk_build_s']:.1f}"
+          f"s)", flush=True)
+    store_queries(db, "q", qs[:DB_NQ])
+    store_queries(db, "q16", qs[DB_NQ:DB_NQ + DB_SMALL])
+    index = db.algo_cache["hnsw::item::ix"].index
+    cases = (("pivot join B=4096", JOIN.format(rel="q"), None, 3,
+              lambda: index.search(qs[:DB_NQ], K, 64)),
+             ("small join B=16", JOIN.format(rel="q16"), None, 20,
+              lambda: index.search(qs[DB_NQ:DB_NQ + DB_SMALL], K, 64)),
+             ("2-hop", TWO_HOP, {"q": qs[0]}, 20, None))
+    for tag, script, params, reps, search in cases:
+        db.run_script(script, params)  # warm: tables and mirror go up
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            db.run_script(script, params)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        line = f"db {tag}: median {np.median(walls):.3f} ms of {reps}"
+        if search is not None:
+            lane = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                search()
+                lane.append((time.perf_counter() - t0) * 1e3)
+            line += (f"; HnswIndex.search on its queries alone "
+                     f"{np.median(lane):.3f} ms "
+                     f"({100 * np.median(lane) / np.median(walls):.1f}%)")
+        print(line, flush=True)
+        prof = cProfile.Profile()
+        prof.enable()
+        for _ in range(reps):
+            db.run_script(script, params)
+        prof.disable()
+        st = pstats.Stats(prof)
+        total = st.total_tt / reps * 1e3
+        print(f"  under cProfile: {total:.3f} ms a run; the functions by "
+              f"their own time (ms a run, calls a run):", flush=True)
+        rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:12]
+        for (fname, line_no, func), (_, nc, tt, ct, _) in rows:
+            where = f"{os.path.relpath(fname)}:{line_no}" \
+                if fname.startswith("/") else fname
+            print(f"  {tt / reps * 1e3:9.3f} own {ct / reps * 1e3:9.3f} cum "
+                  f"x{nc // reps:<7d} {func} ({where})", flush=True)
+    subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"], check=False)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=N)
@@ -209,6 +277,9 @@ def main():
                     help="after the build, only the small-batch path: the "
                          "steps of a call and the graph-search recall curve "
                          "(host search beside the kernel)")
+    ap.add_argument("--db", action="store_true",
+                    help="profile the Db's scripts (chip_smoke.py phase 5) "
+                         "on an index of --n rows built through the Db")
     args = ap.parse_args()
 
     import torch
@@ -225,6 +296,8 @@ def main():
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
     data = glove_like(args.n + NQ, D, seed=42)
     qs, data = data[args.n:], data[:args.n]
+    if args.db:
+        return db_profile(data, qs)
     t0 = time.time()
     index = HnswIndex(dim=D, m=16, ef_construction=200, distance="Cosine")
     index.bulk_build(data, wave=8192)

@@ -21,8 +21,20 @@ Phases, each reported on its own line; any failure exits non-zero:
      merge), many duplicate rows:
      ids equal on >= 99% of (query, rank) entries, distances within 1e-4
      where ids match, no dead row returned, two runs identical;
-  3. drive the main path through the user entry points: `glove_like`
-     data (seed 42), `HnswIndex.bulk_build` (device build), then
+  5. (run before phase 3) drive the Db through CozoScript, the script of
+     `benches/bench_hybrid_1m.py` phases 1-4 at full size: `glove_like`
+     data (seed 42), `Db("mem")` on the card, ingest by `:put` batches of
+     50,000 ndarray rows, `::hnsw create` (the DDL's device bulk build,
+     written as the packed KV image), the vector-pivot join of 4,096
+     stored queries (cold, warm, after the index cache is rebuilt from KV;
+     recall@10 >= 0.999 against the exact f32 lane), the small join
+     (B = 16, the beam-search kernel; ids equal to `HnswIndex.search`
+     called directly), the 2-hop (its second hop through the kernel), 8
+     threads of small joins against the sequential answers, then `:put`
+     and `:rm` through the Db (the mirror updated in place); prints a
+     `db` JSON line;
+  3. drive the index's main path through the user entry points on the
+     index phase 5 built (the same data, `bulk_build(wave=8192)`): then
      `sweep_search` with the f32 lane as ground truth and the fused,
      bf16+rerank, raw bf16 and i8+rerank lanes at B=16,384 (one warm call
      and `--reps` timed reps for the fused lane, 3 for the others),
@@ -76,6 +88,16 @@ I8_BUILD_N = 262_144
 
 def say(msg):
     print(msg, flush=True)
+
+
+def smi_line():
+    """The card's name and power limit as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return smi.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps):
@@ -322,30 +344,22 @@ def recall(ids, gt):
     ]))
 
 
-def phase_main(n, reps):
-    """Build and serve through the entry points; returns what phase 4
-    needs (index, queries, launch counts)."""
+def phase_main(index, qs, build_s, reps):
+    """Serve the index that phase 5 built through the Db (the same data,
+    `bulk_build(wave=8192)`, cosine, m = 16, ef_construction = 200, slots
+    equal to ids) through the entry points; returns what phase 4 needs
+    (launch counts)."""
     import torch
 
-    from cozo_tpu_torch import HnswIndex, sweep_search
+    from cozo_tpu_torch import sweep_search
     from cozo_tpu_torch.ops import fused_sweep as fs
-    from cozo_tpu_torch.utils.datasets import glove_like
 
-    t0 = time.time()
-    data = glove_like(n + NQ, D, seed=42)
-    qs, data = data[n:], data[:n]
-    say(f"phase 3 datagen {n} + {NQ} x {D} in {time.time() - t0:.1f}s")
-
+    n = index.n
     # counts of the main path's run only
     fs.fused_sweep.launches = 0
     fs.fused_sweep.route_launches = dict.fromkeys(fs.ROUTES, 0)
-    t0 = time.time()
-    index = HnswIndex(dim=D, m=16, ef_construction=200, distance="Cosine")
-    index.bulk_build(data, wave=8192)
-    torch.cuda.synchronize()
-    build_s = time.time() - t0
-    say(f"phase 3 build: {n} vectors in {build_s:.1f}s "
-        f"({n / build_s:.0f} vectors/s)")
+    say(f"phase 3 serves the Db's index: {n} slots ({int(index.alive[:n].sum())}"
+        f" alive), built by the DDL in phase 5 ({build_s:.1f}s)")
 
     t0 = time.time()
     gt, gt_d = sweep_search(index, qs, K, rt=1.0, compute_dtype="f32",
@@ -397,7 +411,7 @@ def phase_main(n, reps):
     say("phase 3 summary " + json.dumps(
         {"n": n, "nq": NQ, "build_s": build_s, "lanes": lanes,
          "beam_search": beam}))
-    return index, qs, data, launches
+    return launches
 
 
 def phase_quant_dispatch(index, qs, gt):
@@ -529,6 +543,279 @@ def phase_beam_main(index, qs, gt):
         raise SystemExit("phase 3 failed: beam_search never launched")
     say(f"phase 3 beam_search launches on the main path: {out['launches']}")
     return out
+
+
+DB_NQ, DB_SMALL, INGEST_BATCH = 4096, 16, 50_000  # bench_hybrid_1m.py
+JOIN = ("?[qid, id, d] := *{rel}{{qid, qv}}, ~item:ix{{id | query: qv, k: 10, "
+        "ef: 64, bind_distance: d}}")
+TWO_HOP = ("first[id, v2] := ~item:ix{id, v: v2 | query: qv, k: 4, ef: 64}, "
+           "qv = vec($q)\n"
+           "?[id2] := first[id, v2], ~item:ix{id: id2 | query: v2, k: 4, "
+           "ef: 64}, id2 != id")
+
+
+def join_ids(rows, nq):
+    """The pivot join's rows as [nq, K] ids by distance (-1 padded) and the
+    distances beside them."""
+    ids = np.full((nq, K), -1, dtype=np.int64)
+    dists = np.full((nq, K), np.inf)
+    per = {}
+    for qid, i, d in rows:
+        per.setdefault(qid, []).append((d, i))
+    for qid, got in per.items():
+        got.sort()
+        ids[qid, :len(got)] = [i for _, i in got[:K]]
+        dists[qid, :len(got)] = [d for d, _ in got[:K]]
+    return ids, dists
+
+
+def median_ms(fn, reps):
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(lat)), out
+
+
+def build_db(data):
+    """`Db("mem")` holding `data` as `item {id: Int => v}`, ingested by
+    `:put` batches of 50,000 ndarray rows, and `::hnsw create item:ix`
+    (cosine, m = 16, ef_construction = 200) as the packed KV image, which
+    every index past 2M rows takes by default (a row image of 1.18M rows
+    is 20-30M KV rows encoded in Python).  Returns the Db and the seconds
+    of the ingest, the DDL and the bulk build inside it."""
+    import torch
+
+    from cozo_tpu_torch import Db
+    from cozo_tpu_torch.models.hnsw_index import HnswIndex
+
+    n, d = data.shape
+    out = {}
+    db = Db("mem")
+    db.run_script(f":create item {{id: Int => v: <F32; {d}>}}")
+    t0 = time.time()
+    for s in range(0, n, INGEST_BATCH):
+        rows = [[s + i, data[s + i]] for i in range(min(INGEST_BATCH, n - s))]
+        db.run_script("?[id, v] <- $rows :put item {id => v}", {"rows": rows})
+    out["ingest_s"] = time.time() - t0
+    out["ingest_rows_per_s"] = n / out["ingest_s"]
+    build = HnswIndex.bulk_build
+    spent = []
+
+    def timed_build(self, *a, **kw):
+        t = time.time()
+        res = build(self, *a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.time() - t)
+        return res
+
+    os.environ["COZO_TPU_PACKED_KV_MIN"] = str(min(1_000_000, n))
+    HnswIndex.bulk_build = timed_build
+    try:
+        t0 = time.time()
+        db.run_script(f"::hnsw create item:ix {{dim: {d}, m: 16, dtype: F32, "
+                      "fields: [v], distance: Cosine, ef_construction: 200}")
+        out["ddl_s"] = time.time() - t0
+    finally:
+        HnswIndex.bulk_build = build
+        del os.environ["COZO_TPU_PACKED_KV_MIN"]
+    if len(spent) != 1:
+        raise SystemExit("::hnsw create did not bulk-build the index once")
+    out["bulk_build_s"] = spent[0]
+    return db, out
+
+
+def store_queries(db, rel, rows):
+    """`rel {qid: Int => qv}` holding `rows` (numbered from 0)."""
+    db.run_script(f":create {rel} {{qid: Int => qv: <F32; {rows.shape[1]}>}}")
+    db.run_script(f"?[qid, qv] <- $rows :put {rel} {{qid => qv}}",
+                  {"rows": [[i, rows[i]] for i in range(len(rows))]})
+
+
+def phase_db(data, qs):
+    """Phase 5: `cozo_tpu_torch.Db("mem")` on the card, the script of
+    `benches/bench_hybrid_1m.py` phases 1-4: ingest, `::hnsw create`, the
+    vector-pivot join of 4,096 stored queries (cold, warm, after a cache
+    rebuild from KV), the small join (B = 16) and the 2-hop (the
+    beam-search kernel), 8 threads of small joins, then writes.  Returns
+    (the Db's index, the bulk build's seconds, phase 5's launches)."""
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    from cozo_tpu_torch import sweep_search
+    from cozo_tpu_torch.ops import fused_sweep as fs
+    from cozo_tpu_torch.ops import vector_search as vs
+
+    n, d = data.shape
+    vs.beam_search.launches = 0  # counts of this path only
+    fs.fused_sweep.launches = 0
+    db, out = build_db(data)
+    out.update(n=n, d=d)
+    say(f"phase 5 ingest: {n} rows in {out['ingest_s']:.1f}s "
+        f"({out['ingest_rows_per_s']:.0f} rows/s, :put batches of "
+        f"{INGEST_BATCH})")
+    cache = db.algo_cache["hnsw::item::ix"]
+    index = cache.index
+    ok = (cache.packed and index.n == n and index.device == db.device
+          and np.array_equal(cache.slot_ids, np.arange(n)))
+    say(f"phase 5 ::hnsw create: {out['ddl_s']:.1f}s, of which bulk_build "
+        f"{out['bulk_build_s']:.1f}s ({n / out['bulk_build_s']:.0f} "
+        f"vectors/s); packed image {cache.packed}, slots equal ids "
+        f"{ok} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 5 failed: the DDL build")
+
+    store_queries(db, "q", qs[:DB_NQ])
+    # the small joins' query sets: q16 for the sequential runs, q16_t for
+    # thread t (each its own queries)
+    small = [qs[DB_NQ + DB_SMALL * t: DB_NQ + DB_SMALL * (t + 1)]
+             for t in range(9)]
+    for t, rel in enumerate(["q16"] + [f"q16_{t}" for t in range(8)]):
+        store_queries(db, rel, small[t])
+
+    join = JOIN.format(rel="q")
+    t0 = time.time()
+    res = db.run_script(join)
+    out["join_cold_s"] = time.time() - t0
+    reps = []
+    for _ in range(3):
+        t0 = time.time()
+        res = db.run_script(join)
+        reps.append(time.time() - t0)
+    out["join_warm_s"] = float(np.median(reps))
+    out["join_qps"] = DB_NQ / out["join_warm_s"]
+    out["join_rows"] = len(res.rows)
+    ids_j, d_j = join_ids(res.rows, DB_NQ)
+    gt, _ = sweep_search(index, qs[:DB_NQ], K, rt=1.0, compute_dtype="f32",
+                         exact_rerank=False)
+    out["join_recall@10"] = recall(ids_j, gt)
+    # the serving lane alone on the same queries: its share of the join
+    lane_s = []
+    for _ in range(3):
+        t0 = time.time()
+        index.search(qs[:DB_NQ], K, 64)
+        lane_s.append(time.time() - t0)
+    out["join_lane_s"] = float(np.median(lane_s))
+    ok = (out["join_rows"] == DB_NQ * K and out["join_recall@10"] >= 0.999
+          and np.isfinite(d_j).all())
+    say(f"phase 5 pivot join (B={DB_NQ}, k=10, ef=64): cold "
+        f"{out['join_cold_s']:.2f}s (the index's first search: its device "
+        f"tables go up), warm median {out['join_warm_s']:.3f}s = "
+        f"{out['join_qps']:.0f} QPS, {out['join_rows']} rows; the bf16 + "
+        f"re-rank lane alone {out['join_lane_s']:.3f}s "
+        f"({100 * out['join_lane_s'] / out['join_warm_s']:.1f}% of the join);"
+        f" recall@10 against the exact f32 lane {out['join_recall@10']:.5f} "
+        f"(bar 0.999) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 5 failed: the pivot join")
+
+    # a cache rebuilt from the packed KV image: a new HnswIndex whose
+    # device tables go up again at its first search
+    db.algo_cache.clear()
+    t0 = time.time()
+    res2 = db.run_script(join)
+    out["join_after_rebuild_s"] = time.time() - t0
+    index = db.algo_cache["hnsw::item::ix"].index
+    same = (sorted(map(tuple, res2.rows)) == sorted(map(tuple, res.rows))
+            and index.device == db.device)
+    say(f"phase 5 pivot join after the index cache was dropped (rebuilt "
+        f"from the packed image, tables uploaded again): "
+        f"{out['join_after_rebuild_s']:.2f}s, the same rows {same} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit("phase 5 failed: the rebuilt index answers otherwise")
+
+    small_join = JOIN.format(rel="q16")
+    before = vs.beam_search.launches
+    db.run_script(small_join)  # the index's mirror goes up
+    out["small_join_ms"], res = median_ms(lambda: db.run_script(small_join),
+                                          20)
+    counted = vs.beam_search.launches - before
+    ids_s, d_s = join_ids(res.rows, DB_SMALL)
+    ids_x, d_x = index.search(small[0], K, 64)
+    args = beam_args(index, small[0], K, 64)
+    kernel_ms = cuda_ms(lambda: vs.beam_search(*args), 20)
+    vs.beam_search.launches = before + counted  # the timing is no path
+    out["small_join_kernel_ms"] = kernel_ms
+    ok = (counted == 21 and np.array_equal(ids_s, ids_x)
+          and np.allclose(d_s, d_x, rtol=0, atol=1e-12))
+    say(f"phase 5 small join (B={DB_SMALL}): median "
+        f"{out['small_join_ms']:.3f} ms of 20, the kernel alone "
+        f"{kernel_ms:.4f} ms; beam_search launches {counted} (21 expected), "
+        f"ids equal to index.search on the same queries "
+        f"{np.array_equal(ids_s, ids_x)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 5 failed: the small join")
+
+    before = vs.beam_search.launches
+    db.run_script(TWO_HOP, {"q": qs[0]})
+    hop = iter(range(20))  # a new query each run, as the bench does
+    out["two_hop_ms"], res = median_ms(
+        lambda: db.run_script(TWO_HOP, {"q": qs[next(hop)]}), 20)
+    out["two_hop_launches"] = vs.beam_search.launches - before
+    ok = out["two_hop_launches"] == 21 and len(res.rows) >= 1
+    say(f"phase 5 2-hop (first hop B=1 on the host, second B=4 through the "
+        f"kernel): median {out['two_hop_ms']:.3f} ms of 20, "
+        f"{len(res.rows)} rows in the last, beam_search launches "
+        f"{out['two_hop_launches']} (21 expected) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 5 failed: the 2-hop")
+
+    scripts = [JOIN.format(rel=f"q16_{t}") for t in range(8)]
+    want = [sorted(map(tuple, db.run_script(s).rows)) for s in scripts]
+
+    def worker(t):
+        return all(sorted(map(tuple, db.run_script(scripts[t]).rows))
+                   == want[t] for _ in range(20))
+
+    t0 = time.time()
+    with Pool(8) as ex:
+        agree = list(ex.map(worker, range(8)))
+    out["threads_s"] = time.time() - t0
+    ok = all(agree) and all(len(w) == DB_SMALL * K for w in want)
+    say(f"phase 5 8 threads x 20 small joins (each its own 16 queries): "
+        f"{out['threads_s']:.2f}s, every answer equal to the sequential one "
+        f"{all(agree)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 5 failed: concurrent small joins")
+
+    # 4 new rows, each twice the nearest row of one of the first 4 small
+    # queries (the same direction: the same cosine distance), and 4
+    # removals among the nearest rows of the others
+    mirror = index._dev_cache
+    near = [int(i) for i in ids_x[:4, 0]]
+    new_ids = list(range(n, n + 4))
+    gone = [int(i) for i in ids_x[4:, 0] if i not in near][:4]
+    db.run_script("?[id, v] <- $rows :put item {id => v}",
+                  {"rows": [[new_ids[i], 2 * data[near[i]]] for i in range(4)]})
+    db.run_script("?[id] <- $rows :rm item {id}",
+                  {"rows": [[i] for i in gone]})
+    res = db.run_script(small_join)
+    ids_w, d_w = join_ids(res.rows, DB_SMALL)
+    in_place = (db.algo_cache["hnsw::item::ix"].index is index
+                and index._dev_cache is mirror
+                and mirror["version"] == index.version)
+    found = all(
+        new_ids[i] in ids_w[i]
+        and abs(d_w[i][ids_w[i] == new_ids[i]][0] - d_x[i, 0]) < 1e-5
+        for i in range(4))
+    absent = len(gone) == 4 and not np.isin(ids_w, gone).any()
+    ok = in_place and found and absent
+    say(f"phase 5 writes (:put 4 new rows, :rm 4): the new rows found at "
+        f"their twins' distance {found}, the removed ones absent {absent}, "
+        f"the mirror updated in "
+        f"place {in_place} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 5 failed: writes through the Db")
+
+    out["launches"] = {"beam_search": vs.beam_search.launches,
+                       "fused_sweep": fs.fused_sweep.launches}
+    if out["launches"]["beam_search"] < 1:
+        raise SystemExit("phase 5 failed: beam_search never launched")
+    say(f"phase 5 kernel launches on the Db path: {out['launches']}")
+    out["card"] = smi_line()
+    say("db " + json.dumps(out))
+    return index, out["bulk_build_s"], out["launches"]["beam_search"]
 
 
 def phase_quant_wide():
@@ -759,7 +1046,9 @@ def time_beam(index, qs, launches):
         "name": "beam_search", "route": "cuda",
         "source": "cozo_tpu_torch/csrc/beam_search.cu",
         "replaces": "cozo_tpu/ops/vector_search.py:81",
-        "launches": launches["beam_search"],
+        "launches": launches["beam_search"] + launches["beam_search_db"],
+        "launches_by_path": {"db (phase 5)": launches["beam_search_db"],
+                             "index (phase 3)": launches["beam_search"]},
         "max_abs_err": main["max_abs_err"], "ids_agree": main["ids_agree"],
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -786,7 +1075,7 @@ def phase_beam_quick(n):
     index.bulk_build(data, wave=8192)
     say(f"beam_search index for the quick timing: {n} x {D} built in "
         f"{time.time() - t0:.1f}s")
-    entry = time_beam(index, qs, {"beam_search": 0})
+    entry = time_beam(index, qs, {"beam_search": 0, "beam_search_db": 0})
     for B in (16, 1, 4, 63):
         index.search(qs[:B], K, 64, use_tpu=True)
         lat = []
@@ -847,7 +1136,15 @@ def main():
         main_inputs = synthetic_main_shape(dev)
         launches = dict.fromkeys(fs.ROUTES, 0)
     else:
-        index, qs, data, launches = phase_main(args.n, args.reps)
+        from cozo_tpu_torch.utils.datasets import glove_like
+
+        t0 = time.time()
+        data = glove_like(args.n + NQ, D, seed=42)
+        qs, data = data[args.n:], data[:args.n]
+        say(f"datagen {args.n} + {NQ} x {D} in {time.time() - t0:.1f}s")
+        index, build_s, db_launches = phase_db(data, qs)
+        launches = phase_main(index, qs, build_s, args.reps)
+        launches["beam_search_db"] = db_launches
         main_inputs = main_path_inputs(index, qs)
     kernels = phase_kernel_timing(main_inputs, launches, args.reps, dev)
     if args.kernels_only:
@@ -861,12 +1158,7 @@ def main():
         phase_quant_wide()
     say(f"total {time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    say(smi.stdout.strip().splitlines()[0])
+    say(smi_line())
     if args.kernels_only:
         say("kernels-only run: no verdict on the main path")
         return 0

@@ -174,6 +174,32 @@ class HnswIndex:
         while len(self.neighbors) <= level:
             self.neighbors.append(np.full((cap, self.m_max), -1, dtype=np.int32))
 
+    # raw-slot helpers used only by a cache rebuild from a KV image
+    # (runtime/hnsw.py, runtime/hnsw_packed.py)
+
+    def _alloc_slot(self, v, level: int) -> int:
+        v = self._prep(v)
+        slot = self.n
+        self._grow(slot + 1)
+        self.n = slot + 1
+        self.vectors[slot] = v
+        self.norms[slot] = float(v.astype(np.float64) @ v.astype(np.float64))
+        self.levels[slot] = level
+        self.alive[slot] = True
+        self._ensure_level(level)
+        self.version += 1
+        return slot
+
+    def _append_neighbor(self, level: int, frm: int, to: int) -> None:
+        self._ensure_level(level)
+        row = self.neighbors[level][frm]
+        for i in range(row.shape[0]):
+            if row[i] == to:
+                return
+            if row[i] < 0:
+                row[i] = to
+                return
+
     def random_level(self) -> int:
         # reference hnsw.rs:46-52 (negated: here 0 is the bottom)
         u = self.rng.random()
@@ -469,8 +495,8 @@ class HnswIndex:
             use_tpu = self.n >= 20_000 and B >= 4
         if os.environ.get("COZO_TPU_MESH", ""):
             raise NotImplementedError(
-                "COZO_TPU_MESH mesh serving is not ported yet (ROADMAP port "
-                "item: mesh sharding via torch.distributed)"
+                "COZO_TPU_MESH mesh serving is not ported yet (ROADMAP §1 "
+                "item 4: mesh sharding via torch.distributed)"
             )
         if use_tpu:
             # past the f32 budget: the int8-quantized sweep + host f32

@@ -35,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -379,7 +380,10 @@ beam_search.last_stats = None
 def _device_arrays(index):
     """The index arrays on the device, cached by index.version; small
     mutation sets apply as dirty-slot scatters instead of a full
-    re-push."""
+    re-push.  The mirror keeps a lock (`cache["lock"]`): an in-place
+    update and a small-batch search on the same mirror take it, so a
+    search never reads a half-updated mirror nor shares its staging
+    buffers with another caller."""
     cache = getattr(index, "_dev_cache", None)
     if cache is not None and cache["version"] == index.version:
         return cache
@@ -412,6 +416,7 @@ def _device_arrays(index):
         "up_nb": to_device(up_nb, dev),
         "alive": to_device(alive, dev),
         "entry": int(index.entry),
+        "lock": threading.Lock(),
     }
     index._dev_cache = cache
     index.dev_pending.clear()
@@ -429,6 +434,13 @@ def _update(cache, idxs, new_vecs, new_nb0, new_up, new_alive) -> None:
 
 
 def _try_incremental_update(index, cache):
+    with cache["lock"]:
+        if cache["version"] == index.version:  # another caller did it
+            return cache
+        return _incremental_update(index, cache)
+
+
+def _incremental_update(index, cache):
     n_pad = cache["n_pad"]
     n_levels_now = len(index.neighbors) - 1
     pending = index.dev_pending
@@ -509,15 +521,21 @@ def hnsw_search_device(index, qs: np.ndarray, k: int, ef: int,
     On the card the call is one staging copy, one launch of the kernel on
     the pinned staging buffers kept with the index's device mirror
     (`_staging`; the counters it leaves in `beam_search.last_stats` are
-    then a pinned host tensor) and one wait for the stream.  It waits for
-    its own launch before it returns, so one caller at a time is safe; a
-    mirror (like `_dev_cache` itself) is not shared between threads
-    without a lock."""
+    then a pinned host tensor) and one wait for the stream.  Concurrent
+    callers are safe: everything from reading the mirror and the staging
+    copy to the numpy unpack holds the mirror's lock (`cache["lock"]`,
+    also taken by its in-place update), which costs about a microsecond
+    uncontended."""
     if qs.ndim != 2 or qs.shape[0] < 1 or qs.shape[1] != index.dim:
         raise ValueError(f"hnsw_search_device: qs {qs.shape} must be "
                          f"[B, {index.dim}]")
     dev = _device_arrays(index)
     beam, max_iters, expand = beam_params(k, ef, expand)
+    with dev["lock"]:
+        return _search_locked(dev, index, qs, k, beam, max_iters, expand)
+
+
+def _search_locked(dev, index, qs, k, beam, max_iters, expand):
     device = dev["vectors"].device
     graph = (dev["vectors"], dev["nb0"], dev["up_nb"], dev["alive"],
              dev["entry"])

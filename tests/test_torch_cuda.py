@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA card (marker `cuda`): each CUDA
 kernel (`fused_sweep`, `beam_search`) against its plain PyTorch version,
 the lanes end to end through the kernels, the staging buffers of a
-small-batch search, and the card's int8 product
+small-batch search and its lock under concurrent callers, and the card's
+int8 product
 against the CPU's.  They skip where CUDA is absent.  This file imports
 neither JAX nor `cozo_tpu`, so it runs on a machine that has only the
 port's dependencies:
@@ -208,6 +209,58 @@ def test_small_batch_searches_reuse_their_staging_buffers(cuda, big_index):
     dev_ids, dev_d = vs.beam_search(*beam_args(idx, qs, 10, 64))
     assert np.array_equal(dev_ids.cpu().numpy(), ids16)
     assert np.array_equal(dev_d.cpu().numpy().astype(np.float64), d16)
+
+
+@pytest.mark.cuda
+def test_concurrent_small_batch_searches_equal_sequential(cuda, big_index):
+    """8 threads call `hnsw_search_device` at once with the same (B, k), so
+    they share one set of staging buffers, each with its own queries; the
+    mirror's lock keeps every answer equal to its sequential one.  Then a
+    writer inserts rows and the threads race to the mirror's in-place
+    update: each answer equals that of a copy of the index whose mirror was
+    pushed whole."""
+    import sys
+    import threading
+
+    idx, qs = big_index
+    rng = np.random.default_rng(9)
+    sets = [qs + 0.05 * t * rng.standard_normal(qs.shape).astype(np.float32)
+            for t in range(8)]
+    errors = []
+
+    def race(want):
+        def worker(t):
+            try:
+                for _ in range(20):
+                    ids, d = vs.hnsw_search_device(idx, sets[t], 10, 64)
+                    assert np.array_equal(ids, want[t][0])
+                    assert np.array_equal(d, want[t][1])
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(8)]
+        switch = sys.getswitchinterval()
+        sys.setswitchinterval(1e-5)  # switch threads often: races show
+        try:
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=120)
+        finally:
+            sys.setswitchinterval(switch)
+        assert not any(th.is_alive() for th in threads)
+        assert not errors, errors[:2]
+
+    race([vs.hnsw_search_device(idx, q, 10, 64) for q in sets])
+    cache = idx._dev_cache
+    far = np.full((4, 16), 1e3, dtype=np.float32) + np.arange(4)[:, None]
+    new = [idx.insert(v) for v in far]
+    twin = HnswIndex.from_state(idx.to_state(), device=idx.device)
+    race([vs.hnsw_search_device(twin, q, 10, 64) for q in sets])
+    assert idx._dev_cache is cache and not idx.dev_pending
+    ids, _ = vs.hnsw_search_device(idx, far, 1, 64)
+    assert ids[:, 0].tolist() == new
 
 
 @pytest.mark.cuda
