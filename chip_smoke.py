@@ -20,7 +20,15 @@ Phases, each reported on its own line; any failure exits non-zero:
      than the beam's last than the kernel places by counting: its sorted
      merge), many duplicate rows:
      ids equal on >= 99% of (query, rank) entries, distances within 1e-4
-     where ids match, no dead row returned, two runs identical;
+     where ids match, no dead row returned, two runs identical.
+     The graph kernels: `graph_pagerank` (dangling and isolated nodes,
+     padding edges, 0 steps; L1 <= 1e-5, the same top 100),
+     `graph_sssp` (a hub past 1,024 in-edges, 1 to 9 sources, a
+     `max_iters` cut, uniform, dyadic and random weights; distances,
+     parents and steps equal), `graph_labelprop` (rows 8 to 8,192 wide,
+     dense layout and lanes, a row of padding, a row without a valid
+     slot, a planted tie, negative weights; labels equal), two runs of
+     each bit-identical;
   5. (run before phase 3) drive the Db through CozoScript, the script of
      `benches/bench_hybrid_1m.py` phases 1-4 at full size: `glove_like`
      data (seed 42), `Db("mem")` on the card, ingest by `:put` batches of
@@ -33,6 +41,12 @@ Phases, each reported on its own line; any failure exits non-zero:
      threads of small joins against the sequential answers, then `:put`
      and `:rm` through the Db (the mirror updated in place); prints a
      `db` JSON line;
+  6. (run before phase 3) the graph rules through that Db over the
+     index's level-0 graph, read straight from the index relation
+     (`bench_hybrid_1m.py` phase 5 without its `:put prox`): PageRank
+     and LabelPropagation (undirected) held to the plain versions on the
+     same CSR, ShortestPathDijkstra from 4 stored starts to 64 stored
+     goals held to a host BFS; each cold and warm; prints a `graph` line;
   3. drive the index's main path through the user entry points on the
      index phase 5 built (the same data, `bulk_build(wave=8192)`): then
      `sweep_search` with the f32 lane as ground truth and the fused,
@@ -52,16 +66,23 @@ Phases, each reported on its own line; any failure exits non-zero:
      `brute_force_knn`;
   3c. the int8 build: 262,144 x 100 rows with the budget lowered, against
      the f32 build of the same rows;
+  7. the shapes of `benches/graph_scale_bench.py` through the entry
+     points: PageRank and SSSP at 4,928,571 nodes / 69M edges,
+     LabelPropagation on the 50M-edge hub graph, each cold and warm and
+     held to the plain versions; prints a `scale` line;
   4. time each kernel at its shape (the main-path shape for the routes the
-     main path takes) with CUDA events, beside its bound and its plain
-     version, and the fused routes beside a one-call PyTorch yardstick;
+     main path takes; the graph kernels at phase 7's) with CUDA events,
+     beside its bound and its plain version, and the fused routes and
+     PageRank beside a one-call PyTorch yardstick;
   5. print the kernels' JSON line, the card's name and power limit, and
      as the last line {"ok": true, "device": {...}}.
 
 `--kernels-only` skips phases 3-3c, times the fused main-path route on a
 random table of the main-path shape and `beam_search` (kernel and call) on
 a built index of 262,144 rows: a quick check of the kernels alone, which
-prints no `{"ok": ...}` line.
+prints no `{"ok": ...}` line.  `--graph-only` runs phases 1, 2 (the graph
+kernels), 5 on a Db of `--n` rows, 6, 7 and the graph kernels' timings,
+and prints no `{"ok": ...}` line either.
 """
 
 import argparse
@@ -70,6 +91,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -335,6 +357,185 @@ def phase_beam_vs_plain():
         if not (beam_ok(c) and same_twice and counted == 2
                 and (args[8] == 0) == flat):
             raise SystemExit("phase 2 failed: beam_search disagrees with plain")
+
+
+# ------------------------------------------------------------ graph kernels
+
+# PageRank: (nodes, edges, steps, nodes without out-edges)
+GRAPH_PR_CASES = ((300, 2500, 10, 30), (97, 40, 3, 9), (500, 9000, 0, 50),
+                  (20_000, 300_000, 10, 2_000))
+# SSSP: (nodes, edges, hub in-degree, weights, sources, max_iters)
+GRAPH_SSSP_CASES = (
+    (400, 3000, 0, "dyadic", (0,), 512),
+    (400, 3000, 2600, "uniform", (5, 0, 399, 7, 8, 9, 10, 11), 512),
+    (400, 3000, 1100, "random", (3, 2), 512),   # a hub past ELL_CAP_MAX
+    (400, 3000, 0, "random", (0, 1, 2), 2),     # cut before convergence
+    (300, 200, 0, "uniform", (4,), 512),        # most nodes unreached
+    (20_000, 200_000, 3000, "random", (1, 2, 3, 4, 5, 6, 7, 8, 9), 512),
+)
+# label pick: row widths (<= 128: the dense layout, wider: lanes)
+GRAPH_LP_WIDTHS = (8, 32, 128, 256, 2048, 8192)
+PR_L1_TOL = 1e-5  # PageRank kernel against plain: ranks sum to 1
+
+
+def graph_csr(n, e, seed, hub=0, dangling=0):
+    """A random CSR of n nodes and e edges: nodes below `dangling` have no
+    out-edge, the last 3 no edge at all, node 1 `hub` extra in-edges."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(dangling, n - 3, e)
+    dst = rng.integers(0, n - 3, e)
+    if hub:
+        dst[:hub] = 1
+    order = np.argsort(src, kind="stable")
+    src, dst = src[order], dst[order]
+    indptr = np.zeros(n + 1, np.int64)
+    np.add.at(indptr, src + 1, 1)
+    return np.cumsum(indptr), dst
+
+
+def pr_inputs(n, e, dangling, dev):
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    ip, d = graph_csr(n, e, n + e, dangling=dangling)
+    return ga._pagerank_stage(ip, d, None, dev)
+
+
+def sssp_weights(kind, e, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        return np.full(e, 1.5, np.float32)
+    if kind == "dyadic":
+        return rng.integers(1, 32, e).astype(np.float32) / 8
+    return rng.uniform(0.1, 3.0, e).astype(np.float32)
+
+
+def sssp_inputs(case, dev):
+    """(staged EllGraph, sources, max_iters) of a GRAPH_SSSP_CASES entry."""
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    n, e, hub, kind, sources, max_iters = case
+    ip, d = graph_csr(n, e, n + e + hub, hub=hub)
+    g = ga._sssp_ell_stage(ip, d, sssp_weights(kind, len(d), hub), None,
+                           dev, False)
+    return g, list(sources), max_iters
+
+
+def lp_inputs(H, W, weighted, seed, dev):
+    """One pick's inputs: rows of W slots over 64 labels (labels repeat and
+    tie), a quarter of the slots padding, a row of padding only, a row
+    with a planted tie of two labels, weights k/8 with zeros and negatives
+    (a row without a valid slot).  W <= 128: the dense layout (row h is
+    node h, `has_in`); wider: a lane (`idx`, with a padding row)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dense = W <= 128
+    n_pad = max(256, H) if dense else 4096
+    n_real = n_pad - 5
+    labels = rng.integers(0, 64, n_pad).astype(np.int32)
+    labels[-1] = n_pad - 1  # the dummy keeps its own label
+    nb = rng.integers(0, n_real, (H, W)).astype(np.int32)
+    nb[rng.random((H, W)) < 0.25] = n_pad - 1
+    nb[0, :] = n_pad - 1
+    # planted tie: half the slots name a node of label 70, half one of 65
+    labels[[n_real - 1, n_real - 2]] = (70, 65)
+    nb[2, : W // 2] = n_real - 1
+    nb[2, W // 2:] = n_real - 2
+    w = None
+    if weighted:
+        w = rng.integers(-2, 9, (H, W)).astype(np.float32) / 8
+        w[1, :] = 0.0
+        w[2, :] = 0.5
+        w = torch.from_numpy(w).to(dev)
+    idx = has_in = None
+    if dense:
+        has_in = torch.from_numpy(rng.random(H) < 0.9).to(dev)
+        has_in[2] = True
+    else:
+        idx_h = rng.choice(n_real - 2, H, replace=False).astype(np.int32)
+        idx_h[-1] = n_pad - 1  # a padding row
+        idx = torch.from_numpy(idx_h).to(dev)
+    return (torch.from_numpy(labels).to(dev), torch.from_numpy(nb).to(dev),
+            w, idx, has_in, n_real)
+
+
+def pagerank_agreement(got, want, n):
+    """(L1 distance of the rank vectors, whether the top-100 nodes are the
+    same up to ties at the 100th rank)."""
+    import torch
+
+    got, want = got[:n].double(), want[:n].double()
+    l1 = float((got - want).abs().sum())
+    k = min(100, n)
+    top_g = set(torch.topk(got, k).indices.tolist())
+    top_p = set(torch.topk(want, k).indices.tolist())
+    kth = float(torch.topk(want, k).values[-1])
+    tie = 2 * l1 + 1e-12
+    same = all(abs(float(want[i]) - kth) <= tie for i in top_g ^ top_p)
+    return l1, same
+
+
+def phase_graph_vs_plain(dev):
+    """Phase 2 for the graph kernels: each against its plain version on
+    the card, two runs of each shape bit-identical."""
+    import torch
+
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    for n, e, steps, dangling in GRAPH_PR_CASES:
+        staged = pr_inputs(n, e, dangling, dev)
+        got = ga.pagerank_steps(*staged, n, steps, 0.85)
+        again = ga.pagerank_steps(*staged, n, steps, 0.85)
+        want = ga.pagerank_plain(*staged, n, steps, 0.85)
+        torch.cuda.synchronize()
+        l1, top = pagerank_agreement(got, want, n)
+        twice = bool(torch.equal(got, again))
+        pad0 = not bool(got[n:].any())
+        say(f"phase 2 graph_pagerank vs plain n={n} e={e} steps={steps} "
+            f"dangling={dangling}: L1 {l1:.3e} (tol {PR_L1_TOL}) top-100 "
+            f"same {top}, padding 0 {pad0}, two runs identical {twice}")
+        if not (l1 <= PR_L1_TOL and top and twice and pad0):
+            raise SystemExit("phase 2 failed: graph_pagerank disagrees")
+    for case in GRAPH_SSSP_CASES:
+        g, sources, max_iters = sssp_inputs(case, dev)
+        got = ga.sssp_ell(g, sources, max_iters)
+        again = ga.sssp_ell(g, sources, max_iters)
+        want = ga.sssp_ell_plain(g, sources, max_iters)
+        torch.cuda.synchronize()
+        equal = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                 and got[2] == want[2])
+        twice = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        reached = int(torch.isfinite(got[0]).sum())
+        say(f"phase 2 graph_sssp vs plain n={case[0]} e={case[1]} "
+            f"hub={case[2]} weights={case[3]} S={len(sources)} "
+            f"max_iters={max_iters}: steps {got[2]} (plain {want[2]}), "
+            f"reached {reached} of {len(sources) * case[0]}, level-2 "
+            f"buckets {len(g.l2_desc)}, dist and parents equal {equal}, two "
+            f"runs identical {twice}")
+        if not (equal and twice):
+            raise SystemExit("phase 2 failed: graph_sssp disagrees")
+    for W in GRAPH_LP_WIDTHS:
+        for weighted in (False, True):
+            H = 4096 if W <= 128 else (512 if W <= 256 else 16)
+            labels, nb, w, idx, has_in, n_real = lp_inputs(H, W, weighted, W,
+                                                           dev)
+            outs = []
+            for _ in range(2):
+                out = labels.clone()
+                ga.lp_pick(labels, nb, w, idx, has_in, n_real, out)
+                outs.append(out)
+            want = labels.clone()
+            ga.lp_pick_plain(labels, nb, w, idx, has_in, n_real, want)
+            torch.cuda.synchronize()
+            equal = torch.equal(outs[0], want)
+            twice = torch.equal(outs[0], outs[1])
+            changed = int((outs[0] != labels).sum())
+            say(f"phase 2 graph_labelprop vs plain W={W} H={H} "
+                f"{'weighted' if weighted else 'unit'} "
+                f"{'dense' if idx is None else 'lane'}: labels equal {equal} "
+                f"({changed} changed), two runs identical {twice}")
+            if not (equal and twice and changed):
+                raise SystemExit("phase 2 failed: graph_labelprop disagrees")
 
 
 def recall(ids, gt):
@@ -639,7 +840,7 @@ def phase_db(data, qs):
     vector-pivot join of 4,096 stored queries (cold, warm, after a cache
     rebuild from KV), the small join (B = 16) and the 2-hop (the
     beam-search kernel), 8 threads of small joins, then writes.  Returns
-    (the Db's index, the bulk build's seconds, phase 5's launches)."""
+    (the Db, its index, the bulk build's seconds, phase 5's launches)."""
     from concurrent.futures import ThreadPoolExecutor as Pool
 
     from cozo_tpu_torch import sweep_search
@@ -815,7 +1016,476 @@ def phase_db(data, qs):
     say(f"phase 5 kernel launches on the Db path: {out['launches']}")
     out["card"] = smi_line()
     say("db " + json.dumps(out))
-    return index, out["bulk_build_s"], out["launches"]["beam_search"]
+    return db, index, out["bulk_build_s"], out["launches"]["beam_search"]
+
+
+# -------------------------------------------- the graph rules at full size
+
+PROX = "*item:ix{layer: 0, fr_id: fr, to_id: to}"  # the level-0 graph
+GRAPH_PR = f"?[n, s] <~ PageRank({PROX}, iterations: 10)"
+GRAPH_LP = f"?[l, n] <~ LabelPropagation({PROX}, undirected: true)"
+GRAPH_SP = (f"?[s, g, c, p] <~ ShortestPathDijkstra({PROX}, *sp_start[id], "
+            "*sp_goal[id])")
+SP_STARTS, SP_GOALS = 4, 64
+# benches/graph_scale_bench.py (BASELINE config #3): the LiveJournal-scale
+# graph, and the hub graph of its LabelPropagation
+LJ_EDGES = 69_000_000
+LJ_NODES = LJ_EDGES // 14
+HUB_EDGES, HUB_DEG = 50_000_000, 10_000
+HUB_NODES = HUB_EDGES // 14
+
+
+def graph_counts():
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    return {"graph_pagerank": ga.pagerank_steps.launches,
+            "graph_sssp": ga.sssp_ell.launches,
+            "graph_labelprop": ga.lp_pick.launches}
+
+
+def zero_graph_counts():
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    ga.pagerank_steps.launches = ga.sssp_ell.launches = 0
+    ga.lp_pick.launches = 0
+
+
+def plain_kernels():
+    """A context in which the graph entry points run the kernels' plain
+    versions on the card (the wrappers themselves take them only for CPU
+    tensors): the reference the full-size phases are held to."""
+    import contextlib
+
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    @contextlib.contextmanager
+    def swap():
+        saved = ga.pagerank_steps, ga.sssp_ell, ga.lp_pick
+        ga.pagerank_steps, ga.sssp_ell, ga.lp_pick = (
+            ga.pagerank_plain, ga.sssp_ell_plain, ga.lp_pick_plain)
+        try:
+            yield
+        finally:
+            ga.pagerank_steps, ga.sssp_ell, ga.lp_pick = saved
+
+    return swap()
+
+
+def canonical(labels):
+    """Label ids renumbered by first occurrence: equal partitions give
+    equal arrays."""
+    _, first, inv = np.unique(labels, return_index=True, return_inverse=True)
+    return np.argsort(np.argsort(first))[inv]
+
+
+def bfs_hops(indptr, dst, s):
+    """Unweighted distances from s over the CSR, level by level."""
+    dist = np.full(len(indptr) - 1, np.inf)
+    dist[s] = 0.0
+    frontier, h = np.array([s]), 0
+    while len(frontier):
+        h += 1
+        lens = indptr[frontier + 1] - indptr[frontier]
+        at = np.repeat(indptr[frontier] - np.cumsum(lens) + lens, lens)
+        nb = dst[at + np.arange(int(lens.sum()))]
+        nb = np.unique(nb[np.isinf(dist[nb])])
+        dist[nb] = h
+        frontier = nb
+    return dist
+
+
+def cached_csr(db, undirected):
+    """The CSR the Db staged for the last rule over the level-0 graph."""
+    for key, val in db._csr_cache.items():
+        if key[-1] == "csr" and key[-2] == undirected:
+            return val
+    raise SystemExit("phase 6 failed: the Db staged no CSR of the graph")
+
+
+def timed_runs(db, script):
+    """(cold s, warm s, the warm run's rows) of `script`."""
+    t0 = time.time()
+    db.run_script(script)
+    cold = time.time() - t0
+    t0 = time.time()
+    res = db.run_script(script)
+    return cold, time.time() - t0, res.rows
+
+
+def lp_route(cache_key, dev):
+    """Which LabelPropagation layout the device cache holds for the graph:
+    ("dense", [(width, rows)]) or ("hybrid", lanes, host hubs)."""
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    for key, val in ga._GRAPH_DEV_CACHE.items():
+        if (key[0] not in ("lpd", "lph2") or key[1] != str(dev)
+                or key[2][0] != cache_key):
+            continue
+        if key[0] == "lpd":
+            return {"route": "dense", "lanes": [list(val[0].shape[::-1])]}
+        if key[0] == "lph2":
+            return {"route": "hybrid",
+                    "lanes": [[W, H] for H, W, _ in val[0]],
+                    "host_hubs": int(len(val[2]))}
+    raise SystemExit("label propagation staged nothing on the device")
+
+
+def phase_graph_db(db, dev):
+    """Phase 6: PageRank, LabelPropagation and ShortestPathDijkstra
+    through the Db over the level-0 proximity graph of the index phase 5
+    built, read straight from the index relation; each cold and warm and
+    held to the plain versions (SSSP to a host BFS) on the same CSR."""
+    import torch
+
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    out = {}
+    zero_graph_counts()
+    out["pagerank_cold_s"], out["pagerank_warm_s"], rows = timed_runs(
+        db, GRAPH_PR)
+    indptr, dst, verts = cached_csr(db, False)
+    n, e = len(verts), len(dst)
+    out.update(nodes=n, edges=e, mean_out_degree=e / n)
+    ck = ga.graph_content_key(indptr, dst)
+    got = torch.zeros(ga._pad_pow2(n + 1), dtype=torch.float64)
+    pos = {v: i for i, v in enumerate(verts)}
+    for v, s in rows:
+        got[pos[v]] = s
+    with plain_kernels():
+        want = ga.pagerank_jax(indptr, dst, iterations=10, cache_key=ck,
+                               device=dev)
+    l1, top = pagerank_agreement(got, torch.from_numpy(want), n)
+    out.update(pagerank_l1=l1, pagerank_top100_same=top,
+               pagerank_medges_per_s=10 * e / out["pagerank_warm_s"] / 1e6)
+    ok = len(rows) == n and l1 <= PR_L1_TOL and top
+    say(f"phase 6 PageRank (10 steps) over the level-0 graph: {n} nodes, "
+        f"{e} edges (self-edges included); cold {out['pagerank_cold_s']:.2f}s"
+        f" warm {out['pagerank_warm_s']:.2f}s ({out['pagerank_medges_per_s']:.0f}"
+        f" M edges/s through the Db); against the plain version on the same "
+        f"CSR: L1 {l1:.3e} (tol {PR_L1_TOL}), top-100 same {top} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 6 failed: PageRank")
+
+    out["labelprop_cold_s"], out["labelprop_warm_s"], rows = timed_runs(
+        db, GRAPH_LP)
+    u_ptr, u_dst, u_verts = cached_csr(db, True)
+    uck = ga.graph_content_key(u_ptr, u_dst)
+    route = lp_route(uck, dev)
+    in_deg = np.bincount(u_dst, minlength=len(u_verts))
+    by_node = {v: l for l, v in rows}
+    got_l = canonical(np.array([by_node[v] for v in u_verts]))
+    with plain_kernels():
+        want_l = canonical(ga.labelprop_jax(u_ptr, u_dst, None, 10,
+                                            cache_key=uck, device=dev))
+    same = bool(np.array_equal(got_l, want_l))
+    out.update(labelprop_edges=len(u_dst), labelprop_max_in_degree=
+               int(in_deg.max()), labelprop_layout=route,
+               labelprop_communities=int(got_l.max()) + 1,
+               labelprop_partition_equal=same)
+    ok = same and len(rows) == len(u_verts)
+    say(f"phase 6 LabelPropagation (undirected, 10 steps): {len(u_dst)} "
+        f"edges, max in-degree {int(in_deg.max())}: the {route['route']} "
+        f"layout, lanes (width, rows) {route['lanes']}"
+        f"{', host hubs %d' % route['host_hubs'] if 'host_hubs' in route else ''}"
+        f"; cold {out['labelprop_cold_s']:.2f}s warm "
+        f"{out['labelprop_warm_s']:.2f}s, {out['labelprop_communities']} "
+        f"communities; partition equal to the plain version's {same} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 6 failed: LabelPropagation")
+
+    rng = np.random.default_rng(6)
+    pick = rng.choice(n, SP_STARTS + SP_GOALS, replace=False)
+    starts, goals = pick[:SP_STARTS], pick[SP_STARTS:]
+    for rel, ids in (("sp_start", starts), ("sp_goal", goals)):
+        db.run_script(f":create {rel} {{id: Int}}")
+        db.run_script(f"?[id] <- $rows :put {rel} {{id}}",
+                      {"rows": [[verts[i]] for i in ids]})
+    out["sssp_cold_s"], out["sssp_warm_s"], rows = timed_runs(db, GRAPH_SP)
+    hops = {verts[s]: bfs_hops(indptr, dst, s) for s in starts}
+    costs = {(r[0], r[1]): r[2] for r in rows}
+    want_c = {(verts[s], verts[g]): float(hops[verts[s]][g])
+              for s in starts for g in goals}
+    same = costs == want_c
+    reached = sum(np.isfinite(c) for c in costs.values())
+    out.update(sssp_rows=len(rows), sssp_reached=int(reached),
+               sssp_costs_equal_bfs=same)
+    say(f"phase 6 ShortestPathDijkstra ({SP_STARTS} stored starts, "
+        f"{SP_GOALS} stored goals, unweighted: the uniform-weight scalar): "
+        f"cold {out['sssp_cold_s']:.2f}s warm {out['sssp_warm_s']:.2f}s, "
+        f"{len(rows)} rows, {reached} goals reached; the costs equal a host "
+        f"BFS on the same CSR {same} {'ok' if same else 'FAIL'}")
+    if not (same and len(rows) == SP_STARTS * SP_GOALS):
+        raise SystemExit("phase 6 failed: ShortestPathDijkstra")
+
+    out["launches"] = graph_counts()
+    say(f"phase 6 graph kernel launches on the Db path: {out['launches']}")
+    if min(out["launches"].values()) < 1:
+        raise SystemExit("phase 6 failed: a graph kernel never launched")
+    out["card"] = smi_line()
+    say("graph " + json.dumps(out))
+    return out["launches"]
+
+
+def make_graph(n_nodes, n_edges, seed=7):
+    """benches/graph_scale_bench.py `make_graph` (a bincount in place of
+    `np.add.at`: the same CSR, faster)."""
+    rng = np.random.default_rng(seed)
+    src = (rng.pareto(1.2, n_edges) * n_nodes / 20).astype(np.int64) % n_nodes
+    dst = rng.integers(0, n_nodes, n_edges)
+    order = np.argsort(src, kind="stable")
+    src, dst = src[order], dst[order]
+    indptr = np.zeros(n_nodes + 1, dtype=np.int64)
+    indptr[1:] = np.cumsum(np.bincount(src, minlength=n_nodes))
+    return indptr, dst
+
+
+def make_hub_graph(n_nodes, n_edges, hub_deg, seed=11):
+    """benches/graph_scale_bench.py `make_hub_graph` (bincount likewise)."""
+    rng = np.random.default_rng(seed)
+    base = n_edges - hub_deg
+    src = rng.integers(0, n_nodes, n_edges).astype(np.int64)
+    dst = np.empty(n_edges, dtype=np.int64)
+    dst[:base] = rng.integers(0, n_nodes, base)
+    dst[base:] = 0  # the hub
+    order = np.argsort(src, kind="stable")
+    src, dst = src[order], dst[order]
+    indptr = np.zeros(n_nodes + 1, dtype=np.int64)
+    indptr[1:] = np.cumsum(np.bincount(src, minlength=n_nodes))
+    return indptr, dst
+
+
+def cold_warm(fn):
+    """(cold s, warm s, the warm result) of fn() ending on the device."""
+    import torch
+
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize()
+    cold = time.time() - t0
+    t0 = time.time()
+    res = fn()
+    torch.cuda.synchronize()
+    return cold, time.time() - t0, res
+
+
+def phase_graph_scale(dev, reps):
+    """Phase 7: the shapes of benches/graph_scale_bench.py through the
+    entry points: PageRank and single-source SSSP (unit weights: the
+    uniform scalar, the source array PageRank put on the card) on the
+    LiveJournal-scale graph, LabelPropagation on the hub graph (the hub
+    past COZO_TPU_LP_TIER_MAX takes the host lane every step); each cold
+    and warm, then held to the plain versions.  Then phase 4 for the graph
+    kernels at these shapes.  Returns their `kernels` entries and the
+    launches of this path."""
+    import torch
+
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    out = {"config": "benches/graph_scale_bench.py (BASELINE #3)",
+           "reduced": []}
+    n, e = LJ_NODES, LJ_EDGES
+    t0 = time.time()
+    ip, d = make_graph(n, e)
+    ck = ga.graph_content_key(ip, d)
+    w = np.ones(e, np.float32)
+    hp, hd = make_hub_graph(HUB_NODES, HUB_EDGES, HUB_DEG)
+    hck = ga.graph_content_key(hp, hd)
+    out["datagen_s"] = time.time() - t0
+    zero_graph_counts()
+    out["pagerank_cold_s"], out["pagerank_warm_s"], pr = cold_warm(
+        lambda: ga.pagerank_jax(ip, d, iterations=10, cache_key=ck))
+    os.environ["COZO_TPU_SSSP_LOG"] = "1"
+    try:
+        out["sssp_cold_s"], out["sssp_warm_s"], sp = cold_warm(
+            lambda: ga.sssp_device(ip, d, w, [0], cache_key=ck))
+    finally:
+        del os.environ["COZO_TPU_SSSP_LOG"]
+    out["labelprop_cold_s"], out["labelprop_warm_s"], lab = cold_warm(
+        lambda: ga.labelprop_jax(hp, hd, iterations=10, cache_key=hck))
+    out["launches"] = graph_counts()
+    say(f"phase 7 graph kernel launches: {out['launches']}")
+    if min(out["launches"].values()) < 1:
+        raise SystemExit("phase 7 failed: a graph kernel never launched")
+
+    with plain_kernels():
+        pr_p = ga.pagerank_jax(ip, d, iterations=10, cache_key=ck)
+        sp_p = ga.sssp_device(ip, d, w, [0], cache_key=ck)
+        lab_p = ga.labelprop_jax(hp, hd, iterations=10, cache_key=hck)
+    l1, top = pagerank_agreement(torch.from_numpy(pr), torch.from_numpy(pr_p),
+                                 n)
+    out.update(nodes=n, edges=e, pagerank_l1=l1, pagerank_top100_same=top,
+               pagerank_medges_per_s=10 * e / out["pagerank_warm_s"] / 1e6)
+    ok = l1 <= PR_L1_TOL and top
+    say(f"phase 7 PageRank (10 steps) on {n} nodes / {e} edges (datagen of "
+        f"both graphs {out['datagen_s']:.1f}s): cold "
+        f"{out['pagerank_cold_s']:.2f}s warm {out['pagerank_warm_s']:.3f}s "
+        f"({out['pagerank_medges_per_s']:.0f} M edges/s); against the plain "
+        f"version: L1 {l1:.3e}, top-100 same {top} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 7 failed: PageRank")
+
+    g = ga._sssp_ell_stage(ip, d, w, ck, dev, False)
+    reached = int(np.isfinite(sp[0]).sum())
+    same = (np.array_equal(sp[0], sp_p[0]) and np.array_equal(sp[1], sp_p[1])
+            and reached == int(np.isfinite(sp_p[0]).sum()))
+    steps = ga.sssp_ell_plain(g, [0], 512)[2]
+    out.update(sssp_reached=reached, sssp_steps=steps, sssp_equal_plain=same,
+               sssp_medges_per_s=steps * e / out["sssp_warm_s"] / 1e6)
+    say(f"phase 7 SSSP from node 0 (unit weights): cold "
+        f"{out['sssp_cold_s']:.2f}s warm {out['sssp_warm_s']:.3f}s, {steps} "
+        f"steps, reached {reached} of {n}; distances and parents equal to "
+        f"the plain version's {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit("phase 7 failed: SSSP")
+
+    route = lp_route(hck, dev)
+    same = bool(np.array_equal(lab, lab_p))
+    out.update(hub_nodes=HUB_NODES, hub_edges=HUB_EDGES, hub_in_degree=HUB_DEG,
+               labelprop_layout=route, labelprop_equal_plain=same,
+               labelprop_communities=int(len(np.unique(lab))))
+    ok = same and route.get("host_hubs", 0) >= 1
+    say(f"phase 7 LabelPropagation (10 steps) on the hub graph, {HUB_NODES} "
+        f"nodes / {HUB_EDGES} edges, hub in-degree {HUB_DEG}: the "
+        f"{route['route']} layout, lanes (width, rows) {route['lanes']}, "
+        f"host hubs {route.get('host_hubs', 0)}; cold "
+        f"{out['labelprop_cold_s']:.2f}s warm {out['labelprop_warm_s']:.2f}s, "
+        f"{out['labelprop_communities']} communities; labels equal to the "
+        f"plain version's {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 7 failed: LabelPropagation")
+    del sp, sp_p, pr, pr_p, lab, lab_p
+    torch.cuda.empty_cache()
+    kernels = [time_pagerank(ga._pagerank_stage(ip, d, ck, dev), n, e, reps),
+               time_sssp(g, n, e, steps), time_lp_pick(hck, dev, reps)]
+    out["card"] = smi_line()
+    say("scale " + json.dumps(out))
+    return kernels, out["launches"]
+
+
+def time_pagerank(staged, n, e, reps):
+    """Phase 4 for graph_pagerank at the LiveJournal shape: 10 steps."""
+    import torch
+
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    src_by_dst, in_ptr, out_deg = staged
+    n_pad, e_pad = out_deg.shape[0], src_by_dst.shape[0]
+    got = ga.pagerank_steps(*staged, n, 10, 0.85)
+    want = ga.pagerank_plain(*staged, n, 10, 0.85)
+    err = float((got - want).abs().max())
+    ms = cuda_ms(lambda: ga.pagerank_steps(*staged, n, 10, 0.85), reps)
+    plain_ms = cuda_ms(lambda: ga.pagerank_plain(*staged, n, 10, 0.85), 2)
+    # yardstick, never called by the port: each step's incoming sum as one
+    # cuSPARSE product of the in-CSR with the contributions
+    with warnings.catch_warnings():  # CSR tensors are "beta" in torch
+        warnings.simplefilter("ignore")
+        a = torch.sparse_csr_tensor(
+            in_ptr.long(), src_by_dst.long(),
+            torch.ones(e_pad, device=src_by_dst.device), size=(n_pad, n_pad),
+            check_invariants=False)
+    x = (want / torch.where(out_deg > 0, out_deg, 1.0))[:, None]
+    library_ms = cuda_ms(lambda: [torch.sparse.mm(a, x) for _ in range(10)],
+                         2)
+    del a
+    # each step reads every real edge's source id and the in-CSR bounds,
+    # reads the ranks and degrees and writes the ranks once
+    nbytes = 10 * (4 * e + 4 * (n + 1) + 12 * n)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 10 * e / PEAK_F32 * 1e3
+    bound = max(t_bytes, t_ops)
+    say(f"phase 4 graph_pagerank (10 steps, n={n} e={e}): {ms:.3f} ms "
+        f"({10 * e / ms / 1e3:.0f} M edges/s, {100 * bound / ms:.1f}% of "
+        f"the bound {bound:.3f} ms), plain {plain_ms:.3f} ms, "
+        f"torch.sparse.mm x 10 {library_ms:.3f} ms, max_abs_err {err:.3e}")
+    return {"name": "graph_pagerank", "route": "cuda",
+            "source": "cozo_tpu_torch/csrc/graph_pagerank.cu",
+            "replaces": "cozo_tpu/ops/graph_algos.py:70",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+            "shape": {"n": n, "e": e, "n_pad": n_pad, "e_pad": e_pad,
+                      "steps": 10}}
+
+
+def time_sssp(g, n, e, steps):
+    """Phase 4 for graph_sssp at the LiveJournal shape, one source: the
+    whole solve (steps, flag reads, parents)."""
+    import torch
+
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    got = ga.sssp_ell(g, [0], 512)
+    want = ga.sssp_ell_plain(g, [0], 512)
+    fin = torch.isfinite(want[0])
+    err = float((got[0][fin] - want[0][fin]).abs().max())
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise SystemExit("phase 4 failed: graph_sssp disagrees with plain")
+    ms = cuda_ms(lambda: ga.sssp_ell(g, [0], 512), 3)
+    plain_ms = cuda_ms(lambda: ga.sssp_ell_plain(g, [0], 512), 1)
+    # each step reads every real edge's source id (uniform weights: no
+    # weight array), reads and writes each distance; the parent pass reads
+    # the edges and the distances and writes the parents
+    nbytes = steps * (4 * e + 8 * n) + 4 * e + 8 * n
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 2 * steps * e / PEAK_F32 * 1e3
+    bound = max(t_bytes, t_ops)
+    say(f"phase 4 graph_sssp (S=1, {steps} steps, n={n} e={e}, P="
+        f"{g.flat_src.shape[0]} slots): {ms:.3f} ms ({100 * bound / ms:.1f}% "
+        f"of the bound {bound:.3f} ms), plain {plain_ms:.3f} ms, "
+        f"max_abs_err {err:.3e}")
+    return {"name": "graph_sssp", "route": "cuda",
+            "source": "cozo_tpu_torch/csrc/graph_sssp.cu",
+            "replaces": "cozo_tpu/ops/graph_algos.py:633",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,  # no single PyTorch call computes this
+            "shape": {"n": n, "e": e, "S": 1, "steps": steps,
+                      "slots": int(g.flat_src.shape[0]), "R_pad": g.R_pad}}
+
+
+def time_lp_pick(cache_key, dev, reps):
+    """Phase 4 for graph_labelprop: one pick over the hub graph's lane of
+    the most slots."""
+    import torch
+
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    lanes = next(v for k, v in ga._GRAPH_DEV_CACHE.items()
+                 if k[0] == "lph2" and k[2][0] == cache_key)[1]
+    nb, idx, w = max(lanes, key=lambda lane: lane[0].numel())
+    H, W = nb.shape
+    n_pad = ga._pad_pow2(HUB_NODES + 1)
+    labels = torch.randint(0, HUB_NODES, (n_pad,), dtype=torch.int32,
+                           device=dev)
+    got, want = labels.clone(), labels.clone()
+    ga.lp_pick(labels, nb, w, idx, None, HUB_NODES, got)
+    ga.lp_pick_plain(labels, nb, w, idx, None, HUB_NODES, want)
+    if not torch.equal(got, want):
+        raise SystemExit("phase 4 failed: graph_labelprop disagrees with plain")
+    ms = cuda_ms(lambda: ga.lp_pick(labels, nb, w, idx, None, HUB_NODES, got),
+                 reps)
+    plain_ms = cuda_ms(lambda: ga.lp_pick_plain(labels, nb, w, idx, None,
+                                                HUB_NODES, want), 2)
+    valid = int((nb != n_pad - 1).sum())
+    # the rows' neighbour ids and node ids, one label gathered per valid
+    # slot, one label written per row; a weighted mode needs no more than
+    # one operation a slot (this kernel does W a slot)
+    nbytes = 4 * H * W + 4 * H + 4 * valid + 4 * H
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, valid / PEAK_F32 * 1e3
+    bound = max(t_bytes, t_ops)
+    say(f"phase 4 graph_labelprop (one pick, lane W={W} H={H}, {valid} "
+        f"valid slots): {ms:.3f} ms ({100 * bound / ms:.1f}% of the bound "
+        f"{bound:.4f} ms), plain {plain_ms:.3f} ms")
+    return {"name": "graph_labelprop", "route": "cuda",
+            "source": "cozo_tpu_torch/csrc/graph_labelprop.cu",
+            "replaces": "cozo_tpu/ops/graph_algos.py:1174",
+            "max_abs_err": float((got - want).abs().max()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,  # no single PyTorch call computes this
+            "shape": {"H": H, "W": W, "valid_slots": valid}}
 
 
 def phase_quant_wide():
@@ -1100,6 +1770,28 @@ def phase_kernel_timing(main_inputs, launches, reps, dev):
     return kernels
 
 
+def graph_only(args, dev):
+    """--graph-only: the loop for work on the graph kernels."""
+    from cozo_tpu_torch.utils.datasets import glove_like
+
+    t0 = time.time()
+    phase_graph_vs_plain(dev)
+    data = glove_like(args.n + NQ, D, seed=42)
+    qs, data = data[args.n:], data[:args.n]
+    db = phase_db(data, qs)[0]
+    launches = phase_graph_db(db, dev)
+    del db
+    kernels, scale = phase_graph_scale(dev, args.reps)
+    for entry in kernels:
+        entry["launches_by_path"] = {"db graph (phase 6)": launches[entry["name"]],
+                                     "scale (phase 7)": scale[entry["name"]]}
+    say(f"total {time.time() - t0:.1f}s")
+    say(json.dumps({"kernels": kernels}))
+    say(smi_line())
+    say("graph-only run: no verdict on the main path")
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=N,
@@ -1108,6 +1800,11 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="skip the main path (phase 3); time the kernels "
                          "on a random table of the main-path shape")
+    ap.add_argument("--graph-only", action="store_true",
+                    help="build the kernels, hold the graph kernels to "
+                         "their plain versions, then phase 5 on a Db of "
+                         "--n rows, phases 6 and 7 and the graph kernels' "
+                         "timings; no verdict")
     args = ap.parse_args()
     if args.n < MIN_N:
         ap.error(f"--n must be at least {MIN_N}")
@@ -1127,8 +1824,11 @@ def main():
 
     t_all = time.time()
     phase_build()
+    if args.graph_only:
+        return graph_only(args, dev)
     phase_kernel_vs_plain(dev)
     phase_beam_vs_plain()
+    phase_graph_vs_plain(dev)
     if args.kernels_only:
         from cozo_tpu_torch.ops import fused_sweep as fs
 
@@ -1142,7 +1842,9 @@ def main():
         data = glove_like(args.n + NQ, D, seed=42)
         qs, data = data[args.n:], data[:args.n]
         say(f"datagen {args.n} + {NQ} x {D} in {time.time() - t0:.1f}s")
-        index, build_s, db_launches = phase_db(data, qs)
+        db, index, build_s, db_launches = phase_db(data, qs)
+        graph_launches = {"db graph (phase 6)": phase_graph_db(db, dev)}
+        del db
         launches = phase_main(index, qs, build_s, args.reps)
         launches["beam_search_db"] = db_launches
         main_inputs = main_path_inputs(index, qs)
@@ -1156,6 +1858,14 @@ def main():
         phase_i8_build(data, qs)
         del data
         phase_quant_wide()
+        graph_kernels, graph_launches["scale (phase 7)"] = phase_graph_scale(
+            dev, args.reps)
+        for entry in graph_kernels:
+            by_path = {path: counts[entry["name"]]
+                       for path, counts in graph_launches.items()}
+            entry["launches"] = sum(by_path.values())
+            entry["launches_by_path"] = by_path
+        kernels += graph_kernels
     say(f"total {time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(smi_line())

@@ -4,10 +4,10 @@ of `cozo_tpu/fixed_rule/algos.py`).
 Output shapes and option names match the reference
 (`cozo-core/src/fixed_rule/algos/*.rs`).  At or above
 `TPU_EDGE_THRESHOLD` edges PageRank, SSSP and LabelPropagation take
-their device iterations in `ops/graph_algos.py`, which are not ported
-yet and raise `NotImplementedError` (ROADMAP §1 item 2); no branch here
-catches that and answers on the host instead.  Below the threshold the
-host code runs as in the JAX package."""
+their device iterations in `ops/graph_algos.py`, on the Db's device
+(`payload.device`: a CPU Db runs the kernels' plain versions); no branch
+here catches a device failure and answers on the host instead.  Below
+the threshold the host code runs as in the JAX package."""
 
 from __future__ import annotations
 
@@ -59,6 +59,7 @@ class PageRank(FixedRule):
             epsilon=epsilon,
             iterations=iterations,
             use_tpu=len(dst) >= TPU_EDGE_THRESHOLD,
+            device=payload.device,
         )
         for i, v in enumerate(verts):
             _check(poison)
@@ -83,6 +84,7 @@ class PageRank(FixedRule):
         scores = pagerank(
             indptr, dst, theta=theta, epsilon=epsilon, iterations=iterations,
             use_tpu=len(dst) >= TPU_EDGE_THRESHOLD,
+            device=payload.device,
         )
         _check(poison)
         rows = [[v, s] for v, s in zip(verts, scores.tolist())]
@@ -221,7 +223,8 @@ class ShortestPathDijkstra(FixedRule):
                 _check(poison)
                 srcs = sources[i : i + chunk]
                 dists, parents = sssp_device(
-                    indptr, dst, w, srcs, cache_key=ck
+                    indptr, dst, w, srcs, cache_key=ck,
+                    device=payload.device,
                 )
                 for j, s in enumerate(srcs):
                     emit(src_rows[i + j], s, dists[j], parents[j])
@@ -981,6 +984,7 @@ class LabelPropagation(FixedRule):
                 iterations=max_iter,
                 cache_key=graph_content_key(indptr, dst),
                 degree_cap=degree_cap,
+                device=payload.device,
             )
             _check(poison)
             remap: Dict[int, int] = {}
@@ -1038,7 +1042,7 @@ class LabelPropagation(FixedRule):
         labels = labelprop_jax(
             indptr, dst, w=w, iterations=max_iter,
             cache_key=graph_content_key(indptr, dst),
-            degree_cap=degree_cap,
+            degree_cap=degree_cap, device=payload.device,
         )
         _check(poison)
         # canonicalize label ids in first-seen order (vectorized: rank of

@@ -496,7 +496,7 @@ class HnswIndex:
         if os.environ.get("COZO_TPU_MESH", ""):
             raise NotImplementedError(
                 "COZO_TPU_MESH mesh serving is not ported yet (ROADMAP §1 "
-                "item 4: mesh sharding via torch.distributed)"
+                "item 3: mesh sharding via torch.distributed)"
             )
         if use_tpu:
             # past the f32 budget: the int8-quantized sweep + host f32

@@ -28,6 +28,7 @@ of the JAX package's upload, zero-pad, int8 quantisation).
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -159,10 +160,16 @@ def _sweep_i8(tbl_i8: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 class SweepTable:
     """Device-resident chunked score table for one index, incrementally
-    maintained from the host index's dirty-slot set."""
+    maintained from the host index's dirty-slot set.
+
+    The table is scattered in place (the JAX `_update_fn` returns new
+    arrays instead), so `lock` is held while `refresh` takes the pending
+    set and scatters it and while a search reads the table: concurrent
+    searches of one index never see a half-written table."""
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
+        self.lock = threading.Lock()
         self.version = -1
         self.tbl: Optional[torch.Tensor] = None
         self.bias: Optional[torch.Tensor] = None
@@ -207,13 +214,20 @@ class SweepTable:
         return rows, bias
 
     def refresh(self, index) -> None:
-        if self.version == index.version:
+        """Bring the table to the index's version; call with `lock` held.
+        The pending set is swapped for an empty one before its slots are
+        read, so a slot a writer adds meanwhile waits for the next
+        refresh; the version is read before the swap, so that refresh
+        comes (an empty pending set at a new version rebuilds the whole
+        table)."""
+        version = index.version
+        if self.version == version:
             return
         n = max(index.n, 1, self.reserve)
         chunk, n_chunks = _chunking(n)
         d = index.dim
         d_pad = max(128, int(math.ceil(d / 128) * 128))
-        pending = index.sweep_pending
+        pending, index.sweep_pending = index.sweep_pending, set()
         if (
             self.tbl is not None
             and n_chunks == self.n_chunks
@@ -247,8 +261,7 @@ class SweepTable:
             self.bias = to_device(np.ascontiguousarray(bias),
                                   self.device).view(n_chunks, chunk)
         self.chunk, self.n_chunks, self.d_pad = chunk, n_chunks, d_pad
-        self.version = index.version
-        index.sweep_pending.clear()
+        self.version = version
 
     # -- search ---------------------------------------------------------------
 
@@ -264,6 +277,12 @@ class SweepTable:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """`rt` is accepted for parity with the JAX signature; the
         per-chunk selection here is an exact top-k at every rt."""
+        with self.lock:
+            return self._search_locked(index, qs, k, compute_dtype,
+                                       exact_rerank, rerank_k)
+
+    def _search_locked(self, index, qs, k, compute_dtype, exact_rerank,
+                       rerank_k):
         self.refresh(index)
         q = np.asarray(qs, dtype=np.float32)
         # overfetch width: k+16 covers bf16 rank noise at the 0.999

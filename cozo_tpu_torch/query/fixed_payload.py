@@ -453,6 +453,14 @@ class FixedRulePayload:
             )
         return FixedInput(self.apply.inputs[i], self.ctx)
 
+    @property
+    def device(self):
+        """The device of the Db the rule runs in (None without a Db: the
+        card).  The device iterations of PageRank, SSSP and
+        LabelPropagation run there: a CPU Db takes their plain versions."""
+        db = getattr(self.ctx, "db", None)
+        return None if db is None else db.device
+
     def n_inputs(self) -> int:
         return len(self.apply.inputs)
 

@@ -194,7 +194,7 @@ class Db:
         elif engine in ("rocksdb", "tkv", "remote", "tikv", "plog", "sled"):
             raise NotImplementedError(
                 f"storage engine '{engine}' is not ported yet (ROADMAP §1 "
-                "item 5: hosts and the other storage engines)"
+                "item 4: the other storage engines)"
             )
         else:
             raise CozoError(f"unknown storage engine '{engine}'")

@@ -15,6 +15,7 @@ the device lanes there."""
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -53,6 +54,10 @@ class HnswCache:
         self.scan_cache: dict = {}
         # mirrors the KV canary version this cache was built from
         self.version = 0
+        # held by the maintenance of the index (hnsw_put / hnsw_remove) and
+        # by a search step from its search through its slot -> item
+        # mapping, so a concurrent read sees one version of both
+        self.lock = threading.Lock()
 
     def item_key(self, key_vals: list, field_idx: int) -> tuple:
         return (tuple(cmp_key(v) for v in key_vals), field_idx)
@@ -508,54 +513,56 @@ def _record_overlay(cache, tx, handle, idx_name, idx_handle, touched) -> None:
 
 def hnsw_put(db, tx, handle, idx_name, meta, new_row, old_row) -> None:
     cache = get_hnsw_cache(db, tx, handle, idx_name, meta)
-    idx_handle = tx.get_relation(f"{handle.name}:{idx_name}")
-    _bump_canary(tx, idx_handle, handle.name, idx_name, cache)
-    manifest = meta["config"]
-    nk = len(handle.keys)
-    if cache.is_packed:
-        cache.ensure_maps()
-    filt = _compile_filter(manifest, handle)
-    passes = filt is None or filt.eval(new_row) is True
-    for fi, fname in enumerate(manifest["fields"]):
-        vec = new_row[handle.col_index(fname)]
-        if old_row is not None or not passes or vec is None:
-            _remove_item(cache, new_row[:nk], fi)
-        if passes and vec is not None:
-            if not isinstance(vec, Vector):
-                raise IndexError_(f"column '{fname}' is not a vector")
-            _insert_item(cache, new_row[:nk], fi, vec)
-    _record_overlay(
-        cache, tx, handle, idx_name, idx_handle,
-        [(new_row[:nk], fi) for fi in range(len(manifest["fields"]))],
-    )
-    _sync_dirty_to_kv(cache, tx, handle, idx_handle)
+    with cache.lock:
+        idx_handle = tx.get_relation(f"{handle.name}:{idx_name}")
+        _bump_canary(tx, idx_handle, handle.name, idx_name, cache)
+        manifest = meta["config"]
+        nk = len(handle.keys)
+        if cache.is_packed:
+            cache.ensure_maps()
+        filt = _compile_filter(manifest, handle)
+        passes = filt is None or filt.eval(new_row) is True
+        for fi, fname in enumerate(manifest["fields"]):
+            vec = new_row[handle.col_index(fname)]
+            if old_row is not None or not passes or vec is None:
+                _remove_item(cache, new_row[:nk], fi)
+            if passes and vec is not None:
+                if not isinstance(vec, Vector):
+                    raise IndexError_(f"column '{fname}' is not a vector")
+                _insert_item(cache, new_row[:nk], fi, vec)
+        _record_overlay(
+            cache, tx, handle, idx_name, idx_handle,
+            [(new_row[:nk], fi) for fi in range(len(manifest["fields"]))],
+        )
+        _sync_dirty_to_kv(cache, tx, handle, idx_handle)
 
 
 def hnsw_remove(db, tx, handle, idx_name, meta, old_row) -> None:
     cache = get_hnsw_cache(db, tx, handle, idx_name, meta)
-    idx_handle = tx.get_relation(f"{handle.name}:{idx_name}")
-    _bump_canary(tx, idx_handle, handle.name, idx_name, cache)
-    manifest = meta["config"]
-    nk = len(handle.keys)
-    if cache.is_packed:
-        cache.ensure_maps()
-    for fi in range(len(manifest["fields"])):
-        slot = _remove_item(cache, old_row[:nk], fi)
-        _ = slot
-    # also purge this node's rows from KV
-    for lvl in range(len(cache.index.neighbors)):
+    with cache.lock:
+        idx_handle = tx.get_relation(f"{handle.name}:{idx_name}")
+        _bump_canary(tx, idx_handle, handle.name, idx_name, cache)
+        manifest = meta["config"]
+        nk = len(handle.keys)
+        if cache.is_packed:
+            cache.ensure_maps()
         for fi in range(len(manifest["fields"])):
-            prefix = [-lvl] + list(old_row[:nk]) + [fi]
-            lower = idx_handle.encode_row_key(prefix)
-            upper = lower + b"\xff" * 9
-            store_tx = tx.store_tx_for(idx_handle)
-            for k, _ in list(store_tx.range_scan(lower, upper)):
-                store_tx.delete(k)
-    _record_overlay(
-        cache, tx, handle, idx_name, idx_handle,
-        [(old_row[:nk], fi) for fi in range(len(manifest["fields"]))],
-    )
-    _sync_dirty_to_kv(cache, tx, handle, idx_handle)
+            slot = _remove_item(cache, old_row[:nk], fi)
+            _ = slot
+        # also purge this node's rows from KV
+        for lvl in range(len(cache.index.neighbors)):
+            for fi in range(len(manifest["fields"])):
+                prefix = [-lvl] + list(old_row[:nk]) + [fi]
+                lower = idx_handle.encode_row_key(prefix)
+                upper = lower + b"\xff" * 9
+                store_tx = tx.store_tx_for(idx_handle)
+                for k, _ in list(store_tx.range_scan(lower, upper)):
+                    store_tx.delete(k)
+        _record_overlay(
+            cache, tx, handle, idx_name, idx_handle,
+            [(old_row[:nk], fi) for fi in range(len(manifest["fields"]))],
+        )
+        _sync_dirty_to_kv(cache, tx, handle, idx_handle)
 
 
 # -------------------------------------------------------------------- search
@@ -649,12 +656,16 @@ def compile_hnsw_search(db, atom, binding_map, ctx, handle, meta):
         def run(self, envs, ctx2, delta):
             if not envs:
                 return []
+            cache = get_hnsw_cache(db, ctx2.tx, handle, idx_name, meta)
+            with cache.lock:
+                return self._run_locked(envs, ctx2, cache)
+
+        def _run_locked(self, envs, ctx2, cache):
             import os as _os
             import time as _time
 
             timing = _os.environ.get("COZO_TPU_SEARCH_TIMING") == "1"
             t0 = _time.time()
-            cache = get_hnsw_cache(db, ctx2.tx, handle, idx_name, meta)
             index = cache.index
             dt = index.dtype
             qs = np.zeros((len(envs), manifest["dim"]), dtype=dt)

@@ -18,7 +18,7 @@ from ..runtime.transact import SessionTx
 def text_index_unported(kind: str, what: str):
     """Raise for an FTS or LSH index operation (`kind` "fts" / "lsh")."""
     raise NotImplementedError(
-        f"{kind} index {what} is not ported yet (ROADMAP §1 item 3: text "
+        f"{kind} index {what} is not ported yet (ROADMAP §1 item 2: text "
         "indexes, FTS on the host + MinHash-LSH on the device)"
     )
 

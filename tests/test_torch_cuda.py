@@ -1,5 +1,7 @@
 """Tests of the port that need an NVIDIA card (marker `cuda`): each CUDA
-kernel (`fused_sweep`, `beam_search`) against its plain PyTorch version,
+kernel (`fused_sweep`, `beam_search`, the three graph kernels) against its
+plain PyTorch version, the graph rules' entry points on the card against
+the same calls on the CPU,
 the lanes end to end through the kernels, the staging buffers of a
 small-batch search and its lock under concurrent callers, and the card's
 int8 product
@@ -14,12 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import BEAM_CASES
+from chip_smoke import (BEAM_CASES, GRAPH_LP_WIDTHS, GRAPH_PR_CASES,
+                        GRAPH_SSSP_CASES, PR_L1_TOL, graph_csr, lp_inputs,
+                        pagerank_agreement, pr_inputs, sssp_inputs)
 from chip_smoke import PHASE2_SHAPES as SHAPES
 from chip_smoke import (agreement_ok, beam_args, beam_case, beam_ok,
                         compare_beam, compare_fused, random_case)
 from cozo_tpu_torch import HnswIndex, sweep_search
 from cozo_tpu_torch.ops import fused_sweep as fs
+from cozo_tpu_torch.ops import graph_algos as ga
 from cozo_tpu_torch.ops import vector_search as vs
 from cozo_tpu_torch.utils.device import int_mm
 
@@ -285,3 +290,76 @@ def test_int_mm_lane_matches_the_cpu_int32_product(cuda):
         overlap = np.mean([len(set(ids_i[i]) & set(ids_f[i])) / 10
                            for i in range(nq)])
         assert overlap > 0.98
+
+
+# ------------------------------------------------------------ graph kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,steps,dangling", GRAPH_PR_CASES)
+def test_graph_pagerank_matches_plain(cuda, n, e, steps, dangling):
+    """L1 <= 1e-5 against the plain version, the same top 100 up to ties,
+    two runs bit-identical (no float atomics), 0 on padding."""
+    staged = pr_inputs(n, e, dangling, cuda)
+    before = ga.pagerank_steps.launches
+    got = ga.pagerank_steps(*staged, n, steps, 0.85)
+    again = ga.pagerank_steps(*staged, n, steps, 0.85)
+    assert ga.pagerank_steps.launches == before + 2
+    want = ga.pagerank_plain(*staged, n, steps, 0.85)
+    l1, top = pagerank_agreement(got, want, n)
+    assert l1 <= PR_L1_TOL and top
+    assert torch.equal(got, again) and not bool(got[n:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GRAPH_SSSP_CASES)
+def test_graph_sssp_matches_plain(cuda, case):
+    """Distances, parents and the steps run EQUAL the plain version's."""
+    g, sources, max_iters = sssp_inputs(case, cuda)
+    got = ga.sssp_ell(g, sources, max_iters)
+    want = ga.sssp_ell_plain(g, sources, max_iters)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[2] == want[2]
+    again = ga.sssp_ell(g, sources, max_iters)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", GRAPH_LP_WIDTHS)
+@pytest.mark.parametrize("weighted", [False, True])
+def test_graph_lp_pick_matches_plain(cuda, W, weighted):
+    """Picks EQUAL the plain version's (unit or k/8 weights: exact sums),
+    the planted tie to the smaller label."""
+    H = 4096 if W <= 128 else 64
+    labels, nb, w, idx, has_in, n_real = lp_inputs(H, W, weighted, W, cuda)
+    got = labels.clone()
+    ga.lp_pick(labels, nb, w, idx, has_in, n_real, got)
+    want = labels.clone()
+    ga.lp_pick_plain(labels, nb, w, idx, has_in, n_real, want)
+    assert torch.equal(got, want)
+    node = 2 if idx is None else int(idx[2])
+    assert int(got[node]) == 65
+
+
+@pytest.mark.cuda
+def test_graph_rules_on_the_card_equal_the_cpu(cuda):
+    """The entry points on 60,000 edges (a hub past 1,024 in-edges, so
+    SSSP has level-2 rows and LabelPropagation takes the hybrid lanes):
+    the card through the kernels, the CPU through the plain versions."""
+    ip, d = graph_csr(5000, 60_000, 3, hub=1500, dangling=100)
+    w = np.random.default_rng(1).integers(1, 16, len(d)).astype(np.float32) / 8
+    ck = ga.graph_content_key(ip, d)
+    counts = (ga.pagerank_steps.launches, ga.sssp_ell.launches,
+              ga.lp_pick.launches)
+    pr = ga.pagerank_jax(ip, d, cache_key=ck)
+    sp = ga.sssp_device(ip, d, w, [0, 1, 2], cache_key=ck)
+    lp = ga.labelprop_jax(ip, d, iterations=6, cache_key=ck)
+    assert (ga.pagerank_steps.launches > counts[0]
+            and ga.sssp_ell.launches > counts[1]
+            and ga.lp_pick.launches > counts[2])
+    assert np.abs(pr - ga.pagerank_jax(ip, d, device="cpu")).sum() <= PR_L1_TOL
+    sp_c = ga.sssp_device(ip, d, w, [0, 1, 2], device="cpu")
+    assert np.array_equal(sp[0], sp_c[0]) and np.array_equal(sp[1], sp_c[1])
+    assert np.array_equal(lp, ga.labelprop_jax(ip, d, iterations=6,
+                                               device="cpu"))
+

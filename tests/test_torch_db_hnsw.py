@@ -6,16 +6,21 @@ from KV, and the device dispatch of a pivot join on a table past the
 host search, so distances are compared exactly; the device lanes are held
 to the tolerance of `test_torch_vector_search.py` (1e-5).
 
-The 4 <= B < 64 dispatch to the beam-search kernel needs a table past
-131,072 rows; building one through both Dbs here takes minutes, so that
-dispatch is held at Db level on the card alone (`chip_smoke.py` phase 5).
+The 4 <= B < 64 dispatch to the beam search needs a table past 131,072
+rows; a build of one through the Db takes minutes here, so the port's Db
+holds a navigable index made without a build (`tests/_torch_state.
+line_state`) and its joins at B = 4 and 63 are held against
+`HnswIndex.search` called directly.  Concurrent B >= 64 joins with a
+writer hold the sweep table's and the index cache's locks.
 """
 
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
+import torch
 
 from tests.test_torch_db_scripts import new_dbs, rows_sorted, run_both
 
@@ -324,3 +329,192 @@ def test_concurrent_joins_equal_sequential(big_dbs):
     assert not any(th.is_alive() for th in threads)
     assert not errors, errors
     assert all(len(w) == 160 for w in want)
+
+
+def test_concurrent_sweep_joins_with_a_writer(big_dbs):
+    """4 threads run the B = 64 pivot join (the sweep lane, whose table a
+    refresh scatters in place) while a writer removes rows one by one:
+    every answer equals the sequential answer at one of the writer's
+    versions (the sweep table's lock; the Db cache's lock keeps a search
+    and its slot -> id mapping on one version), and after the writer
+    stops one refresh leaves the table equal to a full rebuild.  The rows
+    are put back at the end."""
+    from cozo_tpu_torch.ops.exact_knn import SweepTable
+
+    dbs, data = big_dbs
+    db = dbs[1]
+    # the rows to remove: the first 6 queries' nearest, each changes an answer
+    first = rows_sorted(db.run_script(JOIN))
+    gone = []
+    for qid in range(6):
+        near = min((r for r in first if r[0] == qid), key=lambda r: r[2])[1]
+        if near not in gone:
+            gone.append(near)
+    rm = "?[id] <- [[$id]] :rm item {id}"
+    put = "?[id, v] <- [[$id, $v]] :put item {id => v}"
+    answers = [first]
+    for i in gone:
+        db.run_script(rm, {"id": i})
+        answers.append(rows_sorted(db.run_script(JOIN)))
+    for i in gone:
+        db.run_script(put, {"id": i, "v": data[i]})
+    assert rows_sorted(db.run_script(JOIN)) == first
+    assert len({tuple(a) for a in answers}) == len(answers)
+    errors, seen, done = [], set(), threading.Event()
+
+    def reader():
+        try:
+            while not done.is_set():
+                got = rows_sorted(db.run_script(JOIN))
+                assert got in answers, "an answer of no version"
+                seen.add(answers.index(got))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    def writer():
+        try:
+            for i in gone:
+                db.run_script(rm, {"id": i})
+                time.sleep(0.05)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+        finally:
+            done.set()
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=reader) for _ in range(4)]
+        threads.append(threading.Thread(target=writer))
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    assert rows_sorted(db.run_script(JOIN)) == answers[-1]
+    index = db.algo_cache["hnsw::item::ix"].index
+    st = index._sweep_table
+    with st.lock:
+        st.refresh(index)
+        full = SweepTable(st.device)
+        full.refresh(index)
+        assert torch.equal(st.tbl, full.tbl) and torch.equal(st.bias, full.bias)
+    for i in gone:
+        db.run_script(put, {"id": i, "v": data[i]})
+    assert rows_sorted(db.run_script(JOIN)) == first
+
+
+def test_sweep_refresh_excludes_readers_and_keeps_concurrent_writes(
+        monkeypatch):
+    """What arrives while a refresh is scattering (a hook inside the
+    refresh runs it there): a writer's slot, added after the refresh took
+    its pending set, is applied by the next refresh, which leaves the
+    table equal to a full rebuild; a reader waits for the refresh, so it
+    never reads the table half written."""
+    from cozo_tpu_torch import HnswIndex
+    from cozo_tpu_torch.ops.exact_knn import SweepTable, sweep_search
+
+    rng = np.random.default_rng(8)
+    data = rng.standard_normal((3000, 16)).astype(np.float32)
+    index = HnswIndex(dim=16, m=8, ef_construction=32, device="cpu")
+    index.bulk_build(data, wave=1024)
+    qs = data[:64]
+    sweep_search(index, qs, 10)
+    st = index._sweep_table
+    real = SweepTable._prep_rows
+
+    def during_refresh(action):
+        fired = []
+
+        def hook(idx, slots):
+            if not fired:
+                fired.append(1)
+                action(idx)
+            return real(idx, slots)
+
+        monkeypatch.setattr(SweepTable, "_prep_rows", staticmethod(hook))
+
+    index.remove(5)
+    during_refresh(lambda idx: idx.remove(7))  # a writer mid-refresh
+    ids, _ = sweep_search(index, qs, 10)
+    assert 5 not in ids
+    monkeypatch.setattr(SweepTable, "_prep_rows", staticmethod(real))
+    with st.lock:
+        st.refresh(index)
+        full = SweepTable(st.device)
+        full.refresh(index)
+        assert torch.equal(st.tbl, full.tbl) and torch.equal(st.bias, full.bias)
+    assert float(st.bias.view(-1)[7]) == float("-inf")
+
+    readers = []
+
+    def reader(idx):
+        th = threading.Thread(target=sweep_search, args=(idx, qs, 10))
+        th.start()
+        th.join(timeout=0.5)
+        readers.append((th, th.is_alive()))
+
+    index.remove(9)
+    during_refresh(reader)
+    ids, _ = sweep_search(index, qs, 10)
+    th, waited = readers[0]
+    th.join(timeout=60)
+    assert waited and not th.is_alive()
+    assert not np.isin(ids, [5, 7, 9]).any()
+
+
+def test_db_small_batches_take_the_beam_search(monkeypatch):
+    """B = 4 and 63 stored queries joined against an index past 131,072
+    rows (a navigable line, made without a build) reach
+    `hnsw_search_device` through the port's Db, and the rows equal
+    `HnswIndex.search` called directly on the same index; B = 64 takes
+    the sweep."""
+    from cozo_tpu_torch import Db, HnswIndex
+    from cozo_tpu_torch.ops import vector_search as vs
+    from tests._torch_state import line_state
+
+    n = 140_000
+    state = line_state(n)
+    monkeypatch.setenv("COZO_TPU_F32_TABLE_MAX", str(8 << 30))
+    monkeypatch.setenv("COZO_TPU_PACKED_KV_MIN", "100000")
+
+    def from_line(self, data, wave=8192):
+        assert np.array_equal(data, state["vectors"])
+        self.__dict__.update(HnswIndex.from_state(state, device="cpu")
+                             .__dict__)
+        return list(range(n))
+
+    monkeypatch.setattr(HnswIndex, "bulk_build", from_line)
+    db = Db("mem", device="cpu")
+    db.run_script(":create item {id: Int => v: <F32; 2>}")
+    db.run_script("?[id, v] <- $rows :put item {id => v}",
+                  {"rows": [[i, state["vectors"][i]] for i in range(n)]})
+    db.run_script("::hnsw create item:ix {dim: 2, m: 8, dtype: F32, "
+                  "fields: [v], distance: L2, ef_construction: 16}")
+    index = db.algo_cache["hnsw::item::ix"].index
+    assert index.n == n and np.array_equal(index.neighbors[0],
+                                           state["neighbors"][0])
+    rng = np.random.default_rng(5)
+    calls = []
+    real = vs.hnsw_search_device
+    monkeypatch.setattr(vs, "hnsw_search_device",
+                        lambda *a, **kw: calls.append(a[1].shape[0])
+                        or real(*a, **kw))
+    for B in (4, 63, 64):
+        qs = np.stack([rng.random(B), rng.random(B) * 1e-3], 1).astype(
+            np.float32)
+        rel = f"q{B}"
+        db.run_script(f":create {rel} {{qid: Int => qv: <F32; 2>}}")
+        db.run_script(f"?[qid, qv] <- $rows :put {rel} {{qid => qv}}",
+                      {"rows": [[i, qs[i]] for i in range(B)]})
+        del calls[:]
+        res = db.run_script(JOIN.replace("*q{", f"*{rel}{{"))
+        assert calls == ([B] if B < 64 else [])
+        ids, d = index.search(qs, 10, 64)
+        want = sorted((q, int(ids[q, j]), float(d[q, j]))
+                      for q in range(B) for j in range(10) if ids[q, j] >= 0)
+        assert rows_sorted(res) == want
+

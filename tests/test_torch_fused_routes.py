@@ -88,7 +88,8 @@ def test_work_split_covers_every_tile_once(B, n_total, d_pad):
 # -- (c) the C interface ------------------------------------------------------------
 
 _C_TYPES = {"void*": ctypes.c_void_p, "constvoid*": ctypes.c_void_p,
-            "int": ctypes.c_int}
+            "int": ctypes.c_int, "float": ctypes.c_float,
+            "constlonglong*": ctypes.c_void_p}
 
 
 def _extern_c_functions():
