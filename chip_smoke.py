@@ -28,7 +28,12 @@ Phases, each reported on its own line; any failure exits non-zero:
      parents and steps equal), `graph_labelprop` (rows 8 to 8,192 wide,
      dense layout and lanes, a row of padding, a row without a valid
      slot, a planted tie, negative weights; labels equal), two runs of
-     each bit-identical;
+     each bit-identical.  `minhash`: empty docs first, inside and last,
+     one doc, a single-token doc, a 100,000-token doc (past one
+     shared-memory tile), D = 1,024, n_perm 1, 32, 100, 128 and 256,
+     hashes 0, all ones and the top bit alone or cleared: signatures
+     bit-equal to the plain version and to the host `minhash_segments`,
+     two runs bit-identical;
   5. (run before phase 3) drive the Db through CozoScript, the script of
      `benches/bench_hybrid_1m.py` phases 1-4 at full size: `glove_like`
      data (seed 42), `Db("mem")` on the card, ingest by `:put` batches of
@@ -70,10 +75,21 @@ Phases, each reported on its own line; any failure exits non-zero:
      points: PageRank and SSSP at 4,928,571 nodes / 69M edges,
      LabelPropagation on the 50M-edge hub graph, each cold and warm and
      held to the plain versions; prints a `scale` line;
+  8. the text indexes: `benches/bench_lsh_1m.py` through `Db("mem")`,
+     nothing cut (1,000,000 docs, 1,000 planted near-duplicates; ingest by
+     `:put` batches of 50,000, `::lsh create` with 128 permutations at
+     threshold 0.7, whose backfill runs the `minhash` kernel once a chunk
+     of 32,768 docs, the serving image, 200 single queries and the
+     1,000-query batched join, each planted-duplicate recall >= 0.95, no
+     serving-image fallback); the stored signatures of every doc held to
+     the host `minhash_segments`; then `::fts create` on 50,000 of the
+     docs and 10 single-term searches, each equal to a scan; prints an
+     `lsh` line;
   4. time each kernel at its shape (the main-path shape for the routes the
-     main path takes; the graph kernels at phase 7's) with CUDA events,
-     beside its bound and its plain version, and the fused routes and
-     PageRank beside a one-call PyTorch yardstick;
+     main path takes; the graph kernels at phase 7's, `minhash` at phase
+     8's first backfill chunk, with a chunk's upload and copy back) with
+     CUDA events, beside its bound and its plain version, and the fused
+     routes and PageRank beside a one-call PyTorch yardstick;
   5. print the kernels' JSON line, the card's name and power limit, and
      as the last line {"ok": true, "device": {...}}.
 
@@ -82,7 +98,8 @@ random table of the main-path shape and `beam_search` (kernel and call) on
 a built index of 262,144 rows: a quick check of the kernels alone, which
 prints no `{"ok": ...}` line.  `--graph-only` runs phases 1, 2 (the graph
 kernels), 5 on a Db of `--n` rows, 6, 7 and the graph kernels' timings,
-and prints no `{"ok": ...}` line either.
+and prints no `{"ok": ...}` line either; `--lsh-only` runs phases 1, 2
+(`minhash`), 8 and the `minhash` timing, and prints none either.
 """
 
 import argparse
@@ -536,6 +553,79 @@ def phase_graph_vs_plain(dev):
                 f"({changed} changed), two runs identical {twice}")
             if not (equal and twice and changed):
                 raise SystemExit("phase 2 failed: graph_labelprop disagrees")
+
+
+# MinHash segment-min cases of phase 2: (name, doc lengths, n_perm).  A
+# tuple lists every doc's length; a dict draws `n` lengths in [lo, hi).
+MINHASH_CASES = (
+    ("empty docs first, inside and last, one-token docs",
+     (0, 5, 0, 17, 1, 3, 0, 9, 1, 0, 0), 100),
+    ("one doc", (7,), 1),
+    ("a single-token doc", (1,), 32),
+    ("a doc past one shared-memory tile", (3, 100_000, 0, 4), 128),
+    ("D = 1,024 (the JAX tail-fix case)", {"n": 1024, "lo": 1, "hi": 9}, 256),
+    ("a backfill-like batch", {"n": 5000, "lo": 8, "hi": 18}, 128),
+    ("empty docs at n_perm 32", {"n": 300, "lo": 0, "hi": 4}, 32),
+)
+# hashes every case carries: 0, all ones, and the top bit alone and
+# cleared, so xors with the seeds set and clear the top bit
+MINHASH_EDGE_HASHES = (0, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF)
+
+
+def minhash_inputs(lens, seed):
+    """(flat hashes [T] u32, doc starts [D] i64) for a MINHASH_CASES
+    entry's lengths."""
+    rng = np.random.default_rng(seed)
+    if isinstance(lens, dict):
+        lens = rng.integers(lens["lo"], lens["hi"], lens["n"])
+    lens = np.asarray(lens, np.int64)
+    offs = np.zeros(len(lens), np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    flat = rng.integers(0, 1 << 32, int(lens.sum()),
+                        dtype=np.uint64).astype(np.uint32)
+    k = min(len(flat), len(MINHASH_EDGE_HASHES))
+    if k:
+        flat[:k] = MINHASH_EDGE_HASHES[:k]
+        flat[-k:] = MINHASH_EDGE_HASHES[:k]
+    return flat, offs
+
+
+def minhash_tensors(flat, offs, dev):
+    import torch
+
+    return (torch.from_numpy(flat.view(np.int32)).to(dev),
+            torch.from_numpy(offs).to(dev))
+
+
+def phase_minhash_vs_plain(dev):
+    """Phase 2 for the MinHash kernel: signatures bit-equal to the plain
+    version on the card and to the host `minhash_segments`, two runs
+    bit-identical."""
+    import torch
+
+    from cozo_tpu_torch.ops import minhash as mh
+
+    for i, (name, lens, n_perm) in enumerate(MINHASH_CASES):
+        flat, offs = minhash_inputs(lens, i)
+        h, o = minhash_tensors(flat, offs, dev)
+        outs = []
+        for _ in range(2):
+            out = torch.empty((len(offs), n_perm), dtype=torch.int32,
+                              device=dev)
+            outs.append(mh.segment_min(h, o, n_perm, out))
+        want = mh.segment_min_plain(h, o, n_perm)
+        torch.cuda.synchronize()
+        got = outs[0].cpu().numpy().view(np.uint32)
+        host = mh.minhash_segments(flat, offs, n_perm)
+        equal = bool(torch.equal(outs[0], want)) and bool((got == host).all())
+        twice = bool(torch.equal(outs[0], outs[1]))
+        empty = int((np.diff(np.append(offs, len(flat))) == 0).sum())
+        say(f"phase 2 minhash vs plain ({name}): T={len(flat)} "
+            f"D={len(offs)} n_perm={n_perm}, {empty} empty docs: "
+            f"signatures equal to plain and host {equal}, two runs "
+            f"identical {twice}")
+        if not (equal and twice):
+            raise SystemExit("phase 2 failed: minhash disagrees")
 
 
 def recall(ids, gt):
@@ -1488,6 +1578,340 @@ def time_lp_pick(cache_key, dev, reps):
             "shape": {"H": H, "W": W, "valid_slots": valid}}
 
 
+# benches/bench_lsh_1m.py (BASELINE config #4): 1,000,000 short docs of
+# 8-17 words over a 50,000-word vocabulary, 1,000 planted near-duplicates,
+# `::lsh create` with 128 permutations at threshold 0.7
+LSH_N, LSH_VOCAB, LSH_PLANTED = 1_000_000, 50_000, 1000
+LSH_SINGLE, LSH_BATCHED = 200, 1000  # single queries; the batched join's
+LSH_CHUNK = 32_768  # runtime/minhash_lsh.py's backfill chunk
+LSH_N_PERM = 128
+LSH_RECALL_BAR = 0.95  # the JAX package's runs on this data: 0.965 / 0.955
+FTS_N, FTS_TERMS = 50_000, 10
+# H100 SXM's integer issue rates, in lanes an SM a clock: the ALU pipe
+# (xor, shift, min) and the FMA pipe (IMAD / IMUL) take 64 each (Hopper
+# white paper: 16 INT32 lanes a sub-partition; Nsight Compute's pipe
+# definitions put integer multiplies on the FMA pipe), and they run at the
+# same time under the four schedulers' 128 lanes a clock in all
+ALU_LANES_PER_SM, FMA_LANES_PER_SM, ISSUE_LANES_PER_SM = 64, 64, 128
+SMS = 132
+# fmix32(h ^ seed) and the min, a (token, permutation) pair: the seed xor,
+# three shifts, three xors and the min on the ALU, two multiplies on FMA
+MINHASH_ALU_OPS, MINHASH_FMA_OPS = 8, 2
+
+
+def lsh_docs(n):
+    """`benches/bench_lsh_1m.py`'s docs at n (a multiple of 16): 16
+    streams spawned from default_rng(5), then docs[i] for i < 1,000 get a
+    near-duplicate (the first word replaced) at n - 1,000 + i."""
+    rng = np.random.default_rng(5)
+    docs = []
+    for br in rng.spawn(16):
+        for _ in range(n // 16):
+            n_words = 8 + int(br.integers(0, 10))
+            docs.append(" ".join(f"w{int(w)}"
+                                 for w in br.integers(0, LSH_VOCAB, n_words)))
+    for i in range(LSH_PLANTED):
+        words = docs[i].split()
+        words[0] = "wDUP"
+        docs[n - LSH_PLANTED + i] = " ".join(words)
+    return docs
+
+
+def lsh_host_chunks(docs, n_perm):
+    """Per backfill chunk: (hashes, doc starts, host signatures), the
+    signatures from the host `minhash_segments` over the chunk's
+    `hash_tokens_dedup` hashes (the `Simple` tokenizer, n_gram 1), the
+    chunks' numpy work spread over the host's cores."""
+    from cozo_tpu_torch.fts.tokenizer import build_analyzer
+    from cozo_tpu_torch.ops.minhash import hash_tokens_dedup, minhash_segments
+
+    an = build_analyzer(("Simple", []), [])
+    chunks = []
+    for s in range(0, len(docs), LSH_CHUNK):
+        toks = an.analyze_texts(docs[s:s + LSH_CHUNK])
+        lens = np.fromiter((len(t) for t in toks), np.int64, len(toks))
+        offs = np.zeros(len(toks), np.int64)
+        np.cumsum(lens[:-1], out=offs[1:])
+        chunks.append((hash_tokens_dedup([t for ts in toks for t in ts]),
+                       offs))
+    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        sigs = ex.map(lambda c: minhash_segments(*c, n_perm), chunks)
+        for (flat, offs), sig in zip(chunks, sigs):
+            yield flat, offs, sig
+
+
+def backfill_timer():
+    """A context in which the LSH backfill's steps add their seconds to the
+    dict it yields: `prepare` (a chunk's host half: extract, `tokenize`,
+    `hash`, and `dispatch`: the upload and the launch queued) and `write`
+    (the KV puts, `wait` for the signatures first)."""
+    import contextlib
+
+    from cozo_tpu_torch.fts.tokenizer import TextAnalyzer
+    from cozo_tpu_torch.ops import minhash as mh
+    from cozo_tpu_torch.runtime import minhash_lsh as ml
+
+    targets = {"prepare": (ml, "_prepare_chunk"),
+               "tokenize": (TextAnalyzer, "analyze_texts"),
+               "hash": (mh, "hash_tokens_dedup"),
+               "dispatch": (mh, "minhash_segments_dispatch"),
+               "wait": (mh._SigFuture, "get"),
+               "write": (ml, "_write_chunk")}
+    spent = dict.fromkeys(targets, 0.0)
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return run
+
+    @contextlib.contextmanager
+    def patched():
+        saved = {k: getattr(obj, name) for k, (obj, name) in targets.items()}
+        for k, (obj, name) in targets.items():
+            setattr(obj, name, timed(k, saved[k]))
+        try:
+            yield spent
+        finally:
+            for k, (obj, name) in targets.items():
+                setattr(obj, name, saved[k])
+
+    return patched()
+
+
+def stored_signatures(db, rel):
+    """The `signature` bytes of every row of `rel` (an LSH index's
+    inverse relation), by id, straight from the store."""
+    from cozo_tpu_torch.data.functions import current_validity_ts
+
+    tx = db._new_session(False, current_validity_ts())
+    try:
+        h = tx.get_relation(rel)
+        return {row[0]: row[1] for row in h.scan_all(tx.store_tx_for(h))}
+    finally:
+        tx.abort()
+
+
+def phase_lsh(n_docs=LSH_N):
+    """Phase 8: `bench_lsh_1m.py` through `Db("mem")` (ingest, `::lsh
+    create`, the serving image, single queries, the batched join), the
+    stored signatures of every doc held to the host `minhash_segments`,
+    then `::fts create` and single-term searches on FTS_N of the docs held
+    to a scan.  Returns (the segment-min launches of the build, the first
+    full chunk's hashes and doc starts, the `lsh` line's dict)."""
+    from cozo_tpu_torch import Db
+    from cozo_tpu_torch.ops import minhash as mh
+    from cozo_tpu_torch.utils import fallback
+
+    out = {"n_docs": n_docs, "n_perm": LSH_N_PERM, "target_threshold": 0.7}
+    t0 = time.time()
+    docs = lsh_docs(n_docs)
+    out["docgen_s"] = time.time() - t0
+    db = Db("mem")
+    db.run_script(":create doc {id: Int => body: String}")
+    t0 = time.time()
+    for s in range(0, n_docs, INGEST_BATCH):
+        rows = [[i, docs[i]] for i in range(s, min(s + INGEST_BATCH, n_docs))]
+        db.run_script("?[id, body] <- $rows :put doc {id => body}",
+                      {"rows": rows})
+    out["ingest_s"] = time.time() - t0
+    out["ingest_docs_per_s"] = n_docs / out["ingest_s"]
+    mh.segment_min.launches = 0
+    with backfill_timer() as spent:
+        t0 = time.time()
+        db.run_script("::lsh create doc:sim {extractor: body, "
+                      f"tokenizer: Simple, n_perm: {LSH_N_PERM}, "
+                      "target_threshold: 0.7}")
+        out["build_s"] = time.time() - t0
+    launches = mh.segment_min.launches
+    out["build_steps_s"] = {
+        "scan, commit, rest": out["build_s"] - spent["prepare"]
+        - spent["write"],
+        "extract": spent["prepare"] - spent["tokenize"] - spent["hash"]
+        - spent["dispatch"],
+        "tokenize": spent["tokenize"], "hash": spent["hash"],
+        "dispatch": spent["dispatch"], "wait": spent["wait"],
+        "kv puts": spent["write"] - spent["wait"]}
+    out["build_docs_per_s"] = n_docs / out["build_s"]
+    out["segment_min_launches"] = launches
+    say(f"phase 8 lsh: {n_docs:,} docs generated in {out['docgen_s']:.1f}s, "
+        f"ingest {out['ingest_s']:.1f}s ({out['ingest_docs_per_s']:,.0f} "
+        f"docs/s), ::lsh create {out['build_s']:.1f}s "
+        f"({out['build_docs_per_s']:,.0f} docs/s), {launches} minhash "
+        f"launches; build steps (s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out["build_steps_s"].items()))
+    chunks = -(-n_docs // LSH_CHUNK)
+    if launches < chunks - 1:
+        raise SystemExit(f"phase 8 failed: {launches} minhash launches for "
+                         f"{chunks} backfill chunks")
+
+    single = "?[id] := ~doc:sim{id | query: $q, k: 5}"
+    fb0 = fallback.counts().get("lsh.serving_image", 0)
+    t0 = time.time()
+    db.run_script(single, {"q": docs[0]})
+    out["serving_image_s"] = time.time() - t0
+    t0 = time.time()
+    hits = 0
+    for i in range(LSH_SINGLE):
+        res = db.run_script(single, {"q": docs[i]})
+        hits += (n_docs - LSH_PLANTED + i) in {r[0] for r in res.rows}
+    el = time.time() - t0
+    out["query_qps"] = LSH_SINGLE / el
+    out["planted_dup_recall"] = hits / LSH_SINGLE
+    db.run_script(":create q {qid: Int => body: String}")
+    db.run_script("?[qid, body] <- $rows :put q {qid => body}",
+                  {"rows": [[i, docs[i]] for i in range(LSH_BATCHED)]})
+    join = "?[qid, id] := *q{qid, body}, ~doc:sim{id | query: body, k: 5}"
+    db.run_script(join)  # warm
+    t0 = time.time()
+    res = db.run_script(join)
+    el_b = time.time() - t0
+    pairs = {(r[0], r[1]) for r in res.rows}
+    bhits = sum((i, n_docs - LSH_PLANTED + i) in pairs
+                for i in range(LSH_BATCHED))
+    out["batched_join_qps"] = LSH_BATCHED / el_b
+    out["batched_join_recall"] = bhits / LSH_BATCHED
+    out["fallbacks"] = fallback.counts()
+    fired = out["fallbacks"].get("lsh.serving_image", 0) - fb0
+    say(f"phase 8 lsh: serving image {out['serving_image_s']:.1f}s, "
+        f"{LSH_SINGLE} single queries {out['query_qps']:.1f} QPS, recall "
+        f"{out['planted_dup_recall']:.3f}; batched join of {LSH_BATCHED} "
+        f"{out['batched_join_qps']:.1f} QPS ({len(res.rows)} rows), recall "
+        f"{out['batched_join_recall']:.3f} (bar {LSH_RECALL_BAR}); "
+        f"fallbacks {out['fallbacks']}")
+    if min(out["planted_dup_recall"], out["batched_join_recall"]) \
+            < LSH_RECALL_BAR:
+        raise SystemExit("phase 8 failed: planted-duplicate recall below "
+                         "its bar")
+    if fired:
+        raise SystemExit("phase 8 failed: the LSH serving image fell back")
+
+    t0 = time.time()
+    stored = stored_signatures(db, "doc:sim:inv")
+    first = None
+    d = bad = 0
+    for flat, offs, sigs in lsh_host_chunks(docs, LSH_N_PERM):
+        if first is None:
+            first = (flat, offs)
+        for row in sigs:
+            bad += stored.get(d) != row.tobytes()
+            d += 1
+    out["signatures_checked"] = d
+    out["signatures_equal"] = d - bad
+    say(f"phase 8 lsh: stored signatures equal to the host minhash_segments "
+        f"for {d - bad:,} of {d:,} docs ({len(stored):,} stored; "
+        f"{time.time() - t0:.1f}s)")
+    if bad or d != n_docs or len(stored) != n_docs:
+        raise SystemExit("phase 8 failed: stored signatures differ from the "
+                         "host minhash_segments")
+    del db, stored
+
+    fts = docs[:FTS_N]
+    db = Db("mem")
+    db.run_script(":create ftdoc {id: Int => body: String}")
+    for s in range(0, FTS_N, INGEST_BATCH):
+        rows = [[i, fts[i]] for i in range(s, min(s + INGEST_BATCH, FTS_N))]
+        db.run_script("?[id, body] <- $rows :put ftdoc {id => body}",
+                      {"rows": rows})
+    t0 = time.time()
+    db.run_script("::fts create ftdoc:ft {extractor: body, tokenizer: Simple}")
+    out["fts_build_s"] = time.time() - t0
+    words = [d.split() for d in fts]
+    terms = [words[i * (FTS_N // FTS_TERMS)][1] for i in range(FTS_TERMS)]
+    matched, t_search = [], 0.0
+    for term in terms:
+        want = {i for i, ws in enumerate(words) if term in ws}
+        t0 = time.time()
+        res = db.run_script(
+            f"?[id] := ~ftdoc:ft{{id | query: '{term}', k: {len(want) + 10}}}")
+        t_search += time.time() - t0
+        got = {r[0] for r in res.rows}
+        matched.append(len(want))
+        if got != want:
+            raise SystemExit(f"phase 8 failed: FTS '{term}' found "
+                             f"{len(got)} ids, the scan {len(want)}")
+    out["fts_terms"] = dict(zip(terms, matched))
+    out["fts_search_ms"] = t_search / FTS_TERMS * 1e3
+    say(f"phase 8 fts: {FTS_N:,} docs, ::fts create {out['fts_build_s']:.1f}s, "
+        f"{FTS_TERMS} single-term searches ({out['fts_search_ms']:.2f} ms "
+        f"each) equal to the scan, matches {matched}")
+    out["card"] = smi_line()
+    say("lsh " + json.dumps(out))
+    return launches, first, out
+
+
+def sm_clock_mhz():
+    """The card's maximum SM clock as nvidia-smi reports it."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(smi.stdout.strip().splitlines()[0])
+
+
+def time_minhash(first, launches, reps):
+    """Phase 4 for minhash at the build's shape: the first full backfill
+    chunk, with the upload and the copy back of a chunk beside it."""
+    import torch
+
+    from cozo_tpu_torch.ops import minhash as mh
+
+    flat, offs = first
+    T, D, n_perm = len(flat), len(offs), LSH_N_PERM
+    dev = torch.device("cuda")
+    h_pin = torch.from_numpy(flat.view(np.int32)).pin_memory()
+    o_pin = torch.from_numpy(offs).pin_memory()
+    h, o = h_pin.to(dev), o_pin.to(dev)
+    out = torch.empty((D, n_perm), dtype=torch.int32, device=dev)
+    host = torch.empty((D, n_perm), dtype=torch.int32, pin_memory=True)
+    mh.segment_min(h, o, n_perm, out)
+    want = mh.segment_min_plain(h, o, n_perm)
+    err = float((mh._as_u32_i64(out) - mh._as_u32_i64(want)).abs().max())
+    if err:
+        raise SystemExit("phase 4 failed: minhash disagrees with plain")
+    ms = cuda_ms(lambda: mh.segment_min(h, o, n_perm, out), reps * 4)
+    plain_ms = cuda_ms(lambda: mh.segment_min_plain(h, o, n_perm), 2)
+    upload_ms = cuda_ms(lambda: (h_pin.to(dev, non_blocking=True),
+                                 o_pin.to(dev, non_blocking=True)), reps)
+    back_ms = cuda_ms(lambda: host.copy_(out, non_blocking=True), reps)
+    # operations: the busiest of the ALU pipe, the FMA pipe and the issue
+    # of all 10 per pair; bytes: each hash and doc start read once, each
+    # signature written once
+    clock = sm_clock_mhz()
+    pairs = T * n_perm
+    sm_clocks = {
+        "alu": MINHASH_ALU_OPS / ALU_LANES_PER_SM,
+        "fma": MINHASH_FMA_OPS / FMA_LANES_PER_SM,
+        "issue": (MINHASH_ALU_OPS + MINHASH_FMA_OPS) / ISSUE_LANES_PER_SM}
+    pipe = max(sm_clocks, key=sm_clocks.get)
+    t_ops = pairs * sm_clocks[pipe] / (SMS * clock * 1e6) * 1e3
+    nbytes = 4 * T + 8 * D + 4 * D * n_perm
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    bound = max(t_bytes, t_ops)
+    say(f"phase 4 minhash (the first backfill chunk: T={T} D={D} "
+        f"n_perm={n_perm}): {ms:.4f} ms ({100 * bound / ms:.1f}% of the bound "
+        f"{bound:.4f} ms: operations {t_ops:.4f} on the {pipe} pipe, "
+        f"{pairs} pairs x {sm_clocks[pipe]:.4f} SM clocks / ({SMS} SMs x "
+        f"{clock:.0f} MHz), bytes {t_bytes:.4f}), plain {plain_ms:.3f} ms, "
+        f"upload {upload_ms:.4f} ms and copy back {back_ms:.4f} ms a chunk, "
+        f"max_abs_err {err:.0f}")
+    return {"name": "minhash", "route": "cuda",
+            "source": "cozo_tpu_torch/csrc/minhash.cu",
+            "replaces": "cozo_tpu/ops/minhash.py:209",
+            "launches": launches,
+            "launches_by_path": {"lsh build (phase 8)": launches},
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,  # no single PyTorch call computes this
+            "upload_ms": upload_ms, "copy_back_ms": back_ms,
+            "shape": {"T": T, "D": D, "n_perm": n_perm,
+                      "sm_clock_mhz": clock, "bound_pipe": pipe}}
+
+
 def phase_quant_wide():
     """Phase 3b: the quant lane at its own width."""
     import torch
@@ -1792,6 +2216,19 @@ def graph_only(args, dev):
     return 0
 
 
+def lsh_only(args):
+    """--lsh-only: the loop for work on the MinHash kernel and the text
+    indexes."""
+    t0 = time.time()
+    launches, first, _ = phase_lsh()
+    kernels = [time_minhash(first, launches, args.reps)]
+    say(f"total {time.time() - t0:.1f}s")
+    say(json.dumps({"kernels": kernels}))
+    say(smi_line())
+    say("lsh-only run: no verdict on the main path")
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=N,
@@ -1805,6 +2242,10 @@ def main():
                          "their plain versions, then phase 5 on a Db of "
                          "--n rows, phases 6 and 7 and the graph kernels' "
                          "timings; no verdict")
+    ap.add_argument("--lsh-only", action="store_true",
+                    help="build the kernels, hold the MinHash kernel to its "
+                         "plain version, then phase 8 (the text indexes) "
+                         "and the MinHash timing; no verdict")
     args = ap.parse_args()
     if args.n < MIN_N:
         ap.error(f"--n must be at least {MIN_N}")
@@ -1826,6 +2267,9 @@ def main():
     phase_build()
     if args.graph_only:
         return graph_only(args, dev)
+    phase_minhash_vs_plain(dev)
+    if args.lsh_only:
+        return lsh_only(args)
     phase_kernel_vs_plain(dev)
     phase_beam_vs_plain()
     phase_graph_vs_plain(dev)
@@ -1866,6 +2310,8 @@ def main():
             entry["launches"] = sum(by_path.values())
             entry["launches_by_path"] = by_path
         kernels += graph_kernels
+        lsh_launches, first_chunk, _ = phase_lsh()
+        kernels.append(time_minhash(first_chunk, lsh_launches, args.reps))
     say(f"total {time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(smi_line())

@@ -9,9 +9,10 @@ parse → (query | sys | imperative) → NamedRows.
 Counterpart of `cozo_tpu/runtime/db.py`.  A Db resolves its device once,
 at construction (`device=None` means the card, and raises without one;
 `device="cpu"` runs the plain PyTorch paths on the host), and every
-vector index it builds or rebuilds lives there.  Storage engines: `mem`
-and `sqlite`; the others, and the FTS and LSH indexes, are not ported
-yet and raise `NotImplementedError` naming their ROADMAP item."""
+vector index it builds or rebuilds lives there, as does the MinHash-LSH
+backfill's segment-min.  Storage engines: `mem` and `sqlite`; the others
+are not ported yet and raise `NotImplementedError` naming their ROADMAP
+item."""
 
 from __future__ import annotations
 
@@ -673,10 +674,14 @@ class Db:
             from .hnsw import compile_hnsw_search
 
             return compile_hnsw_search(self, atom, binding_map, ctx, handle, meta)
-        if kind in ("fts", "lsh"):
-            from .indexing import text_index_unported
+        if kind == "fts":
+            from ..fts.indexing import compile_fts_search
 
-            text_index_unported(kind, "search")
+            return compile_fts_search(self, atom, binding_map, ctx, handle, meta)
+        if kind == "lsh":
+            from .minhash_lsh import compile_lsh_search
+
+            return compile_lsh_search(self, atom, binding_map, ctx, handle, meta)
         raise QueryError(f"index '{atom.idx}' of kind {kind} cannot be searched")
 
     # ------------------------------------------------------------- imperative

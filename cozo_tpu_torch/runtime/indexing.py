@@ -2,10 +2,8 @@
 of its indexes (reference `query/stored.rs:371-431,774`).
 
 Normal (lateral) indexes are key-only relations whose keys are the chosen
-columns followed by the base key columns.  HNSW maintenance dispatches
-into `runtime/hnsw.py`.  The text indexes (FTS, MinHash-LSH) are not
-ported yet: every put, remove, DDL and search of one goes through
-`text_index_unported`, which raises."""
+columns followed by the base key columns.  HNSW / FTS / LSH maintenance
+dispatches into their subsystem modules."""
 
 from __future__ import annotations
 
@@ -13,14 +11,6 @@ from typing import List, Optional
 
 from ..runtime.relation import RelationHandle
 from ..runtime.transact import SessionTx
-
-
-def text_index_unported(kind: str, what: str):
-    """Raise for an FTS or LSH index operation (`kind` "fts" / "lsh")."""
-    raise NotImplementedError(
-        f"{kind} index {what} is not ported yet (ROADMAP §1 item 2: text "
-        "indexes, FTS on the host + MinHash-LSH on the device)"
-    )
 
 
 def index_row(base: RelationHandle, meta: dict, row: list) -> list:
@@ -49,8 +39,14 @@ def update_indexes_on_put(
             from .hnsw import hnsw_put
 
             hnsw_put(db, tx, handle, idx_name, meta, new_row, old_row)
-        elif kind in ("fts", "lsh"):
-            text_index_unported(kind, "maintenance on put")
+        elif kind == "fts":
+            from ..fts.indexing import fts_put
+
+            fts_put(db, tx, handle, idx_name, meta, new_row, old_row)
+        elif kind == "lsh":
+            from .minhash_lsh import lsh_put
+
+            lsh_put(db, tx, handle, idx_name, meta, new_row, old_row)
 
 
 def update_indexes_on_remove(
@@ -68,5 +64,11 @@ def update_indexes_on_remove(
             from .hnsw import hnsw_remove
 
             hnsw_remove(db, tx, handle, idx_name, meta, old_row)
-        elif kind in ("fts", "lsh"):
-            text_index_unported(kind, "maintenance on remove")
+        elif kind == "fts":
+            from ..fts.indexing import fts_remove
+
+            fts_remove(db, tx, handle, idx_name, meta, old_row)
+        elif kind == "lsh":
+            from .minhash_lsh import lsh_remove
+
+            lsh_remove(db, tx, handle, idx_name, meta, old_row)

@@ -1,6 +1,5 @@
 """System-op execution (reference `runtime/db.rs:1192-1443`; counterpart
-of `cozo_tpu/runtime/sysops.py`).  `::fts create` and `::lsh create`
-raise: the text indexes are not ported yet (`indexing.text_index_unported`)."""
+of `cozo_tpu/runtime/sysops.py`)."""
 
 from __future__ import annotations
 
@@ -265,10 +264,17 @@ def run_sys_op(db, op: A.SysOp, immutable: bool = False):
         with db._lock_for(p["config"].base_relation):
             return create_hnsw_index(db, p["config"])
 
-    if kind in ("create_fts_index", "create_lsh_index"):
-        from .indexing import text_index_unported
+    if kind == "create_fts_index":
+        from ..fts.indexing import create_fts_index
 
-        text_index_unported(kind.split("_")[1], "creation")
+        with db._lock_for(p["config"].base_relation):
+            return create_fts_index(db, p["config"])
+
+    if kind == "create_lsh_index":
+        from .minhash_lsh import create_lsh_index
+
+        with db._lock_for(p["config"].base_relation):
+            return create_lsh_index(db, p["config"])
 
     if kind == "drop_index":
         from .index_ddl import drop_index

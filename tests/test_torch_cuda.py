@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA card (marker `cuda`): each CUDA
-kernel (`fused_sweep`, `beam_search`, the three graph kernels) against its
-plain PyTorch version, the graph rules' entry points on the card against
-the same calls on the CPU,
+kernel (`fused_sweep`, `beam_search`, the three graph kernels, `minhash`)
+against its plain PyTorch version, the graph rules' entry points and a
+MinHash-LSH Db on the card against the same calls on the CPU, the
+MinHash dispatch's own pinned buffers,
 the lanes end to end through the kernels, the staging buffers of a
 small-batch search and its lock under concurrent callers, and the card's
 int8 product
@@ -17,7 +18,8 @@ import pytest
 import torch
 
 from chip_smoke import (BEAM_CASES, GRAPH_LP_WIDTHS, GRAPH_PR_CASES,
-                        GRAPH_SSSP_CASES, PR_L1_TOL, graph_csr, lp_inputs,
+                        GRAPH_SSSP_CASES, MINHASH_CASES, PR_L1_TOL, graph_csr,
+                        lp_inputs, minhash_inputs, minhash_tensors,
                         pagerank_agreement, pr_inputs, sssp_inputs)
 from chip_smoke import PHASE2_SHAPES as SHAPES
 from chip_smoke import (agreement_ok, beam_args, beam_case, beam_ok,
@@ -25,6 +27,7 @@ from chip_smoke import (agreement_ok, beam_args, beam_case, beam_ok,
 from cozo_tpu_torch import HnswIndex, sweep_search
 from cozo_tpu_torch.ops import fused_sweep as fs
 from cozo_tpu_torch.ops import graph_algos as ga
+from cozo_tpu_torch.ops import minhash as mh
 from cozo_tpu_torch.ops import vector_search as vs
 from cozo_tpu_torch.utils.device import int_mm
 
@@ -363,3 +366,79 @@ def test_graph_rules_on_the_card_equal_the_cpu(cuda):
     assert np.array_equal(lp, ga.labelprop_jax(ip, d, iterations=6,
                                                device="cpu"))
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", range(len(MINHASH_CASES)),
+                         ids=[c[0] for c in MINHASH_CASES])
+def test_minhash_matches_plain(cuda, i):
+    """Every phase-2 case: signatures bit-equal to the plain version and to
+    the host `minhash_segments`, two runs identical, one launch each."""
+    _, lens, n_perm = MINHASH_CASES[i]
+    flat, offs = minhash_inputs(lens, i)
+    h, o = minhash_tensors(flat, offs, cuda)
+    before = mh.segment_min.launches
+    outs = [mh.segment_min(h, o, n_perm, torch.empty(
+        (len(offs), n_perm), dtype=torch.int32, device=cuda))
+        for _ in range(2)]
+    assert mh.segment_min.launches == before + 2
+    want = mh.segment_min_plain(h, o, n_perm)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], want) and torch.equal(outs[0], outs[1])
+    assert (outs[0].cpu().numpy().view(np.uint32)
+            == mh.minhash_segments(flat, offs, n_perm)).all()
+
+
+@pytest.mark.cuda
+def test_minhash_dispatches_read_in_reverse_keep_their_own_buffers(cuda):
+    """Two chunks in flight, as the backfill keeps them: of one shape (the
+    backfill's chunks are all 32,768 docs) but different hashes.  Each
+    dispatch's pinned buffers are its own, so the second's copy never
+    overwrites the first's signatures, whichever is read first."""
+    flat_a, offs = minhash_inputs({"n": 4000, "lo": 8, "hi": 18}, 1)
+    flat_b = np.random.default_rng(2).integers(
+        0, 1 << 32, len(flat_a), dtype=np.uint64).astype(np.uint32)
+    before = mh.segment_min.launches
+    fa = mh.minhash_segments_dispatch(flat_a, offs, 128)
+    fb = mh.minhash_segments_dispatch(flat_b, offs.copy(), 128)
+    assert mh.segment_min.launches == before + 2
+    got_b, got_a = fb.get(), fa.get()
+    want_a = mh.minhash_segments(flat_a, offs, 128)
+    want_b = mh.minhash_segments(flat_b, offs, 128)
+    assert not (want_a == want_b).all()
+    assert (got_b == want_b).all() and (got_a == want_a).all()
+    assert got_a.shape == got_b.shape
+    assert got_a.ctypes.data != got_b.ctypes.data
+
+
+@pytest.mark.cuda
+def test_lsh_db_on_the_card_equals_the_cpu(cuda):
+    """`::lsh create` past DEVICE_MIN_TOKENS through the kernel, searches
+    and maintenance: the same rows and stored signatures as a CPU Db."""
+    from cozo_tpu_torch import Db
+
+    rng = np.random.default_rng(4)
+    docs = [" ".join(f"w{w}" for w in rng.integers(0, 400, 12))
+            for _ in range(3000)]
+    scripts = [
+        "?[id, s] := ~doc:sim{id | query: $q, k: 5, bind_similarity: s}",
+        "?[id, sig] := *doc:sim:inv{id, signature: sig}",
+    ]
+    answers = []
+    for dev in (cuda, "cpu"):
+        db = Db("mem", device=dev)
+        db.run_script(":create doc {id: Int => body: String}")
+        db.run_script("?[id, body] <- $rows :put doc {id => body}",
+                      {"rows": [[i, d] for i, d in enumerate(docs)]})
+        before = mh.segment_min.launches
+        db.run_script("::lsh create doc:sim {extractor: body, "
+                      "tokenizer: Simple, n_perm: 128, target_threshold: 0.7}")
+        launched = mh.segment_min.launches - before
+        assert launched == (1 if dev is cuda else 0)
+        db.run_script("?[id] <- [[3]] :rm doc {id}")
+        db.run_script("?[id, body] <- [[5000, $q]] :put doc {id => body}",
+                      {"q": docs[7]})
+        answers.append([db.run_script(s, {"q": docs[7]}).rows
+                        for s in scripts])
+    assert answers[0] == answers[1]
+    assert [5000, 1.0] in answers[0][0] and [7, 1.0] in answers[0][0]

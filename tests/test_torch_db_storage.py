@@ -3,7 +3,9 @@ CPU): the bulk vector `:put` lane and the key encoding (the two packages'
 KV images compared byte for byte), lateral indexes, a `sqlite` file
 written by one package and opened by the other (both ways, with an HNSW
 index in the row image and in the packed image), the graph fixed rules
-below the device threshold, and the branches that are not ported yet."""
+below the device threshold, FTS and LSH indexes in a `sqlite` file
+written by one package and served and maintained by the other (both
+ways), and the branches that are not ported yet."""
 
 import shutil
 
@@ -180,40 +182,68 @@ def test_graph_rules_below_the_device_threshold(script):
     assert res.rows
 
 
+# ------------------------------------------- text indexes in a sqlite file
+
+
+FTS_SCRIPTS = [
+    "?[id, s] := ~doc:ft{id | query: 'hello', k: 5, bind_score: s}",
+    "?[id] := ~doc:ft{id | query: 'hel* OR world', k: 5}",
+    "?[tok, id, pos, n] := *doc:ft{token: tok, src_id: id, positions: pos, "
+    "doc_len: n}",
+    "?[id, s] := ~doc:sim{id | query: 'hello big world', k: 5, "
+    "bind_similarity: s}",
+    "?[id, sig] := *doc:sim:inv{id, signature: sig}",
+]
+FTS_WRITES = [
+    "?[id, text] <- [[2, 'hello there'], [3, 'a big world']] "
+    ":put doc {id => text}",
+    "?[id] <- [[1]] :rm doc {id}",
+    "?[id, text] <- [[3, 'hello again']] :put doc {id => text}",
+]
+
+
+@pytest.mark.parametrize("writer", ["cozo_tpu", "cozo_tpu_torch"])
+def test_text_indexes_in_sqlite_are_served_by_the_other_package(writer,
+                                                                 tmp_path):
+    """An FTS and an LSH index written by one package into a sqlite file
+    are searched, and kept up to date on `:put` and `:rm`, by the other
+    with the same rows (searches and the index relations' own rows)."""
+    import cozo_tpu
+    import cozo_tpu_torch
+
+    path = str(tmp_path / "w.db")
+    if writer == "cozo_tpu":
+        w = cozo_tpu.Db("sqlite", path)
+    else:
+        w = cozo_tpu_torch.Db("sqlite", path, device="cpu")
+    w.run_script(":create doc {id: Int => text: String}")
+    w.run_script("?[id, text] <- [[1, 'hello world'], [4, 'big world']] "
+                 ":put doc {id => text}")
+    w.run_script("::fts create doc:ft {extractor: text, tokenizer: Simple}")
+    w.run_script("::lsh create doc:sim {extractor: text, tokenizer: Simple, "
+                 "n_perm: 32, target_threshold: 0.5}")
+    w.close()
+    shutil.copy(path, tmp_path / "r.db")
+    dbs = new_dbs("sqlite", path, str(tmp_path / "r.db"))
+    for s in FTS_SCRIPTS:
+        run_both(dbs, s)
+    for write in FTS_WRITES:
+        run_both(dbs, write)
+        for s in FTS_SCRIPTS:
+            run_both(dbs, s)
+    res = run_both(dbs, FTS_SCRIPTS[0])
+    assert sorted(r[0] for r in res.rows) == [2, 3]
+
+
 # ----------------------------------------------------- not ported yet
 
 
 def test_unported_branches_raise_naming_their_item(tmp_path):
     """Each branch that is not ported raises `NotImplementedError` naming
-    its ROADMAP item, and nothing answers in its place."""
-    import cozo_tpu
+    its ROADMAP item, and nothing answers in its place: the storage
+    engines other than `mem` and `sqlite`."""
     import cozo_tpu_torch
 
     for engine in ("tkv", "plog", "remote"):
         with pytest.raises(NotImplementedError, match="item 4"):
             cozo_tpu_torch.Db(engine, str(tmp_path / engine), device="cpu")
-
-    db = cozo_tpu_torch.Db("mem", device="cpu")
-    db.run_script(":create doc {id: Int => text: String}")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        db.run_script("::fts create doc:ft {extractor: text, "
-                      "tokenizer: Simple}")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        db.run_script("::lsh create doc:lsh {extractor: text, "
-                      "tokenizer: Simple, n_perm: 64, target_threshold: 0.5}")
-
-    # an FTS index written by the JAX package: its search and its
-    # maintenance raise in the port
-    path = str(tmp_path / "fts.db")
-    j = cozo_tpu.Db("sqlite", path)
-    j.run_script(":create doc {id: Int => text: String}")
-    j.run_script("?[id, text] <- [[1, 'hello world']] :put doc {id => text}")
-    j.run_script("::fts create doc:ft {extractor: text, tokenizer: Simple}")
-    j.close()
-    t = cozo_tpu_torch.Db("sqlite", path, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        t.run_script("?[id] := ~doc:ft{id | query: 'hello', k: 3}")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        t.run_script("?[id, text] <- [[2, 'x']] :put doc {id => text}")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        t.run_script("?[id] <- [[1]] :rm doc {id}")

@@ -83,6 +83,30 @@ d, p = ga.sssp_device(ip, dst, np.ones(3, np.float32), [0], device="cpu")
 assert d[0].tolist() == [0.0, 1.0, 1.0] and p[0].tolist() == [-1, 0, 0]
 assert ga.labelprop_jax(ip, dst, iterations=2, device="cpu").shape == (3,)
 
+# the text indexes: FTS, and an LSH backfill past DEVICE_MIN_TOKENS (the
+# segment-min's device route, its plain version on a CPU Db)
+from cozo_tpu_torch.ops import minhash
+db.run_script(":create doc {id: Int => body: String}")
+docs = [" ".join(f"w{w}" for w in rng.integers(0, 300, 10)) for _ in range(2000)]
+db.run_script("?[id, body] <- $rows :put doc {id => body}",
+              {"rows": [[i, d] for i, d in enumerate(docs)]})
+db.run_script("::fts create doc:ft {extractor: body, tokenizer: Simple}")
+w = docs[5].split()[0]
+res = db.run_script(f"?[id] := ~doc:ft{{id | query: '{w}', k: 2000}}")
+assert {r[0] for r in res.rows} == {i for i, d in enumerate(docs) if w in d.split()}
+routes = []
+minhash._dispatch = (lambda real: lambda *a: routes.append(len(a[0])) or real(*a))(
+    minhash._dispatch)
+db.run_script("::lsh create doc:sim {extractor: body, tokenizer: Simple, "
+              "n_perm: 64, target_threshold: 0.7}")
+assert routes and routes[0] >= minhash.DEVICE_MIN_TOKENS
+res = db.run_script("?[id, s] := ~doc:sim{id | query: $q, k: 3, bind_similarity: s}",
+                    {"q": docs[9]})
+assert [9, 1.0] in res.rows
+db.run_script("?[id] <- [[9]] :rm doc {id}")
+res = db.run_script("?[id] := ~doc:sim{id | query: $q, k: 3}", {"q": docs[9]})
+assert 9 not in [r[0] for r in res.rows]
+
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "cozo_tpu")
                for m in sys.modules)
 print("NO_JAX_OK")
@@ -132,7 +156,9 @@ def test_new_modules_are_among_the_scanned_sources():
                 "runtime/sysops.py", "runtime/indexing.py", "query/eval.py",
                 "query/fastpath.py", "parse/parser.py", "data/memcmp.py",
                 "storage/sqlite.py", "fixed_rule/algos.py",
-                "ops/graph_algos.py", "utils/graph_stage.py"):
+                "ops/graph_algos.py", "utils/graph_stage.py",
+                "ops/minhash.py", "runtime/minhash_lsh.py",
+                "fts/indexing.py", "fts/tokenizer.py", "fts/ast.py"):
         assert os.path.join("cozo_tpu_torch", mod) in names
 
 
@@ -141,7 +167,6 @@ def test_new_modules_are_among_the_scanned_sources():
 # marks an abstract method and is allowed only in the base classes below.
 UNPORTED_SITES = {
     "models/hnsw_index.py": [3],       # COZO_TPU_MESH mesh serving
-    "runtime/indexing.py": [2],        # FTS / LSH put, remove, DDL, search
     "runtime/db.py": [4],              # the tkv, plog and remote engines
 }
 ABSTRACT_BASES = {"storage/base.py", "data/aggr.py", "data/expr.py",
