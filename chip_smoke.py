@@ -23,12 +23,14 @@ Phases, each reported on its own line; any failure exits non-zero:
      where ids match, no dead row returned, two runs identical.
      The graph kernels: `graph_pagerank` (dangling and isolated nodes,
      padding edges, 0 steps; L1 <= 1e-5, the same top 100),
-     `graph_sssp` (a hub past 1,024 in-edges, 1 to 9 sources, a
-     `max_iters` cut, uniform, dyadic and random weights; distances,
-     parents and steps equal), `graph_labelprop` (rows 8 to 8,192 wide,
-     dense layout and lanes, a row of padding, a row without a valid
-     slot, a planted tie, negative weights; labels equal), two runs of
-     each bit-identical.  `minhash`: empty docs first, inside and last,
+     `graph_sssp` (a hub past 1,024 in-edges, 1 to 9 sources in one and
+     two groups, `max_iters` cuts at 1, 2 and 3 steps, uniform, dyadic,
+     random and negative weights; the wrapper's route share and every
+     step pushed or pulled; distances, parents and steps equal),
+     `graph_labelprop` (rows 8 to 8,192 wide, dense layout and lanes, 64
+     labels, all distinct, three or one, a row of padding, a row without
+     a valid slot, a planted tie, negative weights; labels equal), two
+     runs of each bit-identical.  `minhash`: empty docs first, inside and last,
      one doc, a single-token doc, a 100,000-token doc (past one
      shared-memory tile), D = 1,024, n_perm 1, 32, 100, 128 and 256,
      hashes 0, all ones and the top bit alone or cleared: signatures
@@ -89,7 +91,12 @@ Phases, each reported on its own line; any failure exits non-zero:
      main path takes; the graph kernels at phase 7's, `minhash` at phase
      8's first backfill chunk, with a chunk's upload and copy back) with
      CUDA events, beside its bound and its plain version, and the fused
-     routes and PageRank beside a one-call PyTorch yardstick;
+     routes and PageRank beside a one-call PyTorch yardstick; besides,
+     the label pick at every lane of phases 6 and 7 at random and at
+     converged labels (replayed from a CUDA graph: no host time between
+     launches) and SSSP with 4 sources on phase 6's graph, each solve
+     with a line of its steps (frontier, route, device ms under the
+     rule, pushed and pulled, from `torch.profiler`);
   5. print the kernels' JSON line, the card's name and power limit, and
      as the last line {"ok": true, "device": {...}}.
 
@@ -103,6 +110,7 @@ and prints no `{"ok": ...}` line either; `--lsh-only` runs phases 1, 2
 """
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -154,6 +162,52 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean device milliseconds of `fn()` over `reps` calls captured in one
+    CUDA graph and replayed after a warm replay: no host work between the
+    launches, so a kernel shorter than its call's host overhead is timed,
+    not the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def kernel_times(fn, first):
+    """[(kernel name, device ms)] of the kernels one call of `fn()` runs, in
+    launch order, from `torch.profiler` (CUPTI): the second of two calls
+    profiled after a warm one, from its kernel named `first` (the profiler
+    may miss the first kernels it traces)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    evs.sort(key=lambda e: e.time_range.start)
+    starts = [i for i, e in enumerate(evs) if first in e.name]
+    return [(e.name, e.time_range.elapsed_us() / 1e3)
+            for e in evs[starts[-1] if starts else len(evs):]]
 
 
 def phase_build():
@@ -388,10 +442,19 @@ GRAPH_SSSP_CASES = (
     (400, 3000, 1100, "random", (3, 2), 512),   # a hub past ELL_CAP_MAX
     (400, 3000, 0, "random", (0, 1, 2), 2),     # cut before convergence
     (300, 200, 0, "uniform", (4,), 512),        # most nodes unreached
+    (400, 3000, 1100, "dyadic", (9, 1, 2, 3, 4, 5, 6, 7, 9), 512),  # 2 groups
+    (400, 3000, 0, "negative", (0, 1, 2, 3, 4, 5, 6, 7), 512),  # 1 group
+    (400, 3000, 0, "dyadic", (0,), 1),          # cut after one step
+    (400, 3000, 1100, "negative", (6, 6), 3),   # cut after three
     (20_000, 200_000, 3000, "random", (1, 2, 3, 4, 5, 6, 7, 8, 9), 512),
 )
+# the kernel's route share (csrc/graph_sssp.cu `push_share`) phase 2 and
+# the host tests force besides the rule: every step a push, every one a pull
+SSSP_FORCED_SHARES = {"push": 2.0, "pull": -1.0}
 # label pick: row widths (<= 128: the dense layout, wider: lanes)
-GRAPH_LP_WIDTHS = (8, 32, 128, 256, 2048, 8192)
+GRAPH_LP_WIDTHS = (8, 16, 32, 64, 128, 256, 2048, 8192)
+# label pick: the labels of the neighbours (`lp_inputs`)
+GRAPH_LP_LABELS = ("mixed", "distinct", "three", "one")
 PR_L1_TOL = 1e-5  # PageRank kernel against plain: ranks sum to 1
 
 
@@ -417,12 +480,19 @@ def pr_inputs(n, e, dangling, dev):
     return ga._pagerank_stage(ip, d, None, dev)
 
 
-def sssp_weights(kind, e, seed):
+def sssp_weights(kind, ip, d, seed):
     rng = np.random.default_rng(seed)
+    e = len(d)
     if kind == "uniform":
         return np.full(e, 1.5, np.float32)
     if kind == "dyadic":
         return rng.integers(1, 32, e).astype(np.float32) / 8
+    if kind == "negative":
+        # k/8 in [-1, 3) on the edges to a larger node id, 64 on the others:
+        # every cycle takes one of the latter, and none is negative
+        w = rng.integers(-8, 24, e).astype(np.float32) / 8
+        w[d <= np.repeat(np.arange(len(ip) - 1), np.diff(ip))] = 64.0
+        return w
     return rng.uniform(0.1, 3.0, e).astype(np.float32)
 
 
@@ -432,24 +502,29 @@ def sssp_inputs(case, dev):
 
     n, e, hub, kind, sources, max_iters = case
     ip, d = graph_csr(n, e, n + e + hub, hub=hub)
-    g = ga._sssp_ell_stage(ip, d, sssp_weights(kind, len(d), hub), None,
+    g = ga._sssp_ell_stage(ip, d, sssp_weights(kind, ip, d, hub), None,
                            dev, False)
     return g, list(sources), max_iters
 
 
-def lp_inputs(H, W, weighted, seed, dev):
-    """One pick's inputs: rows of W slots over 64 labels (labels repeat and
-    tie), a quarter of the slots padding, a row of padding only, a row
-    with a planted tie of two labels, weights k/8 with zeros and negatives
-    (a row without a valid slot).  W <= 128: the dense layout (row h is
-    node h, `has_in`); wider: a lane (`idx`, with a padding row)."""
+def lp_inputs(H, W, weighted, seed, dev, kind="mixed"):
+    """One pick's inputs: rows of W slots over labels of `kind` (64 that
+    repeat and tie, all distinct, three, or one), a quarter of the slots
+    padding, a row of padding only, a row with a planted tie of two
+    labels, weights k/8 with zeros and negatives (a row without a valid
+    slot).  W <= 128: the dense layout (row h is node h, `has_in`, a
+    tenth of the rows without in-edges); wider: a lane (`idx`, with a
+    padding row)."""
     import torch
 
     rng = np.random.default_rng(seed)
     dense = W <= 128
     n_pad = max(256, H) if dense else 4096
     n_real = n_pad - 5
-    labels = rng.integers(0, 64, n_pad).astype(np.int32)
+    labels = {"mixed": lambda: rng.integers(0, 64, n_pad),
+              "distinct": lambda: rng.permutation(n_pad),
+              "three": lambda: rng.integers(0, 3, n_pad),
+              "one": lambda: np.full(n_pad, 7)}[kind]().astype(np.int32)
     labels[-1] = n_pad - 1  # the dummy keeps its own label
     nb = rng.integers(0, n_real, (H, W)).astype(np.int32)
     nb[rng.random((H, W)) < 0.25] = n_pad - 1
@@ -497,6 +572,7 @@ def phase_graph_vs_plain(dev):
     the card, two runs of each shape bit-identical."""
     import torch
 
+    from cozo_tpu_torch.ops import _build
     from cozo_tpu_torch.ops import graph_algos as ga
 
     for n, e, steps, dangling in GRAPH_PR_CASES:
@@ -513,46 +589,51 @@ def phase_graph_vs_plain(dev):
             f"same {top}, padding 0 {pad0}, two runs identical {twice}")
         if not (l1 <= PR_L1_TOL and top and twice and pad0):
             raise SystemExit("phase 2 failed: graph_pagerank disagrees")
+    sssp_lib = ga._bind_sssp(_build.load("graph_sssp"))
     for case in GRAPH_SSSP_CASES:
         g, sources, max_iters = sssp_inputs(case, dev)
         got = ga.sssp_ell(g, sources, max_iters)
         again = ga.sssp_ell(g, sources, max_iters)
         want = ga.sssp_ell_plain(g, sources, max_iters)
+        # every step a push, every step a pull: the same bits
+        forced = {route: ga._sssp_launch(sssp_lib, g, sources, max_iters,
+                                         ga._stream(g.flat_src), share)
+                  for route, share in SSSP_FORCED_SHARES.items()}
         torch.cuda.synchronize()
-        equal = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-                 and got[2] == want[2])
+        equal = all(torch.equal(r[0], want[0]) and torch.equal(r[1], want[1])
+                    and r[2] == want[2] for r in [got, *forced.values()])
         twice = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
         reached = int(torch.isfinite(got[0]).sum())
         say(f"phase 2 graph_sssp vs plain n={case[0]} e={case[1]} "
             f"hub={case[2]} weights={case[3]} S={len(sources)} "
             f"max_iters={max_iters}: steps {got[2]} (plain {want[2]}), "
             f"reached {reached} of {len(sources) * case[0]}, level-2 "
-            f"buckets {len(g.l2_desc)}, dist and parents equal {equal}, two "
-            f"runs identical {twice}")
+            f"buckets {len(g.l2_desc)}, dist and parents equal (the rule, "
+            f"push forced, pull forced) {equal}, two runs identical {twice}")
         if not (equal and twice):
             raise SystemExit("phase 2 failed: graph_sssp disagrees")
-    for W in GRAPH_LP_WIDTHS:
-        for weighted in (False, True):
-            H = 4096 if W <= 128 else (512 if W <= 256 else 16)
-            labels, nb, w, idx, has_in, n_real = lp_inputs(H, W, weighted, W,
-                                                           dev)
-            outs = []
-            for _ in range(2):
-                out = labels.clone()
-                ga.lp_pick(labels, nb, w, idx, has_in, n_real, out)
-                outs.append(out)
-            want = labels.clone()
-            ga.lp_pick_plain(labels, nb, w, idx, has_in, n_real, want)
-            torch.cuda.synchronize()
-            equal = torch.equal(outs[0], want)
-            twice = torch.equal(outs[0], outs[1])
-            changed = int((outs[0] != labels).sum())
-            say(f"phase 2 graph_labelprop vs plain W={W} H={H} "
-                f"{'weighted' if weighted else 'unit'} "
-                f"{'dense' if idx is None else 'lane'}: labels equal {equal} "
-                f"({changed} changed), two runs identical {twice}")
-            if not (equal and twice and changed):
-                raise SystemExit("phase 2 failed: graph_labelprop disagrees")
+    for W, weighted, kind in itertools.product(GRAPH_LP_WIDTHS, (False, True),
+                                               GRAPH_LP_LABELS):
+        H = 4096 if W <= 128 else (512 if W <= 256 else 16)
+        labels, nb, w, idx, has_in, n_real = lp_inputs(H, W, weighted, W,
+                                                       dev, kind)
+        outs = []
+        for _ in range(2):
+            out = labels.clone()
+            ga.lp_pick(labels, nb, w, idx, has_in, n_real, out)
+            outs.append(out)
+        want = labels.clone()
+        ga.lp_pick_plain(labels, nb, w, idx, has_in, n_real, want)
+        torch.cuda.synchronize()
+        equal = torch.equal(outs[0], want)
+        twice = torch.equal(outs[0], outs[1])
+        changed = int((outs[0] != labels).sum())
+        say(f"phase 2 graph_labelprop vs plain W={W} H={H} "
+            f"{'weighted' if weighted else 'unit'} {kind} labels "
+            f"{'dense' if idx is None else 'lane'}: labels equal {equal} "
+            f"({changed} changed), two runs identical {twice}")
+        if not (equal and twice and changed):
+            raise SystemExit("phase 2 failed: graph_labelprop disagrees")
 
 
 # MinHash segment-min cases of phase 2: (name, doc lengths, n_perm).  A
@@ -1130,14 +1211,25 @@ def graph_counts():
 
     return {"graph_pagerank": ga.pagerank_steps.launches,
             "graph_sssp": ga.sssp_ell.launches,
+            "graph_sssp_solves": ga.sssp_ell.solves,
             "graph_labelprop": ga.lp_pick.launches}
+
+
+def count_graph_launches(entry, by_path):
+    """A graph kernel's `kernels` entry gains its launches on each path
+    ({path: graph_counts()}) and their sum; graph_sssp its solves too."""
+    for key, count in (("launches", entry["name"]),
+                       ("solves", entry["name"] + "_solves")):
+        if count in next(iter(by_path.values())):
+            entry[key + "_by_path"] = {p: c[count] for p, c in by_path.items()}
+            entry[key] = sum(entry[key + "_by_path"].values())
 
 
 def zero_graph_counts():
     from cozo_tpu_torch.ops import graph_algos as ga
 
     ga.pagerank_steps.launches = ga.sssp_ell.launches = 0
-    ga.lp_pick.launches = 0
+    ga.sssp_ell.solves = ga.lp_pick.launches = 0
 
 
 def plain_kernels():
@@ -1220,7 +1312,7 @@ def lp_route(cache_key, dev):
     raise SystemExit("label propagation staged nothing on the device")
 
 
-def phase_graph_db(db, dev):
+def phase_graph_db(db, dev, reps=5):
     """Phase 6: PageRank, LabelPropagation and ShortestPathDijkstra
     through the Db over the level-0 proximity graph of the index phase 5
     built, read straight from the index relation; each cold and warm and
@@ -1266,8 +1358,9 @@ def phase_graph_db(db, dev):
     by_node = {v: l for l, v in rows}
     got_l = canonical(np.array([by_node[v] for v in u_verts]))
     with plain_kernels():
-        want_l = canonical(ga.labelprop_jax(u_ptr, u_dst, None, 10,
-                                            cache_key=uck, device=dev))
+        ended = ga.labelprop_jax(u_ptr, u_dst, None, 10, cache_key=uck,
+                                 device=dev)
+    want_l = canonical(ended)
     same = bool(np.array_equal(got_l, want_l))
     out.update(labelprop_edges=len(u_dst), labelprop_max_in_degree=
                int(in_deg.max()), labelprop_layout=route,
@@ -1315,7 +1408,17 @@ def phase_graph_db(db, dev):
         raise SystemExit("phase 6 failed: a graph kernel never launched")
     out["card"] = smi_line()
     say("graph " + json.dumps(out))
-    return out["launches"]
+    # phase 4 at this graph's shapes, while its staged images are on the
+    # card (phase 7's evict them)
+    timings = {
+        "lp_lanes": time_lp_lanes(uck, len(u_verts), ended, dev, reps,
+                                  "db graph (phase 6)"),
+        "sssp": time_sssp(ga._sssp_ell_stage(indptr, dst,
+                                             np.ones(e, np.float32), ck,
+                                             dev, False),
+                          n, e, [int(s) for s in starts], "db graph (phase 6)"),
+    }
+    return out["launches"], timings
 
 
 def make_graph(n_nodes, n_edges, seed=7):
@@ -1360,7 +1463,7 @@ def cold_warm(fn):
     return cold, time.time() - t0, res
 
 
-def phase_graph_scale(dev, reps):
+def phase_graph_scale(dev, reps, db_timings):
     """Phase 7: the shapes of benches/graph_scale_bench.py through the
     entry points: PageRank and single-source SSSP (unit weights: the
     uniform scalar, the source array PageRank put on the card) on the
@@ -1445,10 +1548,15 @@ def phase_graph_scale(dev, reps):
         f"plain version's {same} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("phase 7 failed: LabelPropagation")
+    lab_end = lab
     del sp, sp_p, pr, pr_p, lab, lab_p
     torch.cuda.empty_cache()
+    lanes = db_timings["lp_lanes"] + time_lp_lanes(
+        hck, HUB_NODES, lab_end, dev, reps, "hub graph (phase 7)")
+    sssp = time_sssp(g, n, e, [0], "LiveJournal shape (phase 7)")
+    sssp["db_graph"] = db_timings["sssp"]
     kernels = [time_pagerank(ga._pagerank_stage(ip, d, ck, dev), n, e, reps),
-               time_sssp(g, n, e, steps), time_lp_pick(hck, dev, reps)]
+               sssp, time_lp_pick(hck, dev, reps, lanes)]
     out["card"] = smi_line()
     say("scale " + json.dumps(out))
     return kernels, out["launches"]
@@ -1499,31 +1607,73 @@ def time_pagerank(staged, n, e, reps):
                       "steps": 10}}
 
 
-def time_sssp(g, n, e, steps):
-    """Phase 4 for graph_sssp at the LiveJournal shape, one source: the
-    whole solve (steps, flag reads, parents)."""
+def time_sssp(g, n, e, sources, where):
+    """Phase 4 for graph_sssp: the whole solve (steps, flag reads,
+    parents) from `sources` on a staged graph of n nodes and e edges,
+    uniform weights, held to the plain version; then each step's route
+    and frontier, and each step's time pushed and pulled."""
     import torch
 
+    from cozo_tpu_torch.ops import _build
     from cozo_tpu_torch.ops import graph_algos as ga
 
-    got = ga.sssp_ell(g, [0], 512)
-    want = ga.sssp_ell_plain(g, [0], 512)
+    S = len(sources)
+    got = ga.sssp_ell(g, sources, 512)
+    want = ga.sssp_ell_plain(g, sources, 512)
+    steps = want[2]
     fin = torch.isfinite(want[0])
     err = float((got[0][fin] - want[0][fin]).abs().max())
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise SystemExit("phase 4 failed: graph_sssp disagrees with plain")
-    ms = cuda_ms(lambda: ga.sssp_ell(g, [0], 512), 3)
-    plain_ms = cuda_ms(lambda: ga.sssp_ell_plain(g, [0], 512), 1)
-    # each step reads every real edge's source id (uniform weights: no
-    # weight array), reads and writes each distance; the parent pass reads
-    # the edges and the distances and writes the parents
-    nbytes = steps * (4 * e + 8 * n) + 4 * e + 8 * n
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 2 * steps * e / PEAK_F32 * 1e3
+    ms = cuda_ms(lambda: ga.sssp_ell(g, sources, 512), 3)
+    plain_ms = cuda_ms(lambda: ga.sssp_ell_plain(g, sources, 512), 1)
+    # each step's route and frontier, then each step's device time under
+    # the rule, pushed and pulled (the share's evidence), from the profiler
+    lib = ga._bind_sssp(_build.load("graph_sssp"))
+    stream = ga._stream(g.flat_src)
+    fcount, fedges = (x.cpu().numpy() for x in ga._sssp_launch(
+        lib, g, sources, 512, stream)[4])
+    share = ga.SSSP_PUSH_SHARE
+    routes = ["push" if fe.sum() <= share * e else "pull"
+              for fe in fedges[:steps]]
+    steps_ms, parent_ms, busy_ms = {}, {}, {}
+    for route, forced in (("rule", share), *SSSP_FORCED_SHARES.items()):
+        ks = kernel_times(lambda: ga._sssp_launch(lib, g, sources, 512,
+                                                  stream, forced),
+                          "seed_frontier")
+        per_step = []
+        for name, k_ms in ks:
+            if "relax_first" in name:  # the first kernel of a step
+                per_step.append(0.0)
+            if any(k in name for k in ("relax_", "compact")):
+                per_step[-1] += k_ms
+        steps_ms[route] = np.round(per_step[:steps], 4).tolist()
+        parent_ms[route] = sum(k for name, k in ks if "parent_" in name)
+        busy_ms[route] = sum(k for _, k in ks)
+    say(f"phase 4 graph_sssp steps on the {where}: frontier nodes "
+        f"{fcount.sum(1).tolist()}, their out-edges {fedges.sum(1).tolist()},"
+        f" routes at share {share} {routes}; device ms a step (the profiler)"
+        f" under the rule {steps_ms['rule']}, pushed {steps_ms['push']}, "
+        f"pulled {steps_ms['pull']}; the parent pass {parent_ms['rule']:.4f}"
+        f" ms; all kernels of a solve {busy_ms['rule']:.4f} ms (pushed "
+        f"{busy_ms['push']:.4f}, pulled {busy_ms['pull']:.4f})")
+    # the full-pass bound: each step reads every real edge's source id
+    # (uniform weights: no weight array), reads and writes each distance;
+    # the parent pass reads the edges and the distances and writes the
+    # parents
+    nbytes = steps * (4 * e + 8 * n * S) + 4 * e + 8 * n * S
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = 2 * steps * e * S / PEAK_F32 * 1e3
     bound = max(t_bytes, t_ops)
-    say(f"phase 4 graph_sssp (S=1, {steps} steps, n={n} e={e}, P="
-        f"{g.flat_src.shape[0]} slots): {ms:.3f} ms ({100 * bound / ms:.1f}% "
-        f"of the bound {bound:.3f} ms), plain {plain_ms:.3f} ms, "
-        f"max_abs_err {err:.3e}")
+    # the least any solve moves: each real edge once while relaxing and
+    # each distance read and written once, then the parent pass's edges
+    # and distances
+    least = 2 * (4 * e + 8 * n * S) / PEAK_BYTES * 1e3
+    say(f"phase 4 graph_sssp on the {where} (S={S}, {steps} steps, n={n} "
+        f"e={e}, P={g.flat_src.shape[0]} slots): {ms:.3f} ms "
+        f"({100 * bound / ms:.1f}% of the full-pass bound {bound:.3f} ms, "
+        f"{100 * least / ms:.1f}% of the least bytes' {least:.3f} ms), "
+        f"plain {plain_ms:.3f} ms, max_abs_err {err:.3e}")
     return {"name": "graph_sssp", "route": "cuda",
             "source": "cozo_tpu_torch/csrc/graph_sssp.cu",
             "replaces": "cozo_tpu/ops/graph_algos.py:633",
@@ -1531,24 +1681,99 @@ def time_sssp(g, n, e, steps):
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,  # no single PyTorch call computes this
-            "shape": {"n": n, "e": e, "S": 1, "steps": steps,
-                      "slots": int(g.flat_src.shape[0]), "R_pad": g.R_pad}}
+            "bound_least_ms": least,
+            "shape": {"where": where, "n": n, "e": e, "S": S,
+                      "steps": steps, "slots": int(g.flat_src.shape[0]),
+                      "R_pad": g.R_pad},
+            "steps": {"frontier": fcount.sum(1).tolist(),
+                      "out_edges": fedges.sum(1).tolist(), "routes": routes,
+                      "device_ms": steps_ms, "parent_ms": parent_ms,
+                      "kernels_ms": busy_ms}}
 
 
-def time_lp_pick(cache_key, dev, reps):
-    """Phase 4 for graph_labelprop: one pick over the hub graph's lane of
-    the most slots."""
+def lp_lanes(cache_key, dev):
+    """The pick inputs the device cache holds for a graph's label
+    propagation: [(nb, w, idx, has_in)], one a lane (the dense layout:
+    one, with idx None)."""
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    for key, val in ga._GRAPH_DEV_CACHE.items():
+        if (key[0] not in ("lpd", "lph2") or key[1] != str(dev)
+                or key[2][0] != cache_key):
+            continue
+        if key[0] == "lpd":
+            return [(val[0], val[1], None, val[2])]
+        return [(nb, w, idx, None) for nb, idx, w in val[1]]
+    raise SystemExit("label propagation staged nothing on the device")
+
+
+def lp_label_sets(n_real, ended, dev):
+    """The labels a pick is timed at: random (seeded) and those a rule
+    ended with (`ended` [n_real], converged communities), [n_pad] i32."""
     import torch
 
     from cozo_tpu_torch.ops import graph_algos as ga
 
-    lanes = next(v for k, v in ga._GRAPH_DEV_CACHE.items()
-                 if k[0] == "lph2" and k[2][0] == cache_key)[1]
-    nb, idx, w = max(lanes, key=lambda lane: lane[0].numel())
+    n_pad = ga._pad_pow2(n_real + 1)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rand = torch.randint(0, n_real, (n_pad,), dtype=torch.int32, device=dev,
+                         generator=gen)
+    conv = np.arange(n_pad, dtype=np.int32)
+    conv[:n_real] = ended
+    return {"random": rand, "converged": torch.from_numpy(conv).to(dev)}
+
+
+def time_lp_lanes(cache_key, n_real, ended, dev, reps, where):
+    """Phase 4 for graph_labelprop at every lane a rule met: one pick at
+    random labels (seeded) and one at the labels the rule ended with
+    (converged communities), each held to the plain version."""
+    import torch
+
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    n_pad = ga._pad_pow2(n_real + 1)
+    rows = []
+    for nb, w, idx, has_in in lp_lanes(cache_key, dev):
+        H, W = nb.shape
+        valid = int((nb != n_pad - 1).sum() if w is None else (w > 0).sum())
+        for kind, labels in lp_label_sets(n_real, ended, dev).items():
+            got, want = labels.clone(), labels.clone()
+            ga.lp_pick(labels, nb, w, idx, has_in, n_real, got)
+            ga.lp_pick_plain(labels, nb, w, idx, has_in, n_real, want)
+            if not torch.equal(got, want):
+                raise SystemExit(f"phase 4 failed: graph_labelprop W={W} "
+                                 f"{kind} disagrees with plain")
+            ms = graph_ms(lambda: ga.lp_pick(labels, nb, w, idx, has_in,
+                                             n_real, got), reps)
+            # the rows' neighbour ids (and weights) and node ids, one label
+            # gathered per valid slot, one label written per row
+            nbytes = (4 * H * W * (1 if w is None else 2) + 8 * H
+                      + 4 * valid)
+            bound = nbytes / PEAK_BYTES * 1e3
+            rows.append({"where": where, "W": W, "H": H, "valid": valid,
+                         "labels": kind, "ms": ms, "bound_ms": bound})
+            say(f"phase 4 graph_labelprop on the {where}: lane W={W} H={H} "
+                f"({valid} valid slots), {kind} labels: {ms:.4f} ms "
+                f"({100 * bound / ms:.1f}% of the bound {bound:.4f} ms), "
+                f"equal to plain")
+    return rows
+
+
+def time_lp_pick(cache_key, dev, reps, lanes):
+    """Phase 4 for graph_labelprop: one pick over the hub graph's lane of
+    the most slots at random labels, with `lanes` (every lane of phases 6
+    and 7 at random and converged labels) beside it."""
+    import torch
+
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    nb, w, idx, _ = max(lp_lanes(cache_key, dev),
+                        key=lambda lane: lane[0].numel())
     H, W = nb.shape
     n_pad = ga._pad_pow2(HUB_NODES + 1)
+    gen = torch.Generator(device=dev).manual_seed(8)
     labels = torch.randint(0, HUB_NODES, (n_pad,), dtype=torch.int32,
-                           device=dev)
+                           device=dev, generator=gen)
     got, want = labels.clone(), labels.clone()
     ga.lp_pick(labels, nb, w, idx, None, HUB_NODES, got)
     ga.lp_pick_plain(labels, nb, w, idx, None, HUB_NODES, want)
@@ -1561,7 +1786,7 @@ def time_lp_pick(cache_key, dev, reps):
     valid = int((nb != n_pad - 1).sum())
     # the rows' neighbour ids and node ids, one label gathered per valid
     # slot, one label written per row; a weighted mode needs no more than
-    # one operation a slot (this kernel does W a slot)
+    # one operation a slot
     nbytes = 4 * H * W + 4 * H + 4 * valid + 4 * H
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, valid / PEAK_F32 * 1e3
     bound = max(t_bytes, t_ops)
@@ -1575,7 +1800,8 @@ def time_lp_pick(cache_key, dev, reps):
             "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,  # no single PyTorch call computes this
-            "shape": {"H": H, "W": W, "valid_slots": valid}}
+            "shape": {"H": H, "W": W, "valid_slots": valid},
+            "lanes": lanes}
 
 
 # benches/bench_lsh_1m.py (BASELINE config #4): 1,000,000 short docs of
@@ -2203,12 +2429,12 @@ def graph_only(args, dev):
     data = glove_like(args.n + NQ, D, seed=42)
     qs, data = data[args.n:], data[:args.n]
     db = phase_db(data, qs)[0]
-    launches = phase_graph_db(db, dev)
+    launches, db_timings = phase_graph_db(db, dev, args.reps)
     del db
-    kernels, scale = phase_graph_scale(dev, args.reps)
+    kernels, scale = phase_graph_scale(dev, args.reps, db_timings)
     for entry in kernels:
-        entry["launches_by_path"] = {"db graph (phase 6)": launches[entry["name"]],
-                                     "scale (phase 7)": scale[entry["name"]]}
+        count_graph_launches(entry, {"db graph (phase 6)": launches,
+                                     "scale (phase 7)": scale})
     say(f"total {time.time() - t0:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
@@ -2273,6 +2499,8 @@ def main():
     phase_kernel_vs_plain(dev)
     phase_beam_vs_plain()
     phase_graph_vs_plain(dev)
+    lap = lambda what: say(f"[{time.time() - t_all:.1f}s] {what} done")  # noqa: E731
+    lap("phases 1-2")
     if args.kernels_only:
         from cozo_tpu_torch.ops import fused_sweep as fs
 
@@ -2287,8 +2515,11 @@ def main():
         qs, data = data[args.n:], data[:args.n]
         say(f"datagen {args.n} + {NQ} x {D} in {time.time() - t0:.1f}s")
         db, index, build_s, db_launches = phase_db(data, qs)
-        graph_launches = {"db graph (phase 6)": phase_graph_db(db, dev)}
+        lap("phase 5")
+        db_graph_launches, db_timings = phase_graph_db(db, dev, args.reps)
+        graph_launches = {"db graph (phase 6)": db_graph_launches}
         del db
+        lap("phase 6 and its timings")
         launches = phase_main(index, qs, build_s, args.reps)
         launches["beam_search_db"] = db_launches
         main_inputs = main_path_inputs(index, qs)
@@ -2299,16 +2530,16 @@ def main():
         kernels.append(time_beam(index, qs, launches))
         del main_inputs, index
         torch.cuda.empty_cache()
+        lap("phases 3 and 4 (main path)")
         phase_i8_build(data, qs)
         del data
         phase_quant_wide()
+        lap("phases 3b and 3c")
         graph_kernels, graph_launches["scale (phase 7)"] = phase_graph_scale(
-            dev, args.reps)
+            dev, args.reps, db_timings)
+        lap("phase 7 and its timings")
         for entry in graph_kernels:
-            by_path = {path: counts[entry["name"]]
-                       for path, counts in graph_launches.items()}
-            entry["launches"] = sum(by_path.values())
-            entry["launches_by_path"] = by_path
+            count_graph_launches(entry, graph_launches)
         kernels += graph_kernels
         lsh_launches, first_chunk, _ = phase_lsh()
         kernels.append(time_minhash(first_chunk, lsh_launches, args.reps))

@@ -420,6 +420,13 @@ ELL_CAP_MAX = 1024
 _ELL_LANE = 512  # rows pad to this multiple
 # the host reads the kernel's "changed" flags after this many steps
 SSSP_CHECK_EVERY = 8
+# a step of the kernel pushes over the out-edges of the nodes that fell at
+# the step before when those out-edges are at most this share of all
+# edges, else it pulls over the ELL
+SSSP_PUSH_SHARE = 0.25
+# sources a kernel thread carries (`MAX_SG` in csrc/graph_sssp.cu; 1 when
+# there is one source)
+SSSP_GROUP = 8
 
 
 def _stage_sssp_ell_meta(deg, n_pad, e_pad):
@@ -537,7 +544,10 @@ class EllGraph(NamedTuple):
     """A staged sliced-ELL graph on one device.  The JAX layout
     (`p_layout`, `level2`, `node_pos`) for the plain version; the flat
     forms the kernel takes (`row_desc`, `l2_flat`, `l2_desc`,
-    `out_nodes`: the node of each level-2 column, -1 on padding)."""
+    `out_nodes`: the node of each level-2 column, -1 on padding) and the
+    out-CSR its push steps read (`out_ptr` [n_pad + 1] i64, `out_dst`
+    [e] i32, `out_w` [e] f32 or None for w_uni) of the graph's `n`
+    nodes."""
 
     flat_src: torch.Tensor
     flat_w: Optional[torch.Tensor]  # None: every slot weighs w_uni
@@ -552,13 +562,30 @@ class EllGraph(NamedTuple):
     l2_flat: torch.Tensor
     l2_desc: np.ndarray
     out_nodes: torch.Tensor
+    out_ptr: torch.Tensor
+    out_dst: torch.Tensor
+    out_w: Optional[torch.Tensor]
+    n: int
+
+
+def _out_csr(indptr, dst, w_np, n_pad, dev):
+    """The caller's CSR on `dev` as the kernel's push steps read it: the
+    row pointers padded to n_pad + 1 (nodes past n have no out-edge), the
+    destinations, the weights (None: uniform), and n."""
+    n = len(indptr) - 1
+    ptr = np.full(n_pad + 1, indptr[-1], dtype=np.int64)
+    ptr[:n + 1] = indptr
+    return (to_device(ptr, dev),
+            to_device(np.require(dst, np.int32, ["C", "W"]), dev),
+            None if w_np is None else to_device(
+                np.require(w_np, np.float32, ["C", "W"]), dev), n)
 
 
 def ell_graph(flat_src, flat_w, w_uni, nd_flat, level2_h, node_pos_h,
-              p_layout, R_pad, n_pad, dev) -> EllGraph:
+              p_layout, R_pad, n_pad, dev, out_csr) -> EllGraph:
     """An `EllGraph` on `dev` from the host layout (numpy level-2 arrays
-    and node positions, as `_stage_sssp_ell_meta` gives them) and the
-    packed device arrays."""
+    and node positions, as `_stage_sssp_ell_meta` gives them), the
+    packed device arrays and the out-CSR (`_out_csr`)."""
     row_desc, base = [], 0
     for off, cap, rows_p in p_layout:
         row_desc.append((base, off, cap, rows_p))
@@ -583,7 +610,7 @@ def ell_graph(flat_src, flat_w, w_uni, nd_flat, level2_h, node_pos_h,
         np.asarray(row_desc, dtype=np.int64).reshape(-1, 4),
         to_device(np.ascontiguousarray(l2_flat, dtype=np.int32), dev),
         np.asarray(l2_desc, dtype=np.int64).reshape(-1, 4),
-        to_device(out_nodes, dev),
+        to_device(out_nodes, dev), *out_csr,
     )
 
 
@@ -649,8 +676,10 @@ def sssp_ell_plain(g: EllGraph, sources, max_iters: int):
 _SSSP_RELAX_ARGTYPES = (
     [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
                              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2
-    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+    + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p])
 _SSSP_PARENT_ARGTYPES = (
     [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
                              ctypes.c_int] + [ctypes.c_void_p] * 3
@@ -671,27 +700,50 @@ def _desc_ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def _sssp_launch(lib, g: EllGraph, sources, max_iters: int, stream):
+def _sssp_launch(lib, g: EllGraph, sources, max_iters: int, stream,
+                 push_share: float = SSSP_PUSH_SHARE):
     """Runs the kernel for checked arguments: SSSP_CHECK_EVERY steps a
-    call, then the flags of those steps are read; then the parents.
-    Returns (dist, parent, steps run, calls into the kernel)."""
+    call, then the flags of those steps are read; then the parents.  A
+    step pushes when its frontier's out-edges are at most `push_share` of
+    all edges (>= 1: always; < 0: never).  Returns (dist, parent, steps
+    run, calls into the kernel, (frontier sizes [steps + 1, G], their
+    out-edges [steps + 1, G]) on the device)."""
     dev = g.flat_src.device
     S, n_pad = len(sources), g.n_pad
-    dist_a = _initial_dist(sources, n_pad, dev)
-    dist_b = dist_a.clone()
+    G = 1 if S == 1 else -(-S // SSSP_GROUP)
+    T = max(max_iters, 1)
+    # the kernel's first step puts each source's 0 into both buffers
+    dist_a, dist_b = torch.full((2, S, n_pad), float("inf"), device=dev)
     rowmin = torch.empty((S, g.R_pad), dtype=torch.float32, device=dev)
-    changed = torch.zeros(max(max_iters, 1), dtype=torch.int32, device=dev)
+    frontier = torch.empty((2, G, n_pad), dtype=torch.int32, device=dev)
+    # the zeroed scratch in one buffer: the frontiers' out-edge counts
+    # (i64), their sizes and the "changed" flags (i32)
+    n_i64 = (T + 1) * G
+    zeroed = torch.zeros(n_i64 + -(-(n_i64 + T) // 2), dtype=torch.int64,
+                         device=dev)
+    fedges = zeroed[:n_i64].view(T + 1, G)
+    counts = zeroed[n_i64:].view(torch.int32)
+    fcount, changed = counts[:n_i64].view(T + 1, G), counts[n_i64:n_i64 + T]
+    src_t = to_device(np.asarray(sources, dtype=np.int32), dev)
+    # the parent pass's buffers too, so that nothing but its launch waits
+    # for the host after the last flags are read
+    rowwit = torch.empty((S, g.R_pad), dtype=torch.int32, device=dev)
+    parent = torch.full((S, n_pad), -1, dtype=torch.int32, device=dev)
     M = g.out_nodes.shape[0]
     common = (g.flat_src.data_ptr(), _ptr(g.flat_w), g.w_uni,
               _desc_ptr(g.row_desc), len(g.row_desc), g.R_pad)
     l2 = (g.l2_flat.data_ptr(), _desc_ptr(g.l2_desc), len(g.l2_desc), M,
           g.out_nodes.data_ptr())
+    out_csr = (g.out_ptr.data_ptr(), g.out_dst.data_ptr(), _ptr(g.out_w),
+               g.out_dst.shape[0], float(push_share), src_t.data_ptr())
     it = steps_run = calls = 0
     while it < max_iters:
         steps = min(SSSP_CHECK_EVERY, max_iters - it)
         err = lib.cozo_sssp_relax(
-            *common, *l2, S, n_pad, dist_a.data_ptr(), dist_b.data_ptr(),
-            rowmin.data_ptr(), changed.data_ptr(), it, steps, stream)
+            *common, *l2, *out_csr, S, n_pad, g.n, dist_a.data_ptr(),
+            dist_b.data_ptr(), rowmin.data_ptr(), frontier.data_ptr(),
+            fcount.data_ptr(), fedges.data_ptr(), changed.data_ptr(), it,
+            steps, stream)
         _build.check(lib, err, "graph_sssp relax launch")
         calls += 1
         flags = changed[it:it + steps].cpu().numpy()
@@ -701,17 +753,14 @@ def _sssp_launch(lib, g: EllGraph, sources, max_iters: int, stream):
             steps_run = it - steps + int(still[0]) + 1
             break
         steps_run = it
-    # step t writes buffer b when t is even: the last one written
-    dist = dist_a if it % 2 == 0 else dist_b
-    del rowmin
-    rowwit = torch.empty((S, g.R_pad), dtype=torch.int32, device=dev)
-    parent = torch.full((S, n_pad), -1, dtype=torch.int32, device=dev)
-    src_t = torch.as_tensor(np.asarray(sources, dtype=np.int32), device=dev)
+    # both buffers hold the same distances after every step
+    dist = dist_a
     err = lib.cozo_sssp_parent(
         *common, g.node_flat.data_ptr(), *l2, S, n_pad, src_t.data_ptr(),
         dist.data_ptr(), rowwit.data_ptr(), parent.data_ptr(), stream)
     _build.check(lib, err, "graph_sssp parent launch")
-    return dist, parent, steps_run, calls + 1
+    return (dist, parent, steps_run, calls + 1,
+            (fcount[:steps_run + 1], fedges[:steps_run + 1]))
 
 
 def sssp_ell(g: EllGraph, sources, max_iters: int):
@@ -720,21 +769,26 @@ def sssp_ell(g: EllGraph, sources, max_iters: int):
     [S, n_pad] i32, steps run).  On the card `csrc/graph_sssp.cu` runs
     SSSP_CHECK_EVERY steps between reads of its "changed" flags, never
     past `max_iters` (steps at the fixed point change nothing, so the
-    result equals a check after every step); each call into the kernel
-    counts in `sssp_ell.launches`.  CPU tensors run `sssp_ell_plain`."""
+    result equals a check after every step), each step a push from the
+    nodes that fell at the step before or, past SSSP_PUSH_SHARE of the
+    edges, a pull over the ELL; each call into the kernel counts in
+    `sssp_ell.launches`, each solve in `sssp_ell.solves`.  CPU tensors
+    run `sssp_ell_plain`."""
     if g.flat_src.device.type == "cpu":
         return sssp_ell_plain(g, sources, max_iters)
     _check_cuda("sssp_ell", g.flat_src, g.flat_w, g.node_flat, g.l2_flat,
-                g.out_nodes)
+                g.out_nodes, g.out_ptr, g.out_dst, g.out_w)
     lib = _bind_sssp(_build.load("graph_sssp"))
     with torch.cuda.device(g.flat_src.device):
-        dist, parent, steps_run, calls = _sssp_launch(
+        dist, parent, steps_run, calls, _ = _sssp_launch(
             lib, g, sources, max_iters, _stream(g.flat_src))
     sssp_ell.launches += calls
+    sssp_ell.solves += 1
     return dist, parent, steps_run
 
 
 sssp_ell.launches = 0
+sssp_ell.solves = 0
 
 
 def _sssp_scatter_plain(src, dst, w, dist0, max_iters, n_pad, e_pad):
@@ -845,6 +899,7 @@ def _sssp_ell_stage(indptr, dst, w, cache_key, dev, log):
             loaded = np.load(fpath)
         except Exception:  # noqa: BLE001 - a bad image is rebuilt below
             loaded = None
+    out_csr = _out_csr(indptr, dst, None if uniform else w_np, n_pad, dev)
     if loaded is not None:
         p_layout = tuple(
             tuple(int(x) for x in row) for row in loaded["p_layout"]
@@ -854,7 +909,7 @@ def _sssp_ell_stage(indptr, dst, w, cache_key, dev, log):
         flat_w = None if uniform else to_device(loaded["flat_w"], dev)
         staged = ell_graph(flat_src, flat_w, w_uni, loaded["nd_flat"], l2_h,
                            loaded["node_pos"], p_layout, int(loaded["R_pad"]),
-                           n_pad, dev)
+                           n_pad, dev, out_csr)
         if log:
             print(f"# sssp-ell disk-cached image {time.time() - t0:.1f}s",
                   flush=True)
@@ -878,7 +933,7 @@ def _sssp_ell_stage(indptr, dst, w, cache_key, dev, log):
             s_dev, w_dev, to_device(rs_flat, dev), to_device(rl_flat, dev),
             layout, e_pad, n_pad)
         staged = ell_graph(flat_src, flat_w, w_uni, nd_flat, l2_host,
-                           node_pos_h, p_layout, R_pad, n_pad, dev)
+                           node_pos_h, p_layout, R_pad, n_pad, dev, out_csr)
         if log:
             print(
                 f"# sssp-ell meta {t_meta - t0:.1f}s "

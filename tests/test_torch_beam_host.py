@@ -62,8 +62,13 @@ inline const char* cudaGetErrorString(cudaError_t) { return "shim error"; }
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 
 struct float4 { float x, y, z, w; };
+struct int4 { int x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct uint3s { unsigned x, y, z; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
 
 namespace shim {
 struct Warp { uint64_t scratch[32]; std::barrier<> bar{32}; };
@@ -73,15 +78,15 @@ struct Block {
   unsigned char* smem;
 };
 inline Block* g_block;
-inline thread_local uint3s t_tid, t_bid;
+inline thread_local uint3s t_tid, t_bid, t_gdim;
 inline Warp& warp() { return *g_block->warps[t_tid.x >> 5]; }
 inline int lane() { return t_tid.x & 31; }
 
 template <class K>
 struct Launch {
-  unsigned grid, block; size_t smem; K kern;
+  dim3 grid; unsigned block; size_t smem; K kern;
   template <class... A> void operator()(A... args) {
-    for (unsigned b = 0; b < grid; ++b) {
+    for (unsigned b = 0; b < grid.x * grid.y; ++b) {
       Block blk;
       blk.bar = std::make_unique<std::barrier<>>(block);
       for (unsigned w = 0; w < (block + 31) / 32; ++w) blk.warps.push_back(std::make_unique<Warp>());
@@ -90,17 +95,21 @@ struct Launch {
       g_block = &blk;
       std::vector<std::thread> ts;
       for (unsigned t = 0; t < block; ++t)
-        ts.emplace_back([=, this] { t_tid = {t, 0, 0}; t_bid = {b, 0, 0}; kern(args...); });
+        ts.emplace_back([=, this] {
+          t_tid = {t, 0, 0}; t_bid = {b % grid.x, b / grid.x, 0}; t_gdim = {grid.x, grid.y, 1};
+          kern(args...);
+        });
       for (auto& t : ts) t.join();
       free(blk.smem);
     }
   }
 };
-template <class K> Launch<K> launch(unsigned g, unsigned b, size_t s, K k) { return {g, b, s, k}; }
+template <class K> Launch<K> launch(dim3 g, unsigned b, size_t s, K k) { return {g, b, s, k}; }
 }  // namespace shim
 
 #define threadIdx shim::t_tid
 #define blockIdx shim::t_bid
+#define gridDim shim::t_gdim
 #define SHIM_LAUNCH(kern, grid, block, smem, stream) shim::launch(grid, block, smem, kern)
 #define SHIM_SMEM (shim::g_block->smem)
 
@@ -113,6 +122,10 @@ template <class T> T __shfl_sync(unsigned, T v, int src) {
   T out; memcpy(&out, &r, sizeof(T)); return out;
 }
 template <class T> T __shfl_xor_sync(unsigned m, T v, int o) { return __shfl_sync(m, v, shim::lane() ^ o); }
+template <class T> T __shfl_up_sync(unsigned m, T v, unsigned d) {
+  const int src = shim::lane() - (int)d;
+  return __shfl_sync(m, v, src < 0 ? shim::lane() : src);
+}
 inline unsigned __ballot_sync(unsigned, bool p) {
   auto& w = shim::warp(); w.scratch[shim::lane()] = p; w.bar.arrive_and_wait();
   unsigned m = 0; for (int i = 0; i < 32; ++i) m |= (unsigned)(w.scratch[i] != 0) << i;
@@ -127,6 +140,14 @@ inline int atomicMin(int* p, int v) {
   int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
   while (old > v && !__atomic_compare_exchange_n(p, &old, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {}
   return old;
+}
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  unsigned old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (old < v && !__atomic_compare_exchange_n(p, &old, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {}
+  return old;
+}
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
 inline int atomicCAS(int* p, int cmp, int v) {
   __atomic_compare_exchange_n(p, &cmp, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST); return cmp;

@@ -17,14 +17,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (BEAM_CASES, GRAPH_LP_WIDTHS, GRAPH_PR_CASES,
-                        GRAPH_SSSP_CASES, MINHASH_CASES, PR_L1_TOL, graph_csr,
+from chip_smoke import (BEAM_CASES, GRAPH_LP_LABELS, GRAPH_LP_WIDTHS,
+                        GRAPH_PR_CASES, GRAPH_SSSP_CASES, MINHASH_CASES,
+                        PR_L1_TOL, SSSP_FORCED_SHARES, graph_csr,
                         lp_inputs, minhash_inputs, minhash_tensors,
                         pagerank_agreement, pr_inputs, sssp_inputs)
 from chip_smoke import PHASE2_SHAPES as SHAPES
 from chip_smoke import (agreement_ok, beam_args, beam_case, beam_ok,
                         compare_beam, compare_fused, random_case)
 from cozo_tpu_torch import HnswIndex, sweep_search
+from cozo_tpu_torch.ops import _build
 from cozo_tpu_torch.ops import fused_sweep as fs
 from cozo_tpu_torch.ops import graph_algos as ga
 from cozo_tpu_torch.ops import minhash as mh
@@ -317,7 +319,8 @@ def test_graph_pagerank_matches_plain(cuda, n, e, steps, dangling):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", GRAPH_SSSP_CASES)
 def test_graph_sssp_matches_plain(cuda, case):
-    """Distances, parents and the steps run EQUAL the plain version's."""
+    """Distances, parents and the steps run EQUAL the plain version's,
+    with the wrapper's push share and with every step pushed or pulled."""
     g, sources, max_iters = sssp_inputs(case, cuda)
     got = ga.sssp_ell(g, sources, max_iters)
     want = ga.sssp_ell_plain(g, sources, max_iters)
@@ -325,16 +328,18 @@ def test_graph_sssp_matches_plain(cuda, case):
     assert got[2] == want[2]
     again = ga.sssp_ell(g, sources, max_iters)
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    lib = ga._bind_sssp(_build.load("graph_sssp"))
+    for share in SSSP_FORCED_SHARES.values():
+        forced = ga._sssp_launch(lib, g, sources, max_iters,
+                                 ga._stream(g.flat_src), share)
+        assert torch.equal(forced[0], want[0])
+        assert torch.equal(forced[1], want[1]) and forced[2] == want[2]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("W", GRAPH_LP_WIDTHS)
-@pytest.mark.parametrize("weighted", [False, True])
-def test_graph_lp_pick_matches_plain(cuda, W, weighted):
-    """Picks EQUAL the plain version's (unit or k/8 weights: exact sums),
-    the planted tie to the smaller label."""
+def check_lp_pick(cuda, W, weighted, kind):
     H = 4096 if W <= 128 else 64
-    labels, nb, w, idx, has_in, n_real = lp_inputs(H, W, weighted, W, cuda)
+    labels, nb, w, idx, has_in, n_real = lp_inputs(H, W, weighted, W, cuda,
+                                                   kind)
     got = labels.clone()
     ga.lp_pick(labels, nb, w, idx, has_in, n_real, got)
     want = labels.clone()
@@ -343,6 +348,23 @@ def test_graph_lp_pick_matches_plain(cuda, W, weighted):
     node = 2 if idx is None else int(idx[2])
     assert int(got[node]) == 65
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", GRAPH_LP_WIDTHS)
+@pytest.mark.parametrize("weighted", [False, True])
+def test_graph_lp_pick_matches_plain(cuda, W, weighted):
+    """Picks EQUAL the plain version's (unit or k/8 weights: exact sums),
+    the planted tie to the smaller label."""
+    check_lp_pick(cuda, W, weighted, "mixed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", GRAPH_LP_WIDTHS)
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("kind", GRAPH_LP_LABELS[1:])
+def test_graph_lp_pick_label_mixes(cuda, W, weighted, kind):
+    """All labels distinct, three, one."""
+    check_lp_pick(cuda, W, weighted, kind)
 
 @pytest.mark.cuda
 def test_graph_rules_on_the_card_equal_the_cpu(cuda):

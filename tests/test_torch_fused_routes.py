@@ -89,7 +89,7 @@ def test_work_split_covers_every_tile_once(B, n_total, d_pad):
 
 _C_TYPES = {"void*": ctypes.c_void_p, "constvoid*": ctypes.c_void_p,
             "int": ctypes.c_int, "float": ctypes.c_float,
-            "constlonglong*": ctypes.c_void_p}
+            "longlong": ctypes.c_longlong, "constlonglong*": ctypes.c_void_p}
 
 
 def _extern_c_functions():

@@ -30,9 +30,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (GRAPH_LP_WIDTHS, GRAPH_PR_CASES, GRAPH_SSSP_CASES,
-                        PR_L1_TOL, lp_inputs, pagerank_agreement, pr_inputs,
-                        sssp_inputs)
+from chip_smoke import (GRAPH_LP_LABELS, GRAPH_LP_WIDTHS, GRAPH_PR_CASES,
+                        GRAPH_SSSP_CASES, PR_L1_TOL, SSSP_FORCED_SHARES,
+                        lp_inputs, pagerank_agreement, pr_inputs, sssp_inputs)
 from cozo_tpu_torch.ops import _build
 from cozo_tpu_torch.ops import graph_algos as ga
 from tests.test_torch_beam_host import SHIM
@@ -43,7 +43,8 @@ KERNELS = {
     "graph_pagerank": (ga._bind_pagerank,
                        [f"-DCOZO_PR_THREADS={THREADS}",
                         "-DCOZO_PR_MAX_BLOCKS=8"]),
-    "graph_sssp": (ga._bind_sssp, [f"-DCOZO_SSSP_THREADS={THREADS}"]),
+    "graph_sssp": (ga._bind_sssp, [f"-DCOZO_SSSP_THREADS={THREADS}",
+                                   "-DCOZO_SSSP_MAX_BLOCKS=2"]),
     "graph_labelprop": (ga._bind_lp, [f"-DCOZO_LP_THREADS={THREADS}"]),
 }
 
@@ -105,44 +106,102 @@ def test_pagerank_source_on_the_host(libs, n, e, steps, dangling):
         assert torch.equal(got[:n], torch.full((n,), np.float32(1) / n))
 
 
-@pytest.mark.parametrize("case", GRAPH_SSSP_CASES[:-1],
-                         ids=["dyadic", "uniform-hub-8src", "hub", "cut",
-                              "sparse"])
-def test_sssp_source_on_the_host(libs, case):
+SSSP_IDS = ["dyadic", "uniform-hub-8src", "hub", "cut", "sparse", "9src",
+            "negative-8src", "cut1", "negative-cut3"]
+
+
+def check_sssp_source(lib, case, share):
+    """One GRAPH_SSSP_CASES entry through the kernel's launcher at a route
+    share: equal to the plain version, step 0's frontier the distinct
+    sources, a converged solve's last frontier empty, two runs equal."""
     g, sources, max_iters = sssp_inputs(case, torch.device("cpu"))
     assert (g.flat_w is None) == (case[3] == "uniform")
     if case[2] > ga.ELL_CAP_MAX:
         assert len(g.l2_desc) > 1  # the hub's rows meet at level 2
     want = ga.sssp_ell_plain(g, sources, max_iters)
-    got = ga._sssp_launch(libs["graph_sssp"], g, sources, max_iters, None)
+    got = ga._sssp_launch(lib, g, sources, max_iters, None, share)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert got[2] == want[2]
     assert got[3] == -(-min(want[2], max_iters) // ga.SSSP_CHECK_EVERY) + 1
-    if max_iters == 2:
-        assert got[2] == 2 and not torch.equal(
+    if max_iters < 10:
+        assert got[2] == max_iters and not torch.equal(
             got[0], ga.sssp_ell_plain(g, sources, 512)[0])
+    else:  # the last step changed nothing: its frontier is empty
+        assert got[2] < max_iters and not bool(got[4][0][got[2]].any())
+    groups = [sources] if len(sources) == 1 else [
+        sources[i:i + ga.SSSP_GROUP]
+        for i in range(0, len(sources), ga.SSSP_GROUP)]
+    assert got[4][0][0].tolist() == [len(set(x)) for x in groups]
     n = case[0]
     isolated = got[0][:, n - 3:n]  # unreached unless a source
     assert torch.isinf(isolated[isolated != 0]).all()
-    again = ga._sssp_launch(libs["graph_sssp"], g, sources, max_iters, None)
+    again = ga._sssp_launch(lib, g, sources, max_iters, None, share)
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.parametrize("case", GRAPH_SSSP_CASES[:-1], ids=SSSP_IDS)
+def test_sssp_source_on_the_host(libs, case):
+    """The wrapper's route share (`SSSP_PUSH_SHARE`)."""
+    check_sssp_source(libs["graph_sssp"], case, ga.SSSP_PUSH_SHARE)
+
+
+@pytest.mark.parametrize("route", SSSP_FORCED_SHARES)
+@pytest.mark.parametrize("case", GRAPH_SSSP_CASES[:-1], ids=SSSP_IDS)
+def test_sssp_forced_routes_on_the_host(libs, case, route):
+    """Every step pushed, every step pulled: the same bits."""
+    check_sssp_source(libs["graph_sssp"], case, SSSP_FORCED_SHARES[route])
+
+
+def test_sssp_negative_weights_are_exercised():
+    """The negative-weight cases reach nodes at negative distances."""
+    for case in GRAPH_SSSP_CASES:
+        if case[3] == "negative":
+            g, sources, max_iters = sssp_inputs(case, torch.device("cpu"))
+            dist = ga.sssp_ell_plain(g, sources, max_iters)[0]
+            assert bool((dist < 0).any())
+
+
+def check_lp_source(lib, W, weighted, kind):
+    H = 256 if W <= 32 else (64 if W <= 256 else 4)
+    labels, nb, w, idx, has_in, n_real = lp_inputs(H, W, weighted, W,
+                                                   torch.device("cpu"), kind)
+    want = labels.clone()
+    ga.lp_pick_plain(labels, nb, w, idx, has_in, n_real, want)
+    got = labels.clone()
+    ga._lp_launch(lib, labels, nb, w, idx, has_in, n_real, got, None)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, labels)
+    node = 2 if idx is None else int(idx[2])
+    assert int(got[node]) == 65  # the planted tie: the smaller label
+    again = labels.clone()
+    ga._lp_launch(lib, labels, nb, w, idx, has_in, n_real, again, None)
+    assert torch.equal(again, got)
 
 
 @pytest.mark.parametrize("W", GRAPH_LP_WIDTHS)
 @pytest.mark.parametrize("weighted", [False, True])
 def test_lp_pick_source_on_the_host(libs, W, weighted):
-    H = 256 if W <= 256 else 4
-    labels, nb, w, idx, has_in, n_real = lp_inputs(H, W, weighted, W,
-                                                   torch.device("cpu"))
-    want = labels.clone()
-    ga.lp_pick_plain(labels, nb, w, idx, has_in, n_real, want)
-    got = labels.clone()
-    ga._lp_launch(libs["graph_labelprop"], labels, nb, w, idx, has_in,
-                  n_real, got, None)
-    assert torch.equal(got, want)
-    assert not torch.equal(got, labels)
-    node = 2 if idx is None else int(idx[2])
-    assert int(got[node]) == 65  # the planted tie: the smaller label
+    check_lp_source(libs["graph_labelprop"], W, weighted, "mixed")
+
+
+@pytest.mark.parametrize("W", GRAPH_LP_WIDTHS)
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("kind", GRAPH_LP_LABELS[1:])
+def test_lp_pick_label_mixes_on_the_host(libs, W, weighted, kind):
+    """All labels distinct, three, one."""
+    check_lp_source(libs["graph_labelprop"], W, weighted, kind)
+
+
+def test_lp_cases_reach_every_rule():
+    """The pick's inputs hold rows without a valid slot (all padding, all
+    weights 0), dense rows without in-edges, and rows that tie."""
+    for W in (16, 64, 256):
+        labels, nb, w, idx, has_in, n_real = lp_inputs(
+            256, W, True, W, torch.device("cpu"))
+        assert bool((nb[0] == labels.shape[0] - 1).all())
+        assert not bool((w[1] > 0).any())
+        if idx is None:
+            assert not bool(has_in.all())
 
 
 def test_lp_launcher_refuses_bad_widths(libs):

@@ -134,7 +134,8 @@ def _port_sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
-    for script in ("chip_smoke.py", "chip_profile.py", "chip_ubench.py"):
+    for script in ("chip_smoke.py", "chip_profile.py", "chip_ubench.py",
+                   "chip_graph_vs.py"):
         yield os.path.join(_ROOT, script)
 
 
