@@ -22,7 +22,9 @@ Phases, each reported on its own line; any failure exits non-zero:
      ids equal on >= 99% of (query, rank) entries, distances within 1e-4
      where ids match, no dead row returned, two runs identical.
      The graph kernels: `graph_pagerank` (dangling and isolated nodes,
-     padding edges, 0 steps; L1 <= 1e-5, the same top 100),
+     padding edges, 0 steps, nodes without in-edges, every node dangling
+     but one, a hub of 600 in-edges; L1 <= 1e-5, the same top 100, and
+     the same bits from a build with bins of 1,024 nodes),
      `graph_sssp` (a hub past 1,024 in-edges, 1 to 9 sources in one and
      two groups, `max_iters` cuts at 1, 2 and 3 steps, uniform, dyadic,
      random and negative weights; the wrapper's route share and every
@@ -91,7 +93,10 @@ Phases, each reported on its own line; any failure exits non-zero:
      main path takes; the graph kernels at phase 7's, `minhash` at phase
      8's first backfill chunk, with a chunk's upload and copy back) with
      CUDA events, beside its bound and its plain version, and the fused
-     routes and PageRank beside a one-call PyTorch yardstick; besides,
+     routes and PageRank beside a one-call PyTorch yardstick (for
+     PageRank one cuSPARSE SpMV a step, also on phase 6's graph, after a
+     line on its binned layout: bins, bytes, slices, build ms and
+     transient memory); besides,
      the label pick at every lane of phases 6 and 7 at random and at
      converged labels (replayed from a CUDA graph: no host time between
      launches) and SSSP with 4 sources on phase 6's graph, each solve
@@ -214,11 +219,14 @@ def phase_build():
     from cozo_tpu_torch.ops import _build
 
     names = sorted(f[:-3] for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
+    # and the PageRank build at phase 2's second bin size
+    builds = [(name, ()) for name in names] + [("graph_pagerank",
+                                                PR_BIN_SIZE_2)]
     t0 = time.time()
-    with ThreadPoolExecutor(len(names)) as ex:
-        list(ex.map(_build.build, names))
-    say(f"phase 1 build: {len(names)} kernel(s) {names} in "
-        f"{time.time() - t0:.1f}s")
+    with ThreadPoolExecutor(len(builds)) as ex:
+        list(ex.map(lambda b: _build.build(*b), builds))
+    say(f"phase 1 build: {len(names)} kernel(s) {names} and graph_pagerank "
+        f"{PR_BIN_SIZE_2} in {time.time() - t0:.1f}s")
     for name, (secs, log) in sorted(_build.BUILD_INFO.items()):
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
@@ -432,9 +440,17 @@ def phase_beam_vs_plain():
 
 # ------------------------------------------------------------ graph kernels
 
-# PageRank: (nodes, edges, steps, nodes without out-edges)
-GRAPH_PR_CASES = ((300, 2500, 10, 30), (97, 40, 3, 9), (500, 9000, 0, 50),
-                  (20_000, 300_000, 10, 2_000))
+# PageRank: (nodes, edges, steps, nodes without out-edges, extra in-edges
+# of node 1)
+GRAPH_PR_CASES = ((300, 2500, 10, 30, 0), (97, 40, 3, 9, 0),
+                  (500, 9000, 0, 50, 0),
+                  (1000, 1500, 10, 0, 0),     # most nodes one in-edge or none
+                  (300, 2000, 10, 296, 0),    # every node dangling but one
+                  (500, 4000, 10, 20, 600),   # a hub of 600 in-edges
+                  (20_000, 300_000, 10, 2_000, 0))
+# the second bin size phase 2 builds `graph_pagerank` at (its own is
+# graph_algos.PR_BIN_NODES): the same bits
+PR_BIN_SIZE_2 = ("-DCOZO_PR_BIN_NODES=1024",)
 # SSSP: (nodes, edges, hub in-degree, weights, sources, max_iters)
 GRAPH_SSSP_CASES = (
     (400, 3000, 0, "dyadic", (0,), 512),
@@ -473,10 +489,10 @@ def graph_csr(n, e, seed, hub=0, dangling=0):
     return np.cumsum(indptr), dst
 
 
-def pr_inputs(n, e, dangling, dev):
+def pr_inputs(n, e, dangling, dev, hub=0):
     from cozo_tpu_torch.ops import graph_algos as ga
 
-    ip, d = graph_csr(n, e, n + e, dangling=dangling)
+    ip, d = graph_csr(n, e, n + e, hub=hub, dangling=dangling)
     return ga._pagerank_stage(ip, d, None, dev)
 
 
@@ -575,19 +591,28 @@ def phase_graph_vs_plain(dev):
     from cozo_tpu_torch.ops import _build
     from cozo_tpu_torch.ops import graph_algos as ga
 
-    for n, e, steps, dangling in GRAPH_PR_CASES:
-        staged = pr_inputs(n, e, dangling, dev)
+    pr_lib2 = ga._bind_pagerank(_build.load("graph_pagerank", PR_BIN_SIZE_2))
+    bins2 = pr_lib2.cozo_pagerank_bin_nodes()
+    for n, e, steps, dangling, hub in GRAPH_PR_CASES:
+        staged = pr_inputs(n, e, dangling, dev, hub)
         got = ga.pagerank_steps(*staged, n, steps, 0.85)
         again = ga.pagerank_steps(*staged, n, steps, 0.85)
         want = ga.pagerank_plain(*staged, n, steps, 0.85)
+        other = ga._pagerank_launch(
+            pr_lib2, *staged[:3],
+            *ga._pagerank_bins(staged[0], staged[1], n, bins2), n, steps,
+            0.85, ga._stream(staged[0]))
         torch.cuda.synchronize()
         l1, top = pagerank_agreement(got, want, n)
         twice = bool(torch.equal(got, again))
+        same_bins = bool(torch.equal(got, other))
         pad0 = not bool(got[n:].any())
         say(f"phase 2 graph_pagerank vs plain n={n} e={e} steps={steps} "
-            f"dangling={dangling}: L1 {l1:.3e} (tol {PR_L1_TOL}) top-100 "
-            f"same {top}, padding 0 {pad0}, two runs identical {twice}")
-        if not (l1 <= PR_L1_TOL and top and twice and pad0):
+            f"dangling={dangling} hub={hub}: L1 {l1:.3e} (tol {PR_L1_TOL}) "
+            f"top-100 same {top}, padding 0 {pad0}, two runs identical "
+            f"{twice}, bins of {ga.PR_BIN_NODES} and {bins2} nodes "
+            f"identical {same_bins}")
+        if not (l1 <= PR_L1_TOL and top and twice and pad0 and same_bins):
             raise SystemExit("phase 2 failed: graph_pagerank disagrees")
     sssp_lib = ga._bind_sssp(_build.load("graph_sssp"))
     for case in GRAPH_SSSP_CASES:
@@ -1411,6 +1436,8 @@ def phase_graph_db(db, dev, reps=5):
     # phase 4 at this graph's shapes, while its staged images are on the
     # card (phase 7's evict them)
     timings = {
+        "pagerank": time_pagerank(ga._pagerank_stage(indptr, dst, ck, dev),
+                                  n, e, reps, "db graph (phase 6)"),
         "lp_lanes": time_lp_lanes(uck, len(u_verts), ended, dev, reps,
                                   "db graph (phase 6)"),
         "sssp": time_sssp(ga._sssp_ell_stage(indptr, dst,
@@ -1555,56 +1582,120 @@ def phase_graph_scale(dev, reps, db_timings):
         hck, HUB_NODES, lab_end, dev, reps, "hub graph (phase 7)")
     sssp = time_sssp(g, n, e, [0], "LiveJournal shape (phase 7)")
     sssp["db_graph"] = db_timings["sssp"]
-    kernels = [time_pagerank(ga._pagerank_stage(ip, d, ck, dev), n, e, reps),
-               sssp, time_lp_pick(hck, dev, reps, lanes)]
+    pagerank = time_pagerank(ga._pagerank_stage(ip, d, ck, dev), n, e, reps,
+                             "LiveJournal shape (phase 7)")
+    pagerank["db_graph"] = db_timings["pagerank"]
+    kernels = [pagerank, sssp, time_lp_pick(hck, dev, reps, lanes)]
     out["card"] = smi_line()
     say("scale " + json.dumps(out))
     return kernels, out["launches"]
 
 
-def time_pagerank(staged, n, e, reps):
-    """Phase 4 for graph_pagerank at the LiveJournal shape: 10 steps."""
+def pagerank_library_ms(staged, n, contrib, reps):
+    """The yardstick, never called by the port: each step's incoming sums
+    as one cuSPARSE product of the in-CSR of the real edges (int32
+    indices, built outside the timed window) with the contributions, x
+    10.  Returns the ms of the faster operand (1-D, a SpMV, or [n_pad,
+    1]), its name and the ms of both."""
+    import torch
+
+    src_by_dst, in_ptr, out_deg = staged[:3]
+    n_pad = out_deg.shape[0]
+    e = int(in_ptr[n])
+    crow = in_ptr.clone()
+    crow[n + 1:] = e  # no padding edges: the dummy slot's row is empty
+    with warnings.catch_warnings():  # CSR tensors are "beta" in torch
+        warnings.simplefilter("ignore")
+        a = torch.sparse_csr_tensor(
+            crow, src_by_dst[:e].clone(),
+            torch.ones(e, device=src_by_dst.device), size=(n_pad, n_pad),
+            check_invariants=False)
+        col = contrib[:, None].contiguous()
+        times = {"1-D": cuda_ms(lambda: [a @ contrib for _ in range(10)],
+                                reps),
+                 "[n_pad, 1]": cuda_ms(lambda: [a @ col for _ in range(10)],
+                                       reps)}
+    best = min(times, key=times.get)
+    return times[best], best, times
+
+
+def pagerank_layout(staged, n, e, where):
+    """The binned layout's size, bins and slices, and the time and
+    transient memory of building it once more on the card."""
     import torch
 
     from cozo_tpu_torch.ops import graph_algos as ga
 
-    src_by_dst, in_ptr, out_deg = staged
+    dev = staged[0].device
+    nbytes = sum(t.numel() * t.element_size() for t in staged[3:])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    ga._pagerank_bins(staged[0], staged[1], n)
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.time() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {"bin_nodes": ga.PR_BIN_NODES, "bins": len(staged[5]) - 1,
+           "bytes": nbytes, "slices": sms, "edges_a_slice": e / sms,
+           "build_ms": build_ms, "build_peak_bytes": peak}
+    say(f"phase 4 graph_pagerank layout on the {where}: {out['bins']} bins "
+        f"of {ga.PR_BIN_NODES} nodes, {nbytes} bytes ({nbytes / e:.2f} an "
+        f"edge), the edge pass in {sms} slices (a block an SM) of "
+        f"{e / sms:.0f} edges; built on the card in {build_ms:.1f} ms, "
+        f"{peak / 1e9:.3f} GB at its peak above what was allocated")
+    return out
+
+
+def time_pagerank(staged, n, e, reps, where):
+    """Phase 4 for graph_pagerank: 10 steps on a staged graph of n nodes
+    and e edges, beside its bound, its plain version and the library's
+    SpMV."""
+    import torch
+
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    src_by_dst, in_ptr, out_deg = staged[:3]
     n_pad, e_pad = out_deg.shape[0], src_by_dst.shape[0]
     got = ga.pagerank_steps(*staged, n, 10, 0.85)
+    again = ga.pagerank_steps(*staged, n, 10, 0.85)
     want = ga.pagerank_plain(*staged, n, 10, 0.85)
     err = float((got - want).abs().max())
+    l1, top = pagerank_agreement(got, want, n)
+    if not (l1 <= PR_L1_TOL and top and torch.equal(got, again)):
+        raise SystemExit(f"phase 4 failed: graph_pagerank disagrees with "
+                         f"plain on the {where}")
+    layout = pagerank_layout(staged, n, e, where)
     ms = cuda_ms(lambda: ga.pagerank_steps(*staged, n, 10, 0.85), reps)
     plain_ms = cuda_ms(lambda: ga.pagerank_plain(*staged, n, 10, 0.85), 2)
-    # yardstick, never called by the port: each step's incoming sum as one
-    # cuSPARSE product of the in-CSR with the contributions
-    with warnings.catch_warnings():  # CSR tensors are "beta" in torch
-        warnings.simplefilter("ignore")
-        a = torch.sparse_csr_tensor(
-            in_ptr.long(), src_by_dst.long(),
-            torch.ones(e_pad, device=src_by_dst.device), size=(n_pad, n_pad),
-            check_invariants=False)
-    x = (want / torch.where(out_deg > 0, out_deg, 1.0))[:, None]
-    library_ms = cuda_ms(lambda: [torch.sparse.mm(a, x) for _ in range(10)],
-                         2)
-    del a
+    library_ms, operand, library_all = pagerank_library_ms(
+        staged, n, want / torch.where(out_deg > 0, out_deg, 1.0), reps)
     # each step reads every real edge's source id and the in-CSR bounds,
     # reads the ranks and degrees and writes the ranks once
     nbytes = 10 * (4 * e + 4 * (n + 1) + 12 * n)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 10 * e / PEAK_F32 * 1e3
     bound = max(t_bytes, t_ops)
-    say(f"phase 4 graph_pagerank (10 steps, n={n} e={e}): {ms:.3f} ms "
-        f"({10 * e / ms / 1e3:.0f} M edges/s, {100 * bound / ms:.1f}% of "
-        f"the bound {bound:.3f} ms), plain {plain_ms:.3f} ms, "
-        f"torch.sparse.mm x 10 {library_ms:.3f} ms, max_abs_err {err:.3e}")
+    # what the binned layout streams: a source id and a 2-byte offset an
+    # edge, each step
+    stream_ms = 10 * 6 * e / PEAK_BYTES * 1e3
+    say(f"phase 4 graph_pagerank on the {where} (10 steps, n={n} e={e}): "
+        f"{ms:.3f} ms ({10 * e / ms / 1e3:.0f} M edges/s, "
+        f"{100 * bound / ms:.1f}% of the bound {bound:.3f} ms; the binned "
+        f"edges' 6 B each at the memory rate {stream_ms:.3f} ms), plain "
+        f"{plain_ms:.3f} ms, cuSPARSE SpMV x 10 {library_ms:.3f} ms "
+        f"({operand} operand; {', '.join(f'{k} {v:.3f}' for k, v in library_all.items())}), "
+        f"L1 {l1:.3e}, max_abs_err {err:.3e}, two runs identical")
     return {"name": "graph_pagerank", "route": "cuda",
             "source": "cozo_tpu_torch/csrc/graph_pagerank.cu",
             "replaces": "cozo_tpu/ops/graph_algos.py:70",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-            "shape": {"n": n, "e": e, "n_pad": n_pad, "e_pad": e_pad,
-                      "steps": 10}}
+            "library_ms": library_ms, "library_operand": operand,
+            "stream_ms": stream_ms, "layout": layout,
+            "shape": {"where": where, "n": n, "e": e, "n_pad": n_pad,
+                      "e_pad": e_pad, "steps": 10}}
 
 
 def time_sssp(g, n, e, sources, where):

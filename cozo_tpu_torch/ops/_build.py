@@ -27,7 +27,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 # seconds and ptxas report of each build done by this process
 BUILD_INFO: Dict[str, Tuple[float, str]] = {}
@@ -44,22 +44,25 @@ def nvcc_path() -> str:
     raise RuntimeError("cozo_tpu_torch: nvcc not found (set CUDA_HOME)")
 
 
-def lib_path(name: str) -> str:
+def lib_path(name: str, defines: Tuple[str, ...] = ()) -> str:
     src = os.path.join(CSRC, name + ".cu")
     with open(src, "rb") as f:
-        h = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        h = hashlib.sha1(f.read() + " ".join((*NVCC_FLAGS, *defines)).encode()
+                         ).hexdigest()
     return os.path.join(BUILD_DIR, f"{name}-{h[:12]}.so")
 
 
-def build(name: str) -> str:
-    """Compile `csrc/<name>.cu` unless its library is already built;
-    returns the library's path."""
-    out = lib_path(name)
+def build(name: str, defines: Tuple[str, ...] = ()) -> str:
+    """Compile `csrc/<name>.cu` (with extra `-D` flags `defines`, for a
+    variant of a kernel) unless its library is already built; returns the
+    library's path."""
+    out = lib_path(name, defines)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", tmp,
+           os.path.join(CSRC, name + ".cu")]
     t0 = time.time()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -67,19 +70,19 @@ def build(name: str) -> str:
             f"cozo_tpu_torch: nvcc failed for {name}.cu:\n{proc.stderr}"
         )
     os.replace(tmp, out)
-    BUILD_INFO[name] = (time.time() - t0, proc.stderr)
+    BUILD_INFO[" ".join((name, *defines))] = (time.time() - t0, proc.stderr)
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built if needed."""
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get((name, defines))
         if lib is None:
-            lib = ctypes.CDLL(build(name))
+            lib = ctypes.CDLL(build(name, defines))
             lib.cozo_cuda_error_string.argtypes = [ctypes.c_int]
             lib.cozo_cuda_error_string.restype = ctypes.c_char_p
-            _LIBS[name] = lib
+            _LIBS[(name, defines)] = lib
         return lib
 
 

@@ -14,7 +14,9 @@ CUDA kernels, each with a plain PyTorch version in this module that its
 wrapper takes for CPU tensors only:
 
   - `pagerank_steps` (`csrc/graph_pagerank.cu`): every PageRank step of a
-    call, enqueued back to back with no host sync; plain
+    call, enqueued back to back with no host sync, over the binned layout
+    `_pagerank_bins` builds on the card once per graph (destinations in
+    bins of `PR_BIN_NODES`, each bin's edges by source); plain
     `pagerank_plain` (the JAX two-level prefix sum);
   - `sssp_ell` (`csrc/graph_sssp.cu`): the synchronous sliced-ELL
     Bellman-Ford and its parent witnesses; the host reads the device's
@@ -252,15 +254,23 @@ def _ptr(t: Optional[torch.Tensor]):
 # ---------------------------------------------------------------- PageRank
 
 
-def pagerank_plain(src_by_dst, in_ptr, out_deg, n_real: int,
-                   iterations: int, theta: float) -> torch.Tensor:
+# destinations a bin of the PageRank kernel's layout holds
+# (`COZO_PR_BIN_NODES` in csrc/graph_pagerank.cu, which takes no other
+# size): their sums fill 112 KB of shared memory, the rest of the SM's is L1
+PR_BIN_NODES = 14_336
+
+
+def pagerank_plain(src_by_dst, in_ptr, out_deg, bin_src, bin_off, bin_ptr,
+                   n_real: int, iterations: int, theta: float) -> torch.Tensor:
     """`iterations` PageRank steps in f32 on the tensors' device, each
     node's incoming sum taken from an f64 prefix sum over the
     destination-sorted contributions, diffed at the in-CSR bounds (the
     JAX function's f32 two-level prefix sum rounds each node's sum to the
     ulp of its 8,192-edge chunk's running total: about 1e-8 a node, an L1
-    distance of 1e-5 and more from the direct sum).  Returns the ranks
-    [n_pad] f32, 0 on padding."""
+    distance of 1e-5 and more from the direct sum).  Takes the staged
+    tuple as the kernel does and reads its first three tensors (the
+    binned layout is the kernel's alone).  Returns the ranks [n_pad] f32,
+    0 on padding."""
     dev = src_by_dst.device
     n_pad = out_deg.shape[0]
     real = torch.arange(n_pad, device=dev) < n_real
@@ -282,8 +292,38 @@ def pagerank_plain(src_by_dst, in_ptr, out_deg, n_real: int,
     return ranks
 
 
-_PR_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 6)
+def _pagerank_bins(src_by_dst, in_ptr, n_real: int,
+                   bin_nodes: int = PR_BIN_NODES):
+    """The kernel's layout of a staged graph, built where its tensors lie
+    (one sort of (bin, source, offset) keys): the real destinations cut
+    into bins of `bin_nodes` consecutive nodes, each bin's edges in
+    ascending source order, no padding edge.  Returns bin_src [e] i32
+    (the sources), bin_off [e] i16 (each destination's offset in its
+    bin) and bin_ptr [ceil(n_real / bin_nodes) + 1] i32 (each bin's first
+    edge)."""
+    if not 0 < bin_nodes < 1 << 15:
+        raise ValueError("_pagerank_bins: offsets are 15-bit")
+    dev = src_by_dst.device
+    n_bins = -(-n_real // bin_nodes)
+    starts = (torch.arange(n_bins + 1, device=dev) * bin_nodes).clamp_(
+        max=n_real)
+    bin_ptr = in_ptr[starts].contiguous()
+    e = int(in_ptr[n_real])
+    dst = torch.repeat_interleave(
+        torch.arange(n_real, device=dev),
+        (in_ptr[1:n_real + 1] - in_ptr[:n_real]).long(), output_size=e)
+    key = ((dst // bin_nodes) << 46) | (src_by_dst[:e].long() << 15) | (
+        dst % bin_nodes)
+    del dst
+    key = torch.sort(key).values
+    bin_src = ((key >> 15) & 0x7FFFFFFF).int()
+    bin_off = (key & 0x7FFF).short()
+    return bin_src, bin_off, bin_ptr
+
+
+_PR_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+                + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
+                + [ctypes.c_void_p] * 7)
 
 
 def _bind_pagerank(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -291,18 +331,21 @@ def _bind_pagerank(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.cozo_pagerank.argtypes = _PR_ARGTYPES
         lib.cozo_pagerank.restype = ctypes.c_int
         lib.cozo_pagerank_max_blocks.restype = ctypes.c_int
+        lib.cozo_pagerank_bin_nodes.restype = ctypes.c_int
     return lib
 
 
-def _pagerank_launch(lib, src_by_dst, in_ptr, out_deg, n_real: int,
-                     iterations: int, theta: float, stream) -> torch.Tensor:
+def _pagerank_launch(lib, src_by_dst, in_ptr, out_deg, bin_src, bin_off,
+                     bin_ptr, n_real: int, iterations: int, theta: float,
+                     stream) -> torch.Tensor:
     """Enqueues the kernel's steps on `stream` for checked arguments;
     returns the ranks tensor it writes."""
-    dev = src_by_dst.device
+    dev = out_deg.device
     n_pad = out_deg.shape[0]
     ranks = torch.empty(n_pad, dtype=torch.float32, device=dev)
     ca = torch.empty_like(ranks)
     cb = torch.empty_like(ranks)
+    sums = torch.empty(n_pad, dtype=torch.int64, device=dev)
     parts = torch.empty(lib.cozo_pagerank_max_blocks(), dtype=torch.float32,
                         device=dev)
     dang = torch.empty(1, dtype=torch.float32, device=dev)
@@ -310,36 +353,45 @@ def _pagerank_launch(lib, src_by_dst, in_ptr, out_deg, n_real: int,
     inv_n = np.float32(1.0) / np.float32(n_real)
     c0 = np.float32(1 - theta) * inv_n
     err = lib.cozo_pagerank(
-        src_by_dst.data_ptr(), in_ptr.data_ptr(), out_deg.data_ptr(),
-        n_real, n_pad, iterations, float(inv_n), float(c0),
-        float(np.float32(theta)), ranks.data_ptr(), ca.data_ptr(),
-        cb.data_ptr(), parts.data_ptr(), dang.data_ptr(), stream)
+        _ptr(bin_src), _ptr(bin_off), bin_ptr.data_ptr(),
+        bin_ptr.shape[0] - 1, bin_src.shape[0], out_deg.data_ptr(), n_real,
+        n_pad, iterations, float(inv_n), float(c0), float(np.float32(theta)),
+        ranks.data_ptr(), ca.data_ptr(), cb.data_ptr(), sums.data_ptr(),
+        parts.data_ptr(), dang.data_ptr(), stream)
     _build.check(lib, err, "graph_pagerank launch")
     return ranks
 
 
-def pagerank_steps(src_by_dst, in_ptr, out_deg, n_real: int,
-                   iterations: int, theta: float) -> torch.Tensor:
-    """`iterations` PageRank steps over destination-sorted edges:
-    src_by_dst [e_pad] i32, in_ptr [n_pad + 1] i32, out_deg [n_pad] f32.
-    Returns the ranks [n_pad] f32.  CUDA tensors launch
-    `csrc/graph_pagerank.cu` (all steps in one call, counted in
-    `pagerank_steps.launches`); CPU tensors run `pagerank_plain`."""
+def pagerank_steps(src_by_dst, in_ptr, out_deg, bin_src, bin_off, bin_ptr,
+                   n_real: int, iterations: int, theta: float) -> torch.Tensor:
+    """`iterations` PageRank steps over a staged graph (`_pagerank_stage`):
+    src_by_dst [e_pad] i32, in_ptr [n_pad + 1] i32, out_deg [n_pad] f32
+    and the binned layout (`_pagerank_bins`).  Returns the ranks [n_pad]
+    f32.  CUDA tensors launch `csrc/graph_pagerank.cu` over the layout
+    (all steps in one call, counted in `pagerank_steps.launches`); CPU
+    tensors run `pagerank_plain`."""
     n_pad = out_deg.shape[0]
     if in_ptr.shape[0] != n_pad + 1 or not 0 < n_real < n_pad:
         raise ValueError("pagerank_steps: in_ptr must be [n_pad + 1] and "
                          "0 < n_real < n_pad")
     if src_by_dst.device.type == "cpu":
-        return pagerank_plain(src_by_dst, in_ptr, out_deg, n_real,
-                              iterations, theta)
-    _check_cuda("pagerank_steps", src_by_dst, in_ptr, out_deg)
-    if (src_by_dst.dtype != torch.int32 or in_ptr.dtype != torch.int32
-            or out_deg.dtype != torch.float32):
-        raise ValueError("pagerank_steps: i32 sources and bounds, f32 degrees")
+        return pagerank_plain(src_by_dst, in_ptr, out_deg, bin_src, bin_off,
+                              bin_ptr, n_real, iterations, theta)
+    _check_cuda("pagerank_steps", src_by_dst, in_ptr, out_deg, bin_src,
+                bin_off, bin_ptr)
+    if (bin_src.dtype != torch.int32 or bin_off.dtype != torch.int16
+            or bin_ptr.dtype != torch.int32 or out_deg.dtype != torch.float32):
+        raise ValueError("pagerank_steps: i32 sources and bin bounds, i16 "
+                         "offsets, f32 degrees")
+    if (bin_ptr.shape[0] != -(-n_real // PR_BIN_NODES) + 1
+            or bin_off.shape != bin_src.shape):
+        raise ValueError("pagerank_steps: the binned layout must be built "
+                         "for this graph at PR_BIN_NODES")
     lib = _bind_pagerank(_build.load("graph_pagerank"))
-    with torch.cuda.device(src_by_dst.device):
-        ranks = _pagerank_launch(lib, src_by_dst, in_ptr, out_deg, n_real,
-                                 iterations, theta, _stream(src_by_dst))
+    with torch.cuda.device(out_deg.device):
+        ranks = _pagerank_launch(lib, src_by_dst, in_ptr, out_deg, bin_src,
+                                 bin_off, bin_ptr, n_real, iterations, theta,
+                                 _stream(out_deg))
     pagerank_steps.launches += 1
     return ranks
 
@@ -347,9 +399,12 @@ def pagerank_steps(src_by_dst, in_ptr, out_deg, n_real: int,
 pagerank_steps.launches = 0
 
 
-def _pagerank_stage(indptr, dst, cache_key, dev):
-    """The staged (src_by_dst, in_ptr, out_deg) tensors of a graph on
-    `dev`, cached by content key; publishes the source array for SSSP."""
+def _pagerank_stage(indptr, dst, cache_key, dev, bins=None):
+    """The staged (src_by_dst, in_ptr, out_deg, bin_src, bin_off, bin_ptr)
+    tensors of a graph on `dev`, cached by content key; publishes the
+    source array for SSSP.  The binned layout is built when `bins` is
+    true, by default on the card only (the plain version never reads it:
+    on the CPU its three tensors are empty)."""
     n = len(indptr) - 1
     e = len(dst)
     n_pad = _pad_pow2(n + 1)
@@ -371,8 +426,14 @@ def _pagerank_stage(indptr, dst, cache_key, dev):
     in_ptr[n_pad] = e_pad  # padding edges belong to the dummy slot
     out_deg = np.ones(n_pad, dtype=np.float32)  # 1.0 on padding avoids 0/0
     out_deg[:n] = np.diff(indptr)
-    staged = (to_device(src_by_dst, dev), to_device(in_ptr, dev),
-              to_device(out_deg, dev))
+    src_t, ptr_t = to_device(src_by_dst, dev), to_device(in_ptr, dev)
+    if bins is None:
+        bins = src_t.device.type == "cuda"
+    layout = (_pagerank_bins(src_t, ptr_t, n) if bins else (
+        torch.empty(0, dtype=torch.int32, device=src_t.device),
+        torch.empty(0, dtype=torch.int16, device=src_t.device),
+        torch.empty(0, dtype=torch.int32, device=src_t.device)))
+    staged = (src_t, ptr_t, to_device(out_deg, dev), *layout)
     if cache_key:
         _dev_cache_put(key, staged)
         # the same destination-sorted sources, dummy fill and e_pad that

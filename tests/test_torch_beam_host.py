@@ -34,6 +34,7 @@ SHIM = r'''
 // Host stand-in for the CUDA runtime: one std::thread per CUDA thread,
 // blocks one after another.  For trying a kernel's block logic without a card.
 #pragma once
+#include <algorithm>
 #include <atomic>
 #include <barrier>
 #include <cmath>
@@ -54,15 +55,21 @@ SHIM = r'''
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8, cudaFuncAttributePreferredSharedMemoryCarveout = 9 };
+enum { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 132; return 0; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaSetDevice(int) { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "shim error"; }
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1; return 0;
+}
 
 struct float4 { float x, y, z, w; };
 struct int4 { int x, y, z, w; };
+struct ulonglong2 { unsigned long long x, y; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct uint3s { unsigned x, y, z; };
 struct dim3 {
@@ -135,6 +142,11 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return u; }
 inline int __float_as_int(float f) { int u; memcpy(&u, &f, 4); return u; }
 template <class T> T __ldg(const T* p) { return *p; }
+template <class T> T __ldcs(const T* p) { return *p; }
+inline long long __float2ll_rn(float x) { return llrintf(x); }
+inline float __ll2float_rn(long long x) { return (float)x; }
+using std::max;
+using std::min;
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline int atomicMin(int* p, int v) {
   int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
@@ -146,6 +158,7 @@ inline unsigned atomicMax(unsigned* p, unsigned v) {
   while (old < v && !__atomic_compare_exchange_n(p, &old, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {}
   return old;
 }
+inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }

@@ -301,11 +301,11 @@ def test_int_mm_lane_matches_the_cpu_int32_product(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,e,steps,dangling", GRAPH_PR_CASES)
-def test_graph_pagerank_matches_plain(cuda, n, e, steps, dangling):
+@pytest.mark.parametrize("n,e,steps,dangling,hub", GRAPH_PR_CASES)
+def test_graph_pagerank_matches_plain(cuda, n, e, steps, dangling, hub):
     """L1 <= 1e-5 against the plain version, the same top 100 up to ties,
     two runs bit-identical (no float atomics), 0 on padding."""
-    staged = pr_inputs(n, e, dangling, cuda)
+    staged = pr_inputs(n, e, dangling, cuda, hub)
     before = ga.pagerank_steps.launches
     got = ga.pagerank_steps(*staged, n, steps, 0.85)
     again = ga.pagerank_steps(*staged, n, steps, 0.85)

@@ -19,6 +19,8 @@ Tolerances:
     plus 1e-5.
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -292,6 +294,100 @@ def test_sssp_reuses_the_pagerank_source_array(capsys, monkeypatch):
     out = capsys.readouterr().out
     assert "src=dev-alias" in out, out
     assert_sssp_equal(got, J.sssp_device(indptr, dst, w, [0]))
+
+
+@pytest.mark.parametrize("bin_nodes,hub", [(64, 0), (256, 300),
+                                            (T.PR_BIN_NODES, 0)])
+def test_pagerank_bins_are_the_destination_segments_by_source(bin_nodes,
+                                                              hub):
+    """Each bin holds the destination-major segments of its nodes: the
+    same (source, destination) multiset, in ascending source order, every
+    offset below the bin size, no padding edge; the bounds are the in-CSR
+    bounds at the bins' first nodes."""
+    n, e = 1500, 20_000
+    ip, d = csr(n, e, bin_nodes, hub=hub, dangling=100)
+    src_by_dst, in_ptr, _, *empty = T._pagerank_stage(ip, d, None,
+                                                       torch.device(CPU))
+    assert all(t.numel() == 0 for t in empty)  # never built on the CPU
+    bin_src, bin_off, bin_ptr = T._pagerank_bins(src_by_dst, in_ptr, n,
+                                                 bin_nodes)
+    n_bins = -(-n // bin_nodes)
+    assert bin_src.dtype == torch.int32 and bin_off.dtype == torch.int16
+    assert bin_ptr.dtype == torch.int32 and len(bin_ptr) == n_bins + 1
+    e_real = e + hub
+    assert len(bin_src) == len(bin_off) == e_real == int(bin_ptr[-1])
+    assert not bool((bin_src == len(in_ptr) - 2).any())  # the dummy slot
+    assert int(bin_off.min()) >= 0 and int(bin_off.max()) < bin_nodes
+    src_by_dst, in_ptr = src_by_dst.numpy(), in_ptr.numpy()
+    for b in range(n_bins):
+        lo, hi = b * bin_nodes, min(n, (b + 1) * bin_nodes)
+        assert bin_ptr[b] == in_ptr[lo] and bin_ptr[b + 1] == in_ptr[hi]
+        seg = slice(int(bin_ptr[b]), int(bin_ptr[b + 1]))
+        got_src = bin_src[seg].numpy()
+        assert np.all(np.diff(got_src) >= 0)
+        got = sorted(zip(got_src, lo + bin_off[seg].numpy().astype(int)))
+        want = sorted(
+            (int(src_by_dst[j]), v) for v in range(lo, hi)
+            for j in range(in_ptr[v], in_ptr[v + 1]))
+        assert got == want
+
+
+def test_pagerank_bin_size_matches_the_kernel_source():
+    """The layout's bin size is the kernel's (`COZO_PR_BIN_NODES`), which
+    refuses bins of any other."""
+    src = (pathlib.Path(T.__file__).parent.parent / "csrc"
+           / "graph_pagerank.cu").read_text()
+    assert f"#define COZO_PR_BIN_NODES {T.PR_BIN_NODES}" in src
+    assert T.PR_BIN_NODES * 8 <= 227 * 1024  # a block's shared memory
+
+
+def test_pagerank_bins_are_cached_with_the_graph(monkeypatch):
+    """The layout is built once per graph, kept in the staged tuple under
+    the graph's key, and never rebuilt by a second call."""
+    ip, d = csr(900, 9000, 3)
+    ck = T.graph_content_key(ip, d)
+    T._GRAPH_DEV_CACHE.clear()
+    built = []
+    real = T._pagerank_bins
+
+    def counted(*a, **kw):
+        built.append(a)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(T, "_pagerank_bins", counted)
+    cpu = torch.device(CPU)
+    first = T._pagerank_stage(ip, d, ck, cpu, bins=True)
+    again = T._pagerank_stage(ip, d, ck, cpu, bins=True)
+    assert len(built) == 1 and again is first
+    assert T._GRAPH_DEV_CACHE[("pr", CPU, ck)] is first
+    assert len(first) == 6 and len(first[3]) == 9000
+    T.pagerank_jax(ip, d, iterations=3, cache_key=ck, device=CPU)
+    assert len(built) == 1
+
+
+def test_sssp_after_pagerank_with_bins_equals_sssp_alone(capsys,
+                                                         monkeypatch):
+    """The staged tuple grew by the layout beside the source array: SSSP
+    after PageRank still packs from that array (the alias) and answers as
+    SSSP alone does."""
+    rng = np.random.default_rng(11)
+    n, deg = 2000, 70
+    src = np.repeat(np.arange(n, dtype=np.int64), deg)
+    dst = rng.integers(0, n, len(src))
+    w = rng.uniform(0.5, 4.0, len(src)).astype(np.float32)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(indptr, src + 1, 1)
+    indptr = np.cumsum(indptr)
+    ck = T.graph_content_key(indptr, dst)
+    T._GRAPH_DEV_CACHE.clear()
+    alone = T.sssp_device(indptr, dst, w, [0, 5], cache_key=ck, device=CPU)
+    T._GRAPH_DEV_CACHE.clear()
+    staged = T._pagerank_stage(indptr, dst, ck, torch.device(CPU), bins=True)
+    assert len(staged[3]) == len(dst)
+    monkeypatch.setenv("COZO_TPU_SSSP_LOG", "1")
+    after = T.sssp_device(indptr, dst, w, [0, 5], cache_key=ck, device=CPU)
+    assert "src=dev-alias" in capsys.readouterr().out
+    assert_sssp_equal(after, alone)
 
 
 def test_device_cache_keys_never_collide_across_devices():

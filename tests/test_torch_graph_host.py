@@ -9,14 +9,16 @@ is compiled with g++ against that file's stand-in `cuda_runtime.h` (one
 array), at 64 threads a block (every kernel strides by its block-size
 constant), and its C entry point is called with CPU tensors through the
 module's own launch helpers, at the shapes of `chip_smoke.py` phase 2.
-The PageRank grid is cut to 8 blocks, so warps stride over many nodes as
-they do on the card at full size.
+The PageRank grid is cut to 8 blocks and its bins to 64 nodes (and 256,
+a second build), so warps stride over many nodes and every slice of the
+edge pass crosses bins, as they do on the card at full size.
 
 Tolerances: SSSP distances and parents and the label picks must be EQUAL
 (minima, maxima and integer or dyadic sums are exact in any order);
 PageRank ranks within an L1 distance of 1e-5 of the plain version (the
-kernel sums each node's in-edges in f32, the plain version through an f64
-prefix sum), two runs bit-identical (no float atomics).  What this cannot
+kernel rounds each node's exact fixed-point sum to f32, the plain version
+takes it from an f64 prefix sum), two runs and two bin sizes
+bit-identical (integer adds, no float atomics).  What this cannot
 show: that nvcc takes the sources, races only real warps hit, any time.
 Skips where there is no g++.
 """
@@ -39,13 +41,19 @@ from tests.test_torch_beam_host import SHIM
 from tests.test_torch_fused_routes import _extern_c_functions
 
 THREADS = 64
+_PR_FLAGS = [f"-DCOZO_PR_THREADS={THREADS}", f"-DCOZO_PR_BIN_THREADS={THREADS}",
+             "-DCOZO_PR_MAX_BLOCKS=8"]
+# library name: (source, binder, flags)
 KERNELS = {
-    "graph_pagerank": (ga._bind_pagerank,
-                       [f"-DCOZO_PR_THREADS={THREADS}",
-                        "-DCOZO_PR_MAX_BLOCKS=8"]),
-    "graph_sssp": (ga._bind_sssp, [f"-DCOZO_SSSP_THREADS={THREADS}",
-                                   "-DCOZO_SSSP_MAX_BLOCKS=2"]),
-    "graph_labelprop": (ga._bind_lp, [f"-DCOZO_LP_THREADS={THREADS}"]),
+    "graph_pagerank": ("graph_pagerank", ga._bind_pagerank,
+                       [*_PR_FLAGS, "-DCOZO_PR_BIN_NODES=64"]),
+    "graph_pagerank_256": ("graph_pagerank", ga._bind_pagerank,
+                           [*_PR_FLAGS, "-DCOZO_PR_BIN_NODES=256"]),
+    "graph_sssp": ("graph_sssp", ga._bind_sssp,
+                   [f"-DCOZO_SSSP_THREADS={THREADS}",
+                    "-DCOZO_SSSP_MAX_BLOCKS=2"]),
+    "graph_labelprop": ("graph_labelprop", ga._bind_lp,
+                        [f"-DCOZO_LP_THREADS={THREADS}"]),
 }
 
 
@@ -69,8 +77,8 @@ def libs(tmp_path_factory):
     work = tmp_path_factory.mktemp("graph_host")
     (work / "cuda_runtime.h").write_text(SHIM)
     procs = {}
-    for name, (_, flags) in KERNELS.items():
-        with open(f"{_build.CSRC}/{name}.cu") as f:
+    for name, (source, _, flags) in KERNELS.items():
+        with open(f"{_build.CSRC}/{source}.cu") as f:
             (work / f"{name}.cpp").write_text(to_host_cpp(f.read()))
         procs[name] = subprocess.Popen(
             [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", *flags,
@@ -83,27 +91,53 @@ def libs(tmp_path_factory):
         if proc.returncode != 0 and "barrier" in err and "No such file" in err:
             pytest.skip("needs a g++ with C++20 <barrier>")
         assert proc.returncode == 0, err[-3000:]
-        out[name] = KERNELS[name][0](ctypes.CDLL(str(work / f"{name}.so")))
+        out[name] = KERNELS[name][1](ctypes.CDLL(str(work / f"{name}.so")))
     return out
+
+
+def pr_case_id(case):
+    n, e, steps, dangling, hub = case
+    return f"{n}-{e}-{steps}-{dangling}" + (f"-hub{hub}" if hub else "")
+
+
+def host_pagerank(lib, staged, n, steps):
+    """The kernel's launcher over the layout built at the library's bin
+    size (the CPU stage leaves it empty)."""
+    bins = ga._pagerank_bins(staged[0], staged[1], n,
+                             lib.cozo_pagerank_bin_nodes())
+    return ga._pagerank_launch(lib, *staged[:3], *bins, n, steps, 0.85, None)
 
 
 # the last case of each kernel (20,000 nodes) is the card's alone: a
 # thread a CUDA thread makes it minutes here
-@pytest.mark.parametrize("n,e,steps,dangling", GRAPH_PR_CASES[:-1])
-def test_pagerank_source_on_the_host(libs, n, e, steps, dangling):
-    """Dangling nodes, isolated nodes, padding edges, 0 steps."""
-    staged = pr_inputs(n, e, dangling, torch.device("cpu"))
+@pytest.mark.parametrize("case", GRAPH_PR_CASES[:-1], ids=pr_case_id)
+def test_pagerank_source_on_the_host(libs, case):
+    """Dangling nodes, isolated nodes, padding edges, 0 steps, nodes
+    without in-edges, one node not dangling, a hub: bins of 64 nodes over
+    8 blocks, so most cases span many bins and slices cross them."""
+    n, e, steps, dangling, hub = case
+    staged = pr_inputs(n, e, dangling, torch.device("cpu"), hub)
     want = ga.pagerank_plain(*staged, n, steps, 0.85)
-    got = ga._pagerank_launch(libs["graph_pagerank"], *staged, n, steps,
-                              0.85, None)
-    again = ga._pagerank_launch(libs["graph_pagerank"], *staged, n, steps,
-                                0.85, None)
+    got = host_pagerank(libs["graph_pagerank"], staged, n, steps)
+    again = host_pagerank(libs["graph_pagerank"], staged, n, steps)
     assert torch.equal(got, again)
     l1, top = pagerank_agreement(got, want, n)
     assert l1 <= PR_L1_TOL and top
     assert not bool(got[n:].any())
     if steps == 0:
         assert torch.equal(got[:n], torch.full((n,), np.float32(1) / n))
+
+
+@pytest.mark.parametrize("case", GRAPH_PR_CASES[:-1], ids=pr_case_id)
+def test_pagerank_bin_sizes_give_the_same_bits_on_the_host(libs, case):
+    """Bins of 64 and of 256 nodes: other bins, other slices, other
+    orders of the adds; the fixed-point sums are exact, so the same
+    ranks."""
+    n, e, steps, dangling, hub = case
+    staged = pr_inputs(n, e, dangling, torch.device("cpu"), hub)
+    small = host_pagerank(libs["graph_pagerank"], staged, n, steps)
+    large = host_pagerank(libs["graph_pagerank_256"], staged, n, steps)
+    assert torch.equal(small, large)
 
 
 SSSP_IDS = ["dyadic", "uniform-hub-8src", "hub", "cut", "sparse", "9src",
