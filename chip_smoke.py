@@ -56,6 +56,29 @@ Phases, each reported on its own line; any failure exits non-zero:
      and LabelPropagation (undirected) held to the plain versions on the
      same CSR, ShortestPathDijkstra from 4 stored starts to 64 stored
      goals held to a host BFS; each cold and warm; prints a `graph` line;
+  11. (a and d run after phase 6, on phase 5's Db; b, c, e and f after
+     phase 8) the hosts: (a) the Db served in process by
+     `hosts/server.serve`: 8 client threads x 20 small joins (B = 16, the
+     beam kernel) as `/text-query`, each answer's rows equal to the Db's
+     own, request ms p50 / p99; PageRank over HTTP bit-equal to the direct
+     call's; the requests' launches counted apart from the direct calls
+     (the beam kernel once a small join, PageRank at least once); an SSE
+     `/changes/{rel}` stream carrying a `:put`; (d)
+     `utils/profiling.device_trace` around a small join writes a Chrome
+     trace that names the beam kernel; (b) `python -m
+     cozo_tpu_torch.hosts.server` with no `--device` answers `GET /` and
+     a text query on the card, and `python -m cozo_tpu_torch.hosts.repl`
+     prints for a script (create, put, an index, a `~` search, `%backup`)
+     what it prints with `--device cpu`, banner aside; (c) the port's
+     `libcozo_c.so` and the unchanged `native/example_c_host.c` against
+     it print C_ABI_OK, and `c_bridge.open_db` with "" options opens a Db
+     on the card; (e) each of `cozo_tpu_torch/examples/` prints on the
+     card what it prints with `--device cpu`; (f) the graph-quality
+     check: `glove_like(65,536 + 256, 100, seed 42)` (cut from phase 3c's
+     262,144: the one-thread baseline) built through `::hnsw create` on
+     the card and by `CpuHnswBaseline`, recall@10 at ef = 64 and 128 of
+     each graph's host search against exact cosine, printed without a
+     bar; prints a `hosts` line;
   3. drive the index's main path through the user entry points on the
      index phase 5 built (the same data, `bulk_build(wave=8192)`): then
      `sweep_search` with the f32 lane as ground truth and the fused,
@@ -138,7 +161,9 @@ kernels), 5 on a Db of `--n` rows, 6, 7 and the graph kernels' timings,
 and prints no `{"ok": ...}` line either; `--lsh-only` runs phases 1, 2
 (`minhash`), 8 and the `minhash` timing, and prints none either;
 `--mesh-only` runs phases 1, 9 (on a Db's index of `--n` rows) and 10,
-and prints none either.
+and prints none either; `--hosts-only` runs phases 1 and 11 but (a), with
+(f) at `--n` rows (262,144 unless given; `--quality-main-draw`: phase 3c's
+rows and queries) and (d) on (f)'s Db, and prints none either.
 """
 
 import argparse
@@ -1283,6 +1308,28 @@ def zero_graph_counts():
 
     ga.pagerank_steps.launches = ga.sssp_ell.launches = 0
     ga.sssp_ell.solves = ga.lp_pick.launches = 0
+
+
+def zero_all_counts():
+    from cozo_tpu_torch.ops import fused_sweep as fs
+    from cozo_tpu_torch.ops import minhash as mh
+    from cozo_tpu_torch.ops import vector_search as vs
+
+    vs.beam_search.launches = fs.fused_sweep.launches = 0
+    fs.fused_sweep.route_launches = dict.fromkeys(fs.ROUTES, 0)
+    mh.segment_min.launches = 0
+    zero_graph_counts()
+
+
+def all_counts():
+    from cozo_tpu_torch.ops import fused_sweep as fs
+    from cozo_tpu_torch.ops import minhash as mh
+    from cozo_tpu_torch.ops import vector_search as vs
+
+    return {"beam_search": vs.beam_search.launches,
+            "minhash": mh.segment_min.launches, **graph_counts(),
+            **{f"fused_sweep[{r}]": c
+               for r, c in fs.fused_sweep.route_launches.items()}}
 
 
 def plain_kernels():
@@ -2555,13 +2602,7 @@ def phase_engines(data, qs, dev):
     import shutil
     import tempfile
 
-    from cozo_tpu_torch.ops import fused_sweep as fs
-    from cozo_tpu_torch.ops import vector_search as vs
-
-    vs.beam_search.launches = 0  # counts of this path only
-    fs.fused_sweep.launches = 0
-    fs.fused_sweep.route_launches = dict.fromkeys(fs.ROUTES, 0)
-    zero_graph_counts()
+    zero_all_counts()  # counts of this path only
     out = {"config": "phase 5's script (benches/bench_hybrid_1m.py phases "
                      "1-4 and PageRank) on each engine",
            "reduced": [f"{ENGINE_N} of {N} rows (phase 3c's size)",
@@ -2577,9 +2618,7 @@ def phase_engines(data, qs, dev):
             out[engine]["phase_s"] = time.time() - t0
         finally:
             shutil.rmtree(root, ignore_errors=True)
-    launches = {"beam_search": vs.beam_search.launches, **graph_counts(),
-                **{f"fused_sweep[{r}]": c
-                   for r, c in fs.fused_sweep.route_launches.items()}}
+    launches = all_counts()
     out["launches"] = launches
     say(f"phase 10 kernel launches on the engines path: {launches}")
     if launches["beam_search"] < len(ENGINES) or \
@@ -2950,6 +2989,434 @@ def phase_kernel_timing(main_inputs, launches, reps, dev):
     return kernels
 
 
+# ------------------------------------------------------ phase 11: the hosts
+
+HOSTS_THREADS, HOSTS_REQS = 8, 20  # (a): 8 clients x 20 small joins
+QUALITY_N, QUALITY_NQ = 65_536, 256  # (f): cut from phase 3c's 262,144
+# the CLIs' device arguments (none: the card) and the device the hosts
+# must report; a rehearsal on a CPU sets them to ["--device", "cpu"], "cpu"
+CARD_ARGS, CARD = [], "cuda"
+HOSTS_SSE_REL = "hosts_sse"
+EXAMPLES = ("embed_basic", "graph_algos", "shared_store", "vector_search")
+
+
+def http(url, path, body=None, method="POST", timeout=120):
+    """(status, parsed JSON body) of one request to a server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data, method=method,
+                                 headers={"content-type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def sse_first_event(url, db, rel):
+    """Open `/changes/{rel}` and `:put` rows into `rel` (one every half
+    second until the stream carries an event: the server registers its
+    callback after the client connects); returns the first event and the
+    keys put."""
+    import threading
+    import urllib.request
+
+    events = []
+
+    def listen():
+        req = urllib.request.Request(url + f"/changes/{rel}")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            for raw in resp:
+                line = raw.decode("utf-8").strip()
+                if line.startswith("data: "):
+                    events.append(json.loads(line[len("data: "):]))
+                    return
+
+    t = threading.Thread(target=listen, daemon=True)
+    t.start()
+    keys = []
+    for k in range(40):
+        if events:
+            break
+        time.sleep(0.5)
+        keys.append(k)
+        db.run_script(f"?[k] <- [[{k}]] :put {rel} {{k}}")
+    t.join(timeout=30)
+    return (events[0] if events else None), keys
+
+
+def phase_server(db):
+    """Phase 11 (a): phase 5's Db served in process through
+    `cozo_tpu_torch.hosts.server.serve`: 8 client threads each send the
+    small join of its own 16 stored queries 20 times as `/text-query`
+    (each answer's rows equal to the Db's own answer), one PageRank over
+    the level-0 graph (ranks bit-equal to the direct call's: the kernel
+    is deterministic), and an SSE change stream that carries a `:put`.
+    Returns the `hosts` numbers of (a) and the path's launches."""
+    import threading
+
+    from cozo_tpu_torch.hosts.server import serve
+
+    scripts = [JOIN.format(rel=f"q16_{t}") for t in range(HOSTS_THREADS)]
+    srv = serve(db, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    out = {}
+    try:
+        # the Db's own answers first, outside the counted window
+        want = [sorted(json.loads(db.run_script_json(s))["rows"])
+                for s in scripts]
+        direct = json.loads(db.run_script_json(GRAPH_PR))["rows"]
+        zero_all_counts()  # counts of the HTTP requests only
+
+        def client(t):
+            lat, same = [], True
+            for _ in range(HOSTS_REQS):
+                t0 = time.perf_counter()
+                status, res = http(url, "/text-query", {"script": scripts[t]})
+                lat.append((time.perf_counter() - t0) * 1e3)
+                same = same and status == 200 and res.get("ok") is True \
+                    and sorted(res["rows"]) == want[t]
+            return lat, same
+
+        t0 = time.time()
+        with ThreadPoolExecutor(HOSTS_THREADS) as ex:
+            results = list(ex.map(client, range(HOSTS_THREADS)))
+        wall = time.time() - t0
+        lat = np.concatenate([r[0] for r in results])
+        same = all(r[1] for r in results) and all(
+            len(w) == DB_SMALL * K for w in want)
+        out.update(requests=int(len(lat)), request_ms_p50=float(
+            np.percentile(lat, 50)), request_ms_p99=float(
+            np.percentile(lat, 99)), requests_per_s=len(lat) / wall,
+            small_join_rows_equal=bool(same))
+        say(f"phase 11 (a) server: {HOSTS_THREADS} clients x {HOSTS_REQS} "
+            f"small joins (B={DB_SMALL}) over HTTP: request ms p50 "
+            f"{out['request_ms_p50']:.3f} p99 {out['request_ms_p99']:.3f}, "
+            f"{out['requests_per_s']:.1f} requests/s; rows equal to the Db's "
+            f"own answers {same} {'ok' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit("phase 11 failed: the server's small joins")
+
+        t0 = time.perf_counter()
+        status, res = http(url, "/text-query", {"script": GRAPH_PR})
+        out["pagerank_request_ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches"] = all_counts()
+        same = status == 200 and res.get("ok") is True \
+            and res["rows"] == direct and len(direct) > 0
+        out["pagerank_bit_equal"] = bool(same)
+        say(f"phase 11 (a) PageRank over HTTP: {len(direct)} rows in "
+            f"{out['pagerank_request_ms']:.1f} ms, ranks bit-equal to the "
+            f"direct call's {same} {'ok' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit("phase 11 failed: PageRank over HTTP")
+
+        db.run_script(f":create {HOSTS_SSE_REL} {{k: Int}}")
+        event, keys = sse_first_event(url, db, HOSTS_SSE_REL)
+        ok = (event is not None and event["op"] == "Put"
+              and event["relation"] == HOSTS_SSE_REL
+              and len(event["new"]) == 1 and event["new"][0][0] in keys)
+        out["sse_event"] = bool(ok)
+        say(f"phase 11 (a) SSE /changes/{HOSTS_SSE_REL}: first event "
+            f"{event} after {len(keys)} :put {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("phase 11 failed: the SSE change stream")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    # one beam launch a small join (B = 16 < 64: the device beam search)
+    n_req = HOSTS_THREADS * HOSTS_REQS
+    ok = (out["launches"]["beam_search"] == n_req
+          and out["launches"]["graph_pagerank"] >= 1)
+    say(f"phase 11 (a) kernel launches of the HTTP requests: "
+        f"{out['launches']}; beam_search {n_req} (one a small join), "
+        f"graph_pagerank >= 1: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 11 failed: the server path's kernel launches")
+    return out
+
+
+def phase_trace(db):
+    """Phase 11 (d): `utils.profiling.device_trace` around a small join
+    (B = 16) on the card: its Chrome trace names the beam kernel.  A warm
+    join first, two traced (a session can miss its first kernels)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cozo_tpu_torch.utils.profiling import device_trace
+
+    small = JOIN.format(rel="q16")
+    db.run_script(small)
+    tmp = tempfile.mkdtemp(prefix="cozo_phase11_trace_")
+    try:
+        with device_trace(tmp):
+            db.run_script(small)
+            db.run_script(small)
+            torch.cuda.synchronize()
+        files = os.listdir(tmp)
+        with open(os.path.join(tmp, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels = sorted({e["name"] for e in events
+                      if e.get("cat") == "kernel"})
+    ok = len(files) == 1 and any("beam_search_kernel" in k for k in kernels)
+    say(f"phase 11 (d) device_trace around a small join: {len(events)} "
+        f"events, {len(kernels)} kernels by name, the beam kernel among "
+        f"them {ok} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 11 failed: the trace names no beam kernel")
+    return {"trace_events": len(events), "trace_kernels": len(kernels),
+            "trace_names_beam_kernel": ok}
+
+
+def repl_script():
+    """A REPL session: create, put, an index and a `~` search on a small
+    relation, `%backup` into the working directory, `%exit`."""
+    rng = np.random.default_rng(11)
+    pts = np.round(rng.standard_normal((300, 8)), 4)
+    rows = ", ".join(f"[{i}, vec({p.tolist()})]" for i, p in enumerate(pts))
+    return "\n".join([
+        ":create pts {id: Int => v: <F32; 8>}",
+        f"?[id, v] <- [{rows}] :put pts {{id => v}}",
+        "::hnsw create pts:ix {dim: 8, m: 8, ef_construction: 32, "
+        "fields: [v], distance: L2}",
+        "?[id, d] := ~pts:ix{id | query: vec("
+        f"{pts[7].tolist()}), k: 3, ef: 32, bind_distance: d}} :order d",
+        "?[count(id)] := *pts{id}",
+        "%backup back.db",
+        "%exit", ""])
+
+
+def run_module(args, cwd, stdin=None, timeout=300):
+    """`python args...` in `cwd`, with this checkout importable."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root, *filter(None, [os.environ.get("PYTHONPATH")])]))
+    return subprocess.run([sys.executable, *args], input=stdin,
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=cwd, env=env)
+
+
+def phase_clis():
+    """Phase 11 (b): `python -m cozo_tpu_torch.hosts.server` with no
+    `--device` on a free port answers `GET /` and a text query on the
+    card; `python -m cozo_tpu_torch.hosts.repl` with no `--device` prints,
+    banner aside, what the same stdin prints with `--device cpu`."""
+    import select
+    import shutil
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cozo_tpu_torch.hosts.server", "--port", "0",
+         *CARD_ARGS], stdout=subprocess.PIPE, text=True, cwd=root)
+    out = {}
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 180)
+        banner = proc.stdout.readline() if ready else ""
+        if "listening" not in banner:
+            raise SystemExit(f"phase 11 failed: the server CLI did not start "
+                             f"({banner!r})")
+        url = f"http://127.0.0.1:{banner.rsplit(':', 1)[1].strip()}"
+        root_ok = http(url, "/", method="GET") == (
+            200, {"ok": True, "service": "cozo_tpu", "status": "ready"})
+        status, res = http(url, "/text-query", {"script": "?[a] <- [[1], [2]]"})
+        query_ok = status == 200 and res.get("rows") == [[1], [2]]
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    ok = root_ok and query_ok and CARD in banner
+    out["server_cli"] = ok
+    say(f"phase 11 (b) server CLI ({banner.strip()}): GET / {root_ok}, text "
+        f"query {query_ok} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 11 failed: the server CLI")
+
+    script = repl_script()
+    outs = []
+    for args in (CARD_ARGS, ["--device", "cpu"]):
+        wd = tempfile.mkdtemp(prefix="cozo_phase11_repl_")
+        try:
+            p = run_module(["-m", "cozo_tpu_torch.hosts.repl", *args],
+                           wd, script)
+            outs.append((p.returncode, *p.stdout.partition("\n")[::2],
+                         os.path.exists(os.path.join(wd, "back.db"))))
+            if p.returncode:
+                say(p.stderr[-3000:])
+        finally:
+            shutil.rmtree(wd, ignore_errors=True)
+    (rc_c, banner_c, text_c, back_c), (rc_h, _, text_h, back_h) = outs
+    ok = (rc_c == rc_h == 0 and text_c == text_h and back_c and back_h
+          and CARD in banner_c and "(3 rows)" in text_c
+          and "backup done" in text_c)
+    out["repl_cli"] = ok
+    say(f"phase 11 (b) REPL CLI ({banner_c.strip()}): output equal to "
+        f"--device cpu's, banner aside, {text_c == text_h}; %backup wrote "
+        f"its file {back_c} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        say(text_c[-2000:])
+        raise SystemExit("phase 11 failed: the REPL CLI")
+    return out
+
+
+def phase_c_abi():
+    """Phase 11 (c): the port's `libcozo_c.so` built from
+    `cozo_tpu_torch/native/cozo_c.cpp`, the unchanged
+    `native/example_c_host.c` compiled against it (its "" options: the
+    card) and run: it prints C_ABI_OK; in process, `c_bridge.open_db`
+    with "" options gives a Db on the card."""
+    import shutil
+    import tempfile
+
+    from cozo_tpu_torch.hosts import c_bridge
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    lib = c_bridge.build_library()
+    wd = tempfile.mkdtemp(prefix="cozo_phase11_c_")
+    try:
+        exe = os.path.join(wd, "c_host")
+        subprocess.run(["gcc", "-O2", os.path.join(root, "native",
+                                                   "example_c_host.c"),
+                        *c_bridge.link_flags(lib), "-o", exe], check=True,
+                       capture_output=True)
+        build_s = time.time() - t0
+        t0 = time.time()
+        p = subprocess.run([exe], env=c_bridge.host_env(lib),
+                           capture_output=True, text=True, timeout=300,
+                           cwd=wd)
+        run_s = time.time() - t0
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    host_ok = p.returncode == 0 and "C_ABI_OK" in p.stdout
+    opened = json.loads(c_bridge.open_db("mem", "", ""))
+    db_dev = str(c_bridge._DBS[opened["id"]].device) if opened.get("ok") \
+        else opened.get("message")
+    if opened.get("ok"):
+        c_bridge.close_db(opened["id"])
+    ok = host_ok and db_dev.startswith(CARD)
+    say(f"phase 11 (c) C ABI: library and host built in {build_s:.1f}s, the "
+        f"host ran in {run_s:.1f}s: {p.stdout.strip().splitlines()[-1:]}"
+        f"; open_db('mem', '', '') -> {db_dev} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        say(p.stdout[-2000:] + p.stderr[-3000:])
+        raise SystemExit("phase 11 failed: the C ABI")
+    return {"c_abi_host": host_ok, "c_abi_open_device": db_dev,
+            "c_abi_host_s": run_s}
+
+
+def phase_examples():
+    """Phase 11 (e): each of the port's four examples on the card (no
+    `--device`) prints what it prints with `--device cpu`; the eight runs
+    at once."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = [(name, args) for name in EXAMPLES
+            for args in (CARD_ARGS, ["--device", "cpu"])]
+    with ThreadPoolExecutor(len(runs)) as ex:
+        procs = list(ex.map(lambda r: run_module(
+            [os.path.join("cozo_tpu_torch", "examples", f"{r[0]}.py"),
+             *r[1]], root), runs))
+    out = {}
+    for i, name in enumerate(EXAMPLES):
+        card, host = procs[2 * i], procs[2 * i + 1]
+        ok = (card.returncode == host.returncode == 0
+              and card.stdout == host.stdout and card.stdout.strip() != "")
+        out[name] = ok
+        say(f"phase 11 (e) example {name}: {len(card.stdout.splitlines())} "
+            f"lines, equal to --device cpu's {card.stdout == host.stdout} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            say(card.stdout[-1500:] + card.stderr[-2000:] + host.stderr[-1000:])
+    if not all(out.values()):
+        raise SystemExit("phase 11 failed: an example")
+    return out
+
+
+def phase_graph_quality(n, main_draw=False):
+    """Phase 11 (f): the graph-quality check.  `glove_like(n + 256, 100,
+    seed 42)` (with `main_draw`, phase 3c's rows and queries: the first n
+    rows of the main path's draw and the first 256 of its queries) built through a `Db("mem")` on the card (`::hnsw create`:
+    the device `bulk_build`, wave 8,192, m = 16, ef_construction = 200,
+    cosine) and by `CpuHnswBaseline` (`native/hnsw_baseline.cpp`, the
+    reference algorithm, one thread of the card's host); recall@10 of
+    each graph's host search at ef = 64 and 128 on the last 256 rows
+    against exact cosine.  Prints, never fails on the numbers (the tier-1
+    test holds the port to JAX).  Returns the numbers and the Db (phase
+    11 (d) of `--hosts-only` runs on it)."""
+    from cozo_tpu_torch.ops.cpu_baseline import CpuHnswBaseline
+    from cozo_tpu_torch.utils.datasets import glove_like
+
+    if main_draw:
+        x = glove_like(N + NQ, D, seed=42)
+        data, qs = x[:n].copy(), x[N:N + QUALITY_NQ].copy()
+        del x
+    else:
+        x = glove_like(n + QUALITY_NQ, D, seed=42)
+        data, qs = x[:n], x[n:]
+    dn = data / np.linalg.norm(data, axis=1, keepdims=True)
+    qn = qs / np.linalg.norm(qs, axis=1, keepdims=True)
+    gt = np.argsort(-(qn @ dn.T), axis=1, kind="stable")[:, :K]
+    db, built = build_db(data)
+    index = db.algo_cache["hnsw::item::ix"].index
+    t0 = time.time()
+    base = CpuHnswBaseline(D, 16, 200, "Cosine")
+    base.add(data)
+    base_s = time.time() - t0
+    out = {"n": n, "draw": f"the first {n} rows of glove_like({N + NQ})"
+           if main_draw else f"glove_like({n + QUALITY_NQ})",
+           "queries": QUALITY_NQ, "port_bulk_build_s":
+           built["bulk_build_s"], "baseline_build_s": base_s}
+    for ef in (64, 128):
+        out[f"port_recall@10_ef{ef}"] = recall(
+            index.search(qs, K, ef, use_tpu=False)[0], gt)
+        out[f"baseline_recall@10_ef{ef}"] = recall(base.search(qs, K, ef)[0],
+                                                   gt)
+        out[f"gap_ef{ef}"] = (out[f"port_recall@10_ef{ef}"]
+                              - out[f"baseline_recall@10_ef{ef}"])
+    say(f"phase 11 (f) graph quality at {n} x {D} ({out['draw']}, seed 42; "
+        f"m 16, ef_construction 200): the port's bulk_build on the card "
+        f"{built['bulk_build_s']:.1f}s, the baseline on one host thread "
+        f"{base_s:.1f}s; recall@10 port / baseline / gap: ef 64 "
+        f"{out['port_recall@10_ef64']:.5f} / "
+        f"{out['baseline_recall@10_ef64']:.5f} / {out['gap_ef64']:+.5f}, "
+        f"ef 128 {out['port_recall@10_ef128']:.5f} / "
+        f"{out['baseline_recall@10_ef128']:.5f} / {out['gap_ef128']:+.5f} "
+        f"(printed, no bar)")
+    store_queries(db, "q16", qs[:DB_SMALL])
+    return out, db
+
+
+def phase_hosts(quality_n, main_draw=False):
+    """Phase 11 (b), (c), (e) and (f); returns their `hosts` numbers and
+    (f)'s Db."""
+    out = {}
+    out.update(phase_clis())
+    out.update(phase_c_abi())
+    out["examples"] = phase_examples()
+    out["graph_quality"], db = phase_graph_quality(quality_n, main_draw)
+    return out, db
+
+
+def hosts_only(args):
+    """--hosts-only: phase 11 without (a): (b), (c), (e), (f) at --n rows
+    and (d) on (f)'s Db; (f) on phase 3c's rows with --quality-main-draw."""
+    t0 = time.time()
+    out, db = phase_hosts(args.n, args.quality_main_draw)
+    out.update(phase_trace(db))
+    del db
+    out["card"] = smi_line()
+    say("hosts " + json.dumps(out))
+    say(f"total {time.time() - t0:.1f}s")
+    say(smi_line())
+    say("hosts-only run: no verdict on the main path")
+    return 0
+
+
 def graph_only(args, dev):
     """--graph-only: the loop for work on the graph kernels."""
     from cozo_tpu_torch.utils.datasets import glove_like
@@ -3023,8 +3490,9 @@ def lsh_only(args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=N,
-                    help=f"table rows on the main path (>= {MIN_N})")
+    ap.add_argument("--n", type=int, default=None,
+                    help=f"table rows on the main path (>= {MIN_N}; "
+                         f"default {N}, with --hosts-only {MIN_N})")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--kernels-only", action="store_true",
                     help="skip the main path (phase 3); time the kernels "
@@ -3042,7 +3510,21 @@ def main():
                     help="build the kernels, then phase 9 (the mesh) on a "
                          "Db's index of --n rows and on phase 7's graph, "
                          "and phase 10 (the engines); no verdict")
+    ap.add_argument("--hosts-only", action="store_true",
+                    help="build the kernels, then phase 11 (the hosts) "
+                         "without the server at full size: the CLIs, the C "
+                         "ABI, the examples, the graph-quality check at "
+                         "--n rows and a trace on its Db; no verdict")
+    ap.add_argument("--quality-main-draw", action="store_true",
+                    help="with --hosts-only: the graph-quality check on "
+                         "the first --n rows of the main path's draw and "
+                         "its first 256 queries (phase 3c's), not on "
+                         "glove_like(--n + 256)")
     args = ap.parse_args()
+    if args.quality_main_draw and not args.hosts_only:
+        ap.error("--quality-main-draw goes with --hosts-only")
+    if args.n is None:
+        args.n = MIN_N if args.hosts_only else N
     if args.n < MIN_N:
         ap.error(f"--n must be at least {MIN_N}")
 
@@ -3056,7 +3538,7 @@ def main():
     dev = default_device()
     say(f"device: {torch.cuda.get_device_name(0)} "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
-    if args.n != N:
+    if args.n != N and not args.hosts_only:
         say(f"main path cut: {args.n} rows instead of {N}")
 
     t_all = time.time()
@@ -3065,6 +3547,8 @@ def main():
         return graph_only(args, dev)
     if args.mesh_only:
         return mesh_only(args, dev)
+    if args.hosts_only:
+        return hosts_only(args)
     phase_minhash_vs_plain(dev)
     if args.lsh_only:
         return lsh_only(args)
@@ -3090,8 +3574,11 @@ def main():
         lap("phase 5")
         db_graph_launches, db_timings = phase_graph_db(db, dev, args.reps)
         graph_launches = {"db graph (phase 6)": db_graph_launches}
-        del db
         lap("phase 6 and its timings")
+        hosts = phase_server(db)
+        hosts.update(phase_trace(db))
+        del db
+        lap("phase 11 (a) and (d): the server and a trace on phase 5's Db")
         launches, truth = phase_main(index, qs, build_s, args.reps)
         launches["beam_search_db"] = db_launches
         main_inputs = main_path_inputs(index, qs)
@@ -3124,6 +3611,14 @@ def main():
         lsh_launches, first_chunk, _ = phase_lsh()
         kernels.append(time_minhash(first_chunk, lsh_launches, args.reps))
         add_path_launches(kernels, "engines (phase 10)", engine_launches)
+        lap("phase 8 and its timing")
+        more, db = phase_hosts(QUALITY_N)
+        del db
+        hosts.update(more)
+        hosts["card"] = smi_line()
+        say("hosts " + json.dumps(hosts))
+        lap("phase 11 (b), (c), (e), (f)")
+        add_path_launches(kernels, "server (phase 11)", hosts["launches"])
     say(f"total {time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(smi_line())

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (`cozo_tpu_torch/csrc/*.cu`).
+"""Build and load the port's CUDA kernels (`cozo_tpu_torch/csrc/*.cu`),
+and its host libraries (`build_host`).
 
 Each source is compiled at first use by `nvcc` into a shared library with
 a plain C interface under `build/cozo_tpu_torch_kernels/` at the root of
@@ -90,3 +91,31 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.cozo_cuda_error_string(err).decode()
         raise RuntimeError(f"cozo_tpu_torch: {what} failed: {msg} ({err})")
+
+
+def host_lib_path(src: str, flags, target: str, libs=()) -> str:
+    """`BUILD_DIR/target` with its `{hash}` a hash of the source `src`, the
+    flags and the libraries: an edited source is rebuilt and a stale
+    library never loaded."""
+    with open(src, "rb") as f:
+        h = hashlib.sha1(f.read() + " ".join((*flags, *libs)).encode()
+                         ).hexdigest()
+    return os.path.join(BUILD_DIR, target.format(hash=h[:12]))
+
+
+def build_host(src: str, flags, target: str, libs=()) -> str:
+    """Compile the host C/C++ source `src` with g++ (`flags` before the
+    source, `libs` after it) into `host_lib_path(...)` unless it is
+    already built; returns the library's path.  The source is read in
+    place (the JAX package's `native/` files among them) and nothing is
+    written beside it."""
+    so = host_lib_path(src, flags, target, libs)
+    if not os.path.exists(so):
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        # a temporary file renamed over the target: a concurrent process
+        # never loads a half-written library
+        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+        subprocess.run(["g++", *flags, "-o", tmp, src, *libs], check=True,
+                       capture_output=True)
+        os.replace(tmp, so)
+    return so

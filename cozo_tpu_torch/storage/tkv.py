@@ -11,14 +11,12 @@ modification sequences under an exclusive lock."""
 from __future__ import annotations
 
 import ctypes
-import hashlib
 
 from sortedcontainers import SortedDict
 import os
-import subprocess
-import threading
 from typing import Iterator, Optional, Tuple
 
+from ..ops._build import build_host, host_lib_path
 from .base import ConflictError, Storage, StorageError, StoreTx
 
 _LIB = None
@@ -27,30 +25,15 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 # the JAX package's source, read in place; built into the port's own
 # (git-ignored) directory, never over the JAX package's `native/libtkv.so`
 TKV_SRC = os.path.join(_ROOT, "native", "tkv.cpp")
-BUILD_DIR = os.path.join(_ROOT, "build", "cozo_tpu_torch_kernels")
 GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 
 
 def lib_path() -> str:
-    """The library's path: its name carries a hash of the source and the
-    flags, so an edited source is rebuilt and a stale library never
-    loaded."""
-    with open(TKV_SRC, "rb") as f:
-        h = hashlib.sha1(f.read() + " ".join(GXX_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"libtkv-{h[:12]}.so")
+    return host_lib_path(TKV_SRC, GXX_FLAGS, "libtkv-{hash}.so")
 
 
 def _find_or_build_lib() -> str:
-    so = lib_path()
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        # a temporary file renamed over the target: a concurrent process
-        # never loads a half-written library
-        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
-        subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, TKV_SRC],
-                       check=True, capture_output=True)
-        os.replace(tmp, so)
-    return so
+    return build_host(TKV_SRC, GXX_FLAGS, "libtkv-{hash}.so")
 
 
 def _lib():

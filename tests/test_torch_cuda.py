@@ -4,9 +4,11 @@ against its plain PyTorch version, the graph rules' entry points and a
 MinHash-LSH Db on the card against the same calls on the CPU, the
 MinHash dispatch's own pinned buffers,
 the lanes end to end through the kernels, the staging buffers of a
-small-batch search and its lock under concurrent callers, and the card's
+small-batch search and its lock under concurrent callers, the card's
 int8 product
-against the CPU's.  They skip where CUDA is absent.  This file imports
+against the CPU's, and the hosts: the HTTP server over a Db on the card,
+the C bridge's Db on the card when its options name no device, and a
+trace that names a kernel.  They skip where CUDA is absent.  This file imports
 neither JAX nor `cozo_tpu`, so it runs on a machine that has only the
 port's dependencies:
 
@@ -568,3 +570,97 @@ def test_tkv_db_on_the_card_answers_hnsw(cuda, tmp_path):
     assert again.run_script("?[count(id)] := *item{id}").rows == [[24_000]]
     assert sorted(again.run_script(join).rows) == rows
     again.close()
+
+
+def _card_db_with_index(n=24_000, d=32):
+    """A mem Db on the card with an HNSW index and 16 stored queries."""
+    from cozo_tpu_torch import Db
+
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    db = Db("mem")
+    db.run_script(f":create item {{id: Int => v: <F32; {d}>}}")
+    db.run_script("?[id, v] <- $rows :put item {id => v}",
+                  {"rows": [[i, x[i]] for i in range(n)]})
+    db.run_script(f"::hnsw create item:ix {{dim: {d}, m: 16, "
+                  "ef_construction: 64, fields: [v], distance: Cosine}")
+    db.run_script(f":create q {{qid: Int => v: <F32; {d}>}}")
+    db.run_script("?[qid, v] <- $rows :put q {qid => v}",
+                  {"rows": [[i, x[i * 7] + 0.01] for i in range(16)]})
+    return db
+
+
+SMALL_JOIN = ("?[qid, id, dist] := *q{qid, v: qv}, ~item:ix{id | query: qv, "
+              "k: 10, ef: 64, bind_distance: dist}")
+
+
+@pytest.mark.cuda
+def test_server_on_a_card_db_answers_a_small_join(cuda):
+    """`hosts/server.serve` over a Db on the card: 4 clients' small joins
+    over HTTP give the Db's own rows."""
+    import json
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cozo_tpu_torch.hosts.server import serve
+
+    db = _card_db_with_index()
+    assert db.device.type == "cuda"
+    want = sorted(json.loads(db.run_script_json(SMALL_JOIN))["rows"])
+    srv = serve(db, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+
+    def ask(_):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_address[1]}/text-query",
+            data=json.dumps({"script": SMALL_JOIN}).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return sorted(json.loads(resp.read())["rows"])
+
+    try:
+        with ThreadPoolExecutor(4) as ex:
+            got = list(ex.map(ask, range(8)))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert len(want) == 160 and all(g == want for g in got)
+
+
+@pytest.mark.cuda
+def test_c_bridge_opens_on_the_card_without_options(cuda):
+    import json
+
+    from cozo_tpu_torch.hosts import c_bridge
+
+    for options in ("", "{}"):
+        out = json.loads(c_bridge.open_db("mem", "", options))
+        assert out["ok"] is True
+        assert c_bridge._DBS[out["id"]].device.type == "cuda"
+        res = json.loads(c_bridge.run_query(out["id"], "?[a] <- [[1]]", "{}",
+                                            True))
+        assert res["rows"] == [[1]]
+        assert c_bridge.close_db(out["id"])
+
+
+@pytest.mark.cuda
+def test_device_trace_names_a_kernel(cuda, tmp_path):
+    """A trace around fused-sweep launches on the card names the kernel."""
+    import json
+    import os
+
+    from cozo_tpu_torch.utils.profiling import device_trace
+
+    B, n_total, d_pad, dead = SHAPES[0]
+    qs, tbl, bias = random_case(B, n_total, d_pad, dead, cuda, seed=3)
+    fs.fused_sweep(qs, tbl, bias)
+    torch.cuda.synchronize()
+    with device_trace(str(tmp_path)):
+        for _ in range(3):
+            fs.fused_sweep(qs, tbl, bias)
+        torch.cuda.synchronize()
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert any("sweep_" in k for k in kernels), sorted(kernels)

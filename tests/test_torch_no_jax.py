@@ -126,6 +126,33 @@ ids, _ = idx.search(data[:8], k=5, ef=32)
 assert idx._mesh_sweep is not None and (ids[:, 0] == np.arange(8)).all()
 mesh.set_serving_mesh(None)
 
+# the hosts: one request through the server, the REPL on two lines, the C
+# ABI's bridge, and a trace
+import contextlib, io, json, threading, urllib.request
+from cozo_tpu_torch.hosts import c_bridge, repl, server
+srv = server.serve(Db("mem", device="cpu"), "127.0.0.1", 0)
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+req = urllib.request.Request(
+    f"http://127.0.0.1:{srv.server_address[1]}/text-query",
+    data=json.dumps({"script": "?[a] <- [[3]]"}).encode(), method="POST")
+with urllib.request.urlopen(req, timeout=30) as resp:
+    assert json.loads(resp.read())["rows"] == [[3]]
+srv.shutdown()
+stdin, sys.stdin = sys.stdin, io.StringIO("?[a] <- [[4]]\n%help\n")
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    repl.repl_main(["--device", "cpu"])
+sys.stdin = stdin
+assert "(1 row)" in out.getvalue() and "Meta commands" in out.getvalue()
+opened = json.loads(c_bridge.open_db("mem", "", '{"device": "cpu"}'))
+assert json.loads(c_bridge.run_query(opened["id"], "?[a] <- [[5]]", "{}",
+                                     True))["rows"] == [[5]]
+from cozo_tpu_torch.utils.profiling import device_trace
+with tempfile.TemporaryDirectory() as tmp:
+    with device_trace(tmp):
+        db.run_script("?[a] <- [[6]]")
+    assert len(os.listdir(tmp)) == 1
+
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "cozo_tpu")
                for m in sys.modules)
 print("NO_JAX_OK")
@@ -180,8 +207,35 @@ def test_new_modules_are_among_the_scanned_sources():
                 "ops/minhash.py", "runtime/minhash_lsh.py",
                 "fts/indexing.py", "fts/tokenizer.py", "fts/ast.py",
                 "parallel/mesh.py", "storage/tkv.py", "storage/plog.py",
-                "storage/remote.py", "hosts/kvserver.py"):
+                "storage/remote.py", "hosts/kvserver.py",
+                "hosts/server.py", "hosts/repl.py", "hosts/c_bridge.py",
+                "ops/cpu_baseline.py", "utils/profiling.py",
+                "examples/embed_basic.py", "examples/graph_algos.py",
+                "examples/shared_store.py", "examples/vector_search.py"):
         assert os.path.join("cozo_tpu_torch", mod) in names
+
+
+# The port's modules are the JAX package's (and its `examples/`, under
+# the port's `examples/`) by name, but for two counterparts under other
+# names and the port's device resolution, which has no JAX module (JAX
+# picks its platform itself).
+RENAMED = {"ops/pallas_sweep.py": "ops/fused_sweep.py",
+           "utils/jax_setup.py": "ops/_build.py"}
+PORT_ONLY = {"utils/device.py"}
+
+
+def _listing(root):
+    return {os.path.relpath(os.path.join(d, f), root).replace(os.sep, "/")
+            for d, _, files in os.walk(root) for f in files
+            if f.endswith(".py")}
+
+
+def test_the_port_has_a_counterpart_of_every_module():
+    jax = _listing(os.path.join(_ROOT, "cozo_tpu")) | {
+        "examples/" + f for f in _listing(os.path.join(_ROOT, "examples"))}
+    port = _listing(os.path.join(_ROOT, "cozo_tpu_torch"))
+    assert {RENAMED.get(m, m) for m in jax} | PORT_ONLY == port
+    assert not set(RENAMED) & port and not set(RENAMED.values()) & jax
 
 
 # Every `raise NotImplementedError(...)` of the package, by file, with the
