@@ -37,7 +37,15 @@ Phases, each reported on its own line; any failure exits non-zero:
      shared-memory tile), D = 1,024, n_perm 1, 32, 100, 128 and 256,
      hashes 0, all ones and the top bit alone or cleared: signatures
      bit-equal to the plain version and to the host `minhash_segments`,
-     two runs bit-identical;
+     two runs bit-identical.  `slab_topk` (`topk_cases`): each variant
+     (the prologue of the f32 / bf16 lanes, the int8 build, the i8 lane
+     with its bf16 key, the quant lane, the fused lane's packed array, a
+     bf16 merge) at widths 512, 4,097, 10,240, 16,384 and 131,072, kf 1,
+     10, 26, 40, 97, 256, 1,000 and the width, B = 1 and 17 and a ragged
+     block of launches (300 rows, kf = 131,072), with planted ties, +-0.0,
+     a row all -inf, a row with fewer live entries than kf and a bf16 key
+     slab from int8 products: values and ids bit-equal to the plain
+     version, two runs bit-identical;
   5. (run before phase 3) drive the Db through CozoScript, the script of
      `benches/bench_hybrid_1m.py` phases 1-4 at full size: `glove_like`
      data (seed 42), `Db("mem")` on the card, ingest by `:put` batches of
@@ -91,7 +99,9 @@ Phases, each reported on its own line; any failure exits non-zero:
      kernel's own time, and the device mirror's incremental update after
      inserts and removals.  Each
      kernel's launch count is zeroed just before its path and read just
-     after;
+     after (`slab_topk` on each lane: f32, fused, bf16, raw bf16, i8,
+     quant; in phase 5 on `::hnsw create` and on the rest of the script;
+     in 3b, 3c, 9 and 10 on each path; each must launch);
   3b. the quant lane at its own width: a 768-wide cosine table of
      2,097,152 rows (cut from the JAX package's 10M-row configuration),
      `QuantSweepTable.load` + `quant_search`, recall against
@@ -136,7 +146,12 @@ Phases, each reported on its own line; any failure exits non-zero:
      docs and 10 single-term searches, each equal to a scan; prints an
      `lsh` line;
   4. time each kernel at its shape (the main-path shape for the routes the
-     main path takes; the graph kernels at phase 7's, `minhash` at phase
+     main path takes; `slab_topk` at each slab the main path hands it,
+     from phase 3's index: the bf16 / f32 lanes' [16,384 x 131,072] f32
+     with the bias at kf 26 and 10, the i8 lane's int32 products at kf
+     64, the quant shape [4,096 x 131,072] at kf 40, the build's [8,192 x
+     131,072] at kf 97 and the fused lane's packed array at kf 26, beside
+     the plain version (in row blocks) and `torch.topk` on the key slab; the graph kernels at phase 7's, `minhash` at phase
      8's first backfill chunk, with a chunk's upload and copy back) with
      CUDA events, beside its bound and its plain version, and the fused
      routes and PageRank beside a one-call PyTorch yardstick (for
@@ -163,7 +178,10 @@ and prints no `{"ok": ...}` line either; `--lsh-only` runs phases 1, 2
 `--mesh-only` runs phases 1, 9 (on a Db's index of `--n` rows) and 10,
 and prints none either; `--hosts-only` runs phases 1 and 11 but (a), with
 (f) at `--n` rows (262,144 unless given; `--quality-main-draw`: phase 3c's
-rows and queries) and (d) on (f)'s Db, and prints none either.
+rows and queries) and (d) on (f)'s Db, and prints none either;
+`--topk-only` runs phases 1 and 2 (`slab_topk`), builds an index of `--n`
+rows (262,144 unless given), runs each sweep lane once (launches
+counted) and times `slab_topk` as phase 4 does, and prints none either.
 """
 
 import argparse
@@ -186,6 +204,11 @@ PEAK_F32 = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores
 BARS = {"fused+rerank": 0.999, "bf16+rerank": 0.999, "bf16-raw": 0.962,
         "i8+rerank": 0.998, "quant": 0.98}
 OTHER_LANE_REPS = 3  # timed reps of the lanes beside the fused one
+# each lane's earlier time a batch on one H100, as PERF.md section 5 records
+# it, printed beside this run's
+EARLIER_LANE_MS = {"f32": 487.4, "fused+rerank": 16.77, "bf16+rerank": "383-384",
+               "bf16-raw": "383-384", "i8+rerank": 547.2,
+               "quant": "0.588 s scan + 0.273 s host re-rank"}
 QUANT_N, QUANT_D, QUANT_NQ, QUANT_GT = 2_097_152, 768, 4096, 1024
 I8_BUILD_N = 262_144
 
@@ -786,6 +809,189 @@ def phase_minhash_vs_plain(dev):
             raise SystemExit("phase 2 failed: minhash disagrees")
 
 
+# ------------------------------------------------- slab_topk (the selection)
+
+# The variants of `select_topk` phase 2 holds to the plain version: the
+# prologue each caller passes, (slab type, column scale, row scale, bias,
+# bf16 key).
+TOPK_VARIANTS = {
+    "packed": ("f32", False, False, False, False),    # fused lane, merges
+    "bias": ("f32", False, False, True, False),       # f32 / bf16, build
+    "scale_bias": ("f32", True, False, True, False),  # the int8 build
+    "i8_bf16": ("i32", True, True, True, True),       # the i8 lane
+    "quant": ("i32", True, True, True, False),        # the quant lane
+    "bf16_in": ("bf16", False, False, False, False),  # the i8 lane's merge
+}
+# random: normal values (int8 products) with planted duplicates; ties:
+# values from TOPK_TIES (+-0.0 among them; a 4-wide int8 product); dead: a
+# row all -inf and a row with 3 live entries (int32 slabs: every column
+# but 3 dead); i8_real: a bf16 key slab from int8 products of quantised
+# normal rows (the i8 lane's ties)
+TOPK_KINDS = ("random", "ties", "dead", "i8_real")
+TOPK_TIES = (0.0, -0.0, 1.0, -1.0, 2.5, -2.5, -np.inf)
+TOPK_WIDTHS = (512, 4097, 10_240, 16_384, 131_072)
+TOPK_KFS = (1, 10, 26, 40, 97, 256, 1000, None)  # None: the full width
+TOPK_RAGGED = (300, 131_072)  # kf = W: 256 rows a launch, then 44
+
+
+def topk_cases(widths=TOPK_WIDTHS, ragged=TOPK_RAGGED):
+    """Phase 2's (B, W, kf, variant, kind): every width at every kf (B = 17,
+    every fifth case B = 1), the variants and kinds in turn; every variant
+    with every kind at the second width, kf = 26 and 97; and the ragged
+    block of launches (kf = W past the scratch of one launch)."""
+    names = list(TOPK_VARIANTS)
+    cases = []
+    for W in widths:
+        for kf in TOPK_KFS:
+            kf = W if kf is None else kf
+            if kf > W:
+                continue
+            i = len(cases)
+            cases.append((1 if i % 5 == 4 else 17, W, kf,
+                          names[i % len(names)],
+                          TOPK_KINDS[(i // len(names)) % len(TOPK_KINDS)]))
+    for variant in names:
+        for kind in TOPK_KINDS:
+            for kf in (26, 97):
+                cases.append((17, widths[1], kf, variant, kind))
+    if ragged:
+        cases.append((ragged[0], ragged[1], ragged[1], "packed", "random"))
+    return cases
+
+
+def _int8_rows(rng, n, d):
+    """int8 rows and their max-abs scales from normal rows."""
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    sc = np.abs(v).max(axis=1) / 127.0
+    return np.clip(np.rint(v / sc[:, None]), -127, 127).astype(np.int32), \
+        sc.astype(np.float32)
+
+
+def topk_inputs(B, W, variant, kind, seed, dev):
+    """(slab, keyword arguments of `select_topk`) of a phase-2 case."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dtype, has_c, has_r, has_b, bf16 = TOPK_VARIANTS[variant]
+    kw = {"bf16": bf16} if bf16 else {}
+    c = (rng.random(W) * 0.01 + 1e-3).astype(np.float32)
+    r = (rng.random(B) * 0.01 + 1e-3).astype(np.float32)
+    b = (-rng.random(W)).astype(np.float32)
+    if kind == "ties":
+        b = rng.choice(np.float32([0.0, -0.0]), W)
+    if dtype == "i32":
+        d = 4 if kind == "ties" else 100
+        qa, qs = _int8_rows(rng, B, d)
+        ta, ts = _int8_rows(rng, W, d)
+        if kind == "i8_real":
+            c, r = ts, qs
+        x = qa @ ta.T
+        if kind == "random":
+            x[:, rng.integers(0, W, W // 4)] = x[:, :1]
+        if kind == "dead":
+            live = rng.choice(W, 3, replace=False)
+            dead = np.ones(W, bool)
+            dead[live] = False
+            c[dead], b[dead] = 0.0, -np.inf
+        x = x.astype(np.int32)
+    else:
+        x = rng.standard_normal((B, W)).astype(np.float32)
+        if kind == "ties":
+            x = rng.choice(np.float32(TOPK_TIES), (B, W))
+        elif kind == "i8_real":
+            qa, qs = _int8_rows(rng, B, 100)
+            ta, ts = _int8_rows(rng, W, 100)
+            x = ((qa @ ta.T).astype(np.float32) * ts[None, :]
+                 * qs[:, None]).astype(np.float32)
+            x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+        else:
+            x[:, rng.integers(0, W, W // 4)] = x[:, :1]
+        if kind == "dead" and has_c:  # a product is finite: dead by bias
+            dead = np.ones(W, bool)
+            dead[rng.choice(W, 3, replace=False)] = False
+            c[dead], b[dead] = 0.0, -np.inf
+        elif kind == "dead":
+            x[0] = -np.inf
+            if B > 1:
+                keep = x[1, :3].copy()
+                x[1] = -np.inf
+                x[1, rng.choice(W, 3, replace=False)] = keep
+            b[::7] = -np.inf
+    xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    if dtype == "bf16":
+        xt = xt.to(torch.bfloat16)
+    for name, v, want in (("col_scale", c, has_c), ("row_scale", r, has_r),
+                          ("bias", b, has_b)):
+        if want:
+            kw[name] = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+    return xt, kw
+
+
+def topk_same(a, b):
+    """Bit-equality of two (values, ids) pairs."""
+    import torch
+
+    (va, ia), (vb, ib) = a, b
+    view = torch.int16 if va.dtype == torch.bfloat16 else torch.int32
+    return (va.dtype == vb.dtype and torch.equal(ia, ib)
+            and torch.equal(va.contiguous().view(view),
+                            vb.contiguous().view(view)))
+
+
+def phase_topk_vs_plain(dev):
+    """Phase 2 for `slab_topk`: every case of `topk_cases` bit-equal to
+    `select_topk_plain` on the card in values and ids, two runs
+    bit-identical.  Launches here are not counted on any path."""
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    t0 = time.time()
+    cases = topk_cases()
+    by_width = {}
+    for i, (B, W, kf, variant, kind) in enumerate(cases):
+        x, kw = topk_inputs(B, W, variant, kind, i, dev)
+        got = ek.select_topk(x, kf, **kw)
+        again = ek.select_topk(x, kf, **kw)
+        want = ek.select_topk_plain(x, kf, **kw)
+        torch.cuda.synchronize()
+        equal, twice = topk_same(got, want), topk_same(got, again)
+        by_width.setdefault(W, []).append(equal and twice)
+        if not (equal and twice):
+            say(f"phase 2 slab_topk vs plain B={B} W={W} kf={kf} {variant} "
+                f"{kind}: values and ids bit-equal {equal}, two runs "
+                f"identical {twice} FAIL")
+            raise SystemExit("phase 2 failed: slab_topk disagrees with plain")
+        del x, kw, got, again, want
+    torch.cuda.empty_cache()
+    for W, oks in by_width.items():
+        say(f"phase 2 slab_topk vs plain at W={W}: {len(oks)} cases (kf "
+            f"1 ... W, B = 1 / 17{' / ' + str(TOPK_RAGGED[0]) if W == TOPK_RAGGED[1] else ''}, "
+            f"the variants {sorted(TOPK_VARIANTS)}, kinds {list(TOPK_KINDS)}): "
+            f"values and ids bit-equal, two runs identical")
+    say(f"phase 2 slab_topk: {len(cases)} cases in {time.time() - t0:.1f}s")
+
+
+TOPK_LAUNCHES = {}  # path -> slab_topk launches on it, each counted from 0
+
+
+def topk_zero():
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    ek.select_topk.launches = 0
+
+
+def topk_read(path, phase):
+    """slab_topk's launches since `topk_zero`, kept as `path`'s; the phase
+    fails if there were none."""
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    n = TOPK_LAUNCHES[path] = ek.select_topk.launches
+    if n < 1:
+        raise SystemExit(f"{phase} failed: slab_topk never launched on {path}")
+    return n
+
+
 def recall(ids, gt):
     return float(np.mean([
         len(set(ids[b].tolist()) & set(gt[b].tolist())) / K
@@ -812,9 +1018,12 @@ def phase_main(index, qs, build_s, reps):
         f" alive), built by the DDL in phase 5 ({build_s:.1f}s)")
 
     t0 = time.time()
+    topk_zero()
     gt, gt_d = sweep_search(index, qs, K, rt=1.0, compute_dtype="f32",
                             exact_rerank=False)
-    say(f"phase 3 f32 ground truth in {time.time() - t0:.2f}s")
+    topk_read("index f32 (phase 3)", "phase 3")
+    say(f"phase 3 f32 ground truth in {time.time() - t0:.2f}s (first call; "
+        f"earlier, PERF.md section 5: {EARLIER_LANE_MS['f32']} ms a batch warm)")
     if gt.shape != (NQ, K) or not np.isfinite(gt_d).all() or (gt < 0).any():
         raise SystemExit("phase 3 failed: f32 lane returned bad rows")
 
@@ -827,6 +1036,7 @@ def phase_main(index, qs, build_s, reps):
             ("bf16-raw", "bf16", 0.99, False, None),
             ("i8+rerank", "i8", 0.98, True, 64)):
         torch.cuda.reset_peak_memory_stats()
+        topk_zero()
         sweep_search(index, qs, K, rt=rt, compute_dtype=cd,
                      exact_rerank=rerank, rerank_k=rk)  # warm
         per_rep = []
@@ -835,6 +1045,7 @@ def phase_main(index, qs, build_s, reps):
             ids, dists = sweep_search(index, qs, K, rt=rt, compute_dtype=cd,
                                       exact_rerank=rerank, rerank_k=rk)
             per_rep.append(NQ / (time.time() - t0))
+        topk_read(f"index {tag} (phase 3)", "phase 3")
         r = recall(ids, gt)
         ok = (ids.shape == (NQ, K) and np.isfinite(dists[ids >= 0]).all()
               and r >= BARS[tag])
@@ -843,9 +1054,10 @@ def phase_main(index, qs, build_s, reps):
                       "qps_min": float(min(per_rep)), "per_rep_qps": per_rep,
                       "recall@10": r, "peak_device_gb": peak_gb}
         say(f"phase 3 lane {tag}: median {np.median(per_rep):.1f} QPS "
-            f"min {min(per_rep):.1f} recall@10 {r:.5f} "
-            f"(bar {BARS[tag]}) peak device memory {peak_gb:.2f} GB "
-            f"{'ok' if ok else 'FAIL'}")
+            f"min {min(per_rep):.1f} = {1e3 * NQ / np.median(per_rep):.1f} ms "
+            f"a batch (earlier, PERF.md section 5: {EARLIER_LANE_MS[tag]} ms) "
+            f"recall@10 {r:.5f} (bar {BARS[tag]}) peak device memory "
+            f"{peak_gb:.2f} GB {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"phase 3 failed: lane {tag}")
     launches = dict(fs.fused_sweep.route_launches)
@@ -870,6 +1082,7 @@ def phase_quant_dispatch(index, qs, gt):
     from cozo_tpu_torch.ops.quant_knn import quant_search
 
     os.environ["COZO_TPU_F32_TABLE_MAX"] = "1"
+    topk_zero()
     try:
         t0 = time.time()
         index.search(qs, K, 64)  # first use: quantises and loads the table
@@ -883,12 +1096,14 @@ def phase_quant_dispatch(index, qs, gt):
             rerank_s.append(quant_search.last_timing[1])
     finally:
         del os.environ["COZO_TPU_F32_TABLE_MAX"]
+    topk_read("index quant (phase 3)", "phase 3")
     r = recall(ids, gt)
     ok = (index._quant_sweep is not None and ids.shape == (NQ, K)
           and np.isfinite(dists[ids >= 0]).all() and r >= BARS["quant"])
     say(f"phase 3 lane quant (HnswIndex.search past the budget): median "
         f"{np.median(qps):.1f} QPS min {min(qps):.1f} (device scan + pull "
         f"{np.median(scan_s):.3f}s, host re-rank {np.median(rerank_s):.3f}s; "
+        f"earlier, PERF.md section 5: {EARLIER_LANE_MS['quant']}; "
         f"first call with the table load {load_s:.2f}s) recall@10 {r:.5f} "
         f"(bar {BARS['quant']}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -1099,7 +1314,10 @@ def phase_db(data, qs):
     n, d = data.shape
     vs.beam_search.launches = 0  # counts of this path only
     fs.fused_sweep.launches = 0
+    topk_zero()
     db, out = build_db(data)
+    topk_read("db ::hnsw create (phase 5)", "phase 5")
+    topk_zero()
     out.update(n=n, d=d)
     say(f"phase 5 ingest: {n} rows in {out['ingest_s']:.1f}s "
         f"({out['ingest_rows_per_s']:.0f} rows/s, :put batches of "
@@ -1259,7 +1477,10 @@ def phase_db(data, qs):
         raise SystemExit("phase 5 failed: writes through the Db")
 
     out["launches"] = {"beam_search": vs.beam_search.launches,
-                       "fused_sweep": fs.fused_sweep.launches}
+                       "fused_sweep": fs.fused_sweep.launches,
+                       "slab_topk": topk_read("db (phase 5)", "phase 5"),
+                       "slab_topk_ddl": TOPK_LAUNCHES[
+                           "db ::hnsw create (phase 5)"]}
     if out["launches"]["beam_search"] < 1:
         raise SystemExit("phase 5 failed: beam_search never launched")
     say(f"phase 5 kernel launches on the Db path: {out['launches']}")
@@ -1315,6 +1536,7 @@ def zero_all_counts():
     from cozo_tpu_torch.ops import minhash as mh
     from cozo_tpu_torch.ops import vector_search as vs
 
+    topk_zero()
     vs.beam_search.launches = fs.fused_sweep.launches = 0
     fs.fused_sweep.route_launches = dict.fromkeys(fs.ROUTES, 0)
     mh.segment_min.launches = 0
@@ -1322,11 +1544,13 @@ def zero_all_counts():
 
 
 def all_counts():
+    from cozo_tpu_torch.ops import exact_knn as ek
     from cozo_tpu_torch.ops import fused_sweep as fs
     from cozo_tpu_torch.ops import minhash as mh
     from cozo_tpu_torch.ops import vector_search as vs
 
     return {"beam_search": vs.beam_search.launches,
+            "slab_topk": ek.select_topk.launches,
             "minhash": mh.segment_min.launches, **graph_counts(),
             **{f"fused_sweep[{r}]": c
                for r, c in fs.fused_sweep.route_launches.items()}}
@@ -2280,6 +2504,7 @@ def phase_mesh_sweep(index, data, qs, truth, dev, reps):
     out = {"n": int(index.n), "nq": NQ, "k": K,
            "raw_bf16_recall@10": truth["raw_recall"]}
     runs = {}
+    topk_zero()
     for shards in (1, 2):
         mesh = pm.make_mesh(devices=[dev] * shards)
         t0 = time.time()
@@ -2322,6 +2547,7 @@ def phase_mesh_sweep(index, data, qs, truth, dev, reps):
             raise SystemExit("phase 9 failed: the sharded sweep")
         del ss, parts
         torch.cuda.empty_cache()
+    topk_read("mesh (phase 9)", "phase 9")
     (ids1, mi1, ms1), (ids2, mi2, ms2) = runs[1], runs[2]
     differ = mi1 != mi2
     tied = bool((ms1[differ] == ms2[differ]).all())
@@ -2622,7 +2848,8 @@ def phase_engines(data, qs, dev):
     out["launches"] = launches
     say(f"phase 10 kernel launches on the engines path: {launches}")
     if launches["beam_search"] < len(ENGINES) or \
-            launches["graph_pagerank"] < len(ENGINES):
+            launches["graph_pagerank"] < len(ENGINES) or \
+            launches["slab_topk"] < len(ENGINES):
         raise SystemExit("phase 10 failed: a kernel of the path never launched")
     out["card"] = smi_line()
     say("engines " + json.dumps(out))
@@ -2724,12 +2951,14 @@ def phase_quant_wide():
     table = QuantSweepTable().load(data, "Cosine")
     torch.cuda.synchronize()
     load_s = time.time() - t0
+    topk_zero()
     quant_search(data, table, qs, K)  # warm
     qps = []
     for _ in range(OTHER_LANE_REPS):
         t0 = time.time()
         ids, dists = quant_search(data, table, qs, K)
         qps.append(QUANT_NQ / (time.time() - t0))
+    topk_read("quant (phase 3b)", "phase 3b")
     scan_s, rerank_s = quant_search.last_timing
     norms = np.concatenate([
         np.einsum("nd,nd->n", blk, blk) for blk in np.array_split(data, 16)])
@@ -2768,9 +2997,11 @@ def phase_i8_build(data, qs):
             t0 = time.time()
             index = HnswIndex(dim=D, m=16, ef_construction=200,
                               distance="Cosine")
+            topk_zero()
             index.bulk_build(rows, wave=8192)
             torch.cuda.synchronize()
             build_s = time.time() - t0
+            topk_read(f"{mode} build (phase 3c)", "phase 3c")
             served = None
             if mode == "i8":  # the build's table serves, through the dispatcher
                 qt = index._quant_sweep
@@ -2947,6 +3178,148 @@ def time_beam(index, qs, launches):
                   "beam": 64, "expand": 8, "k": K},
         "B63": shapes[63],
     }
+
+
+TOPK_PLAIN_ROWS = 1024  # the plain version runs the main shapes in row blocks
+
+
+def topk_plain_blocks(x, kf, kw):
+    """`select_topk_plain` over row blocks of x (its sort of a whole
+    [16,384 x 131,072] slab would take some 45 GB)."""
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    parts = []
+    for r0 in range(0, x.shape[0], TOPK_PLAIN_ROWS):
+        sl = slice(r0, r0 + TOPK_PLAIN_ROWS)
+        kb = dict(kw)
+        if "row_scale" in kb:
+            kb["row_scale"] = kb["row_scale"][sl]
+        parts.append(ek.select_topk_plain(x[sl], kf, **kb))
+    return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
+
+
+def topk_main_shapes(index, qs):
+    """The slabs `select_topk` takes on the main path, from phase 3's index
+    (its first chunk): (lane, slab, kf, keyword arguments).  The bf16 lane
+    (+ re-rank: kf 26; raw: kf 10) and the f32 lane take the same
+    [16,384 x 131,072] f32 product with the bias; the i8 lane its int32
+    products (rescaled, biased, bf16 key, kf 64: phase 3 re-ranks 64);
+    the quant lane 4,096 queries' int32 products (kf 40, phase 3b's batch
+    and overfetch); the build a wave of 8,192 rows (kf P + 1 = 97); the
+    fused lane the kernel's packed [16,384 x 10,240] (kf 26)."""
+    import torch
+
+    from cozo_tpu_torch.ops import fused_sweep as fs
+    from cozo_tpu_torch.ops.exact_knn import quantize_tbl
+    from cozo_tpu_torch.utils.device import (int_mm, mm_bf16,
+                                             prepare_queries)
+
+    st = index._sweep_table
+    dev = st.tbl.device
+    q = torch.from_numpy(np.ascontiguousarray(qs, np.float32)).to(dev)
+    qh = prepare_queries(q, "Cosine", st.d_pad, half=True)
+    q32, q_i8, q_scale = prepare_queries(q, "Cosine", st.d_pad, half=True,
+                                         quantize=True, reciprocal=True)
+    del q32
+    tbl_i8, scale = (st.tbl_i8, st.scale_i8) if st.tbl_i8 is not None \
+        else quantize_tbl(st.tbl, st.bias)
+    bias = st.bias[0]
+    yield ("bf16 lane", mm_bf16(qh, st.tbl[0]), 26, {"bias": bias})
+    yield ("bf16 raw / f32 lane", mm_bf16(qh, st.tbl[0]), 10, {"bias": bias})
+    yield ("i8 lane", int_mm(q_i8, tbl_i8[0]), 64,
+           {"col_scale": scale[0], "row_scale": q_scale, "bias": bias,
+            "bf16": True})
+    yield ("quant lane", int_mm(q_i8[:4096], tbl_i8[0]), 40,
+           {"col_scale": scale[0], "row_scale": q_scale[:4096].contiguous(),
+            "bias": bias})
+    yield ("build step", mm_bf16(st.tbl[0][:8192], st.tbl[0]), 97,
+           {"bias": bias})
+    packed = fs.fused_sweep(qh.to(torch.bfloat16).contiguous(),
+                            st.tbl_fused, st.bias_fused)
+    yield ("fused lane", packed, 26, {})
+
+
+def time_topk(index, qs, reps):
+    """Phase 4 for `slab_topk` at each main shape: values and ids bit-equal
+    to the plain version, two runs identical, then the kernel's, the plain
+    version's (in row blocks) and `torch.topk`'s time on the same key slab,
+    beside the bound (one read of the slab and of the prologue's vectors,
+    one write of the output).  Returns its entry of the `kernels` line (the
+    bf16 lane's numbers; every shape under "shapes"), its launches by path
+    filled in at the end of the run."""
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    shapes = {}
+    for lane, x, kf, kw in topk_main_shapes(index, qs):
+        B, W = x.shape
+        got = ek.select_topk(x, kf, **kw)
+        again = ek.select_topk(x, kf, **kw)
+        want = topk_plain_blocks(x, kf, kw)
+        torch.cuda.synchronize()
+        equal, twice = topk_same(got, want), topk_same(got, again)
+        err = float((got[0].float() - want[0].float()).abs().max())
+        del got, again, want
+        if not (equal and twice):
+            raise SystemExit(f"phase 4 failed: slab_topk disagrees with plain "
+                             f"({lane})")
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: ek.select_topk(x, kf, **kw), reps)
+        plain_ms = cuda_ms(lambda: topk_plain_blocks(x, kf, kw), 1)
+        key = ek.slab_key(x, kw.get("col_scale"), kw.get("row_scale"),
+                          kw.get("bias"), kw.get("bf16", False))
+        # yardstick only, never called by the port: the library's top-k of
+        # the key slab the kernel selects from (the prologue not timed)
+        library_ms = cuda_ms(lambda: torch.topk(key, kf), reps)
+        del key
+        vec = sum(4 * W for n in ("col_scale", "bias") if n in kw)
+        nbytes = (x.numel() * x.element_size() + vec
+                  + (4 * B if "row_scale" in kw else 0)
+                  + B * kf * ((2 if kw.get("bf16") else 4) + 8))
+        bound = nbytes / PEAK_BYTES * 1e3
+        shapes[lane] = {"B": B, "W": W, "kf": kf, "dtype": str(x.dtype),
+                        "prologue": sorted(kw), "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound,
+                        "max_abs_err": err}
+        say(f"phase 4 slab_topk ({lane}: [{B} x {W}] {x.dtype}, kf {kf}, "
+            f"prologue {sorted(kw) or 'none'}): {ms:.3f} ms "
+            f"({100 * bound / ms:.1f}% of the bound {bound:.3f} ms, bytes "
+            f"{nbytes / 1e9:.3f} GB), plain {plain_ms:.1f} ms (blocks of "
+            f"{TOPK_PLAIN_ROWS} rows), torch.topk on the key slab "
+            f"{library_ms:.3f} ms; values and ids bit-equal {equal}, two "
+            f"runs identical {twice}")
+        del x, kw
+        torch.cuda.empty_cache()
+    main = shapes["bf16 lane"]
+    return {
+        "name": "slab_topk", "route": "cuda",
+        "source": "cozo_tpu_torch/csrc/slab_topk.cu",
+        "replaces": "cozo_tpu/ops/exact_knn.py:118",
+        "replaces_all": ["cozo_tpu/ops/exact_knn.py:118",
+                         "cozo_tpu/ops/exact_knn.py:209",
+                         "cozo_tpu/ops/quant_knn.py:88",
+                         "cozo_tpu/ops/bulk_build.py:144",
+                         "cozo_tpu/ops/bulk_build.py:266",
+                         "cozo_tpu/ops/pallas_sweep.py:201"],
+        "launches": 0, "launches_by_path": {},
+        "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "library_ms": main["library_ms"],  # torch.topk on the key slab
+        "shape": {"B": main["B"], "W": main["W"], "kf": main["kf"]},
+        "shapes": shapes,
+    }
+
+
+def finish_topk_entry(kernels):
+    """slab_topk's entry gains the launches counted on each path."""
+    for entry in kernels:
+        if entry["name"] == "slab_topk":
+            entry["launches_by_path"].update(TOPK_LAUNCHES)
+            entry["launches"] = sum(entry["launches_by_path"].values())
 
 
 def phase_beam_quick(n):
@@ -3488,6 +3861,41 @@ def lsh_only(args):
     return 0
 
 
+def topk_only(args, dev):
+    """--topk-only: the loop for work on the selection kernel: phase 2's
+    slab_topk cases, then an index of --n rows of the main draw built on
+    the card (its launches counted), each sweep lane once with its
+    launches, and phase 4's slab_topk timings on that index."""
+    from cozo_tpu_torch import HnswIndex, sweep_search
+    from cozo_tpu_torch.utils.datasets import glove_like
+
+    t0 = time.time()
+    phase_topk_vs_plain(dev)
+    data = glove_like(args.n + NQ, D, seed=42)
+    qs, data = data[args.n:], data[:args.n]
+    index = HnswIndex(dim=D, m=16, ef_construction=200, distance="Cosine")
+    topk_zero()
+    t1 = time.time()
+    index.bulk_build(data, wave=8192)
+    say(f"topk-only: bulk_build of {args.n} x {D} in {time.time() - t1:.1f}s")
+    topk_read("build (--topk-only)", "build")
+    for cd, rk in (("f32", None), ("bf16", None), ("i8", 64),
+                   ("fused", None)):
+        topk_zero()
+        t1 = time.time()
+        sweep_search(index, qs, K, compute_dtype=cd, rerank_k=rk,
+                     exact_rerank=cd != "f32")
+        topk_read(f"lane {cd} (--topk-only)", "lanes")
+        say(f"topk-only: lane {cd} B={NQ} first call {time.time() - t1:.2f}s")
+    kernels = [time_topk(index, qs, args.reps)]
+    finish_topk_entry(kernels)
+    say(f"total {time.time() - t0:.1f}s")
+    say(json.dumps({"kernels": kernels}))
+    say(smi_line())
+    say("topk-only run: no verdict on the main path")
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=None,
@@ -3515,6 +3923,11 @@ def main():
                          "without the server at full size: the CLIs, the C "
                          "ABI, the examples, the graph-quality check at "
                          "--n rows and a trace on its Db; no verdict")
+    ap.add_argument("--topk-only", action="store_true",
+                    help="build the kernels, hold slab_topk to its plain "
+                         "version, build an index of --n rows, run each "
+                         "sweep lane once and time slab_topk on it; no "
+                         "verdict")
     ap.add_argument("--quality-main-draw", action="store_true",
                     help="with --hosts-only: the graph-quality check on "
                          "the first --n rows of the main path's draw and "
@@ -3524,7 +3937,7 @@ def main():
     if args.quality_main_draw and not args.hosts_only:
         ap.error("--quality-main-draw goes with --hosts-only")
     if args.n is None:
-        args.n = MIN_N if args.hosts_only else N
+        args.n = MIN_N if args.hosts_only or args.topk_only else N
     if args.n < MIN_N:
         ap.error(f"--n must be at least {MIN_N}")
 
@@ -3549,10 +3962,13 @@ def main():
         return mesh_only(args, dev)
     if args.hosts_only:
         return hosts_only(args)
+    if args.topk_only:
+        return topk_only(args, dev)
     phase_minhash_vs_plain(dev)
     if args.lsh_only:
         return lsh_only(args)
     phase_kernel_vs_plain(dev)
+    phase_topk_vs_plain(dev)
     phase_beam_vs_plain()
     phase_graph_vs_plain(dev)
     lap = lambda what: say(f"[{time.time() - t_all:.1f}s] {what} done")  # noqa: E731
@@ -3587,6 +4003,7 @@ def main():
         kernels.append(phase_beam_quick(MIN_N))
     else:
         kernels.append(time_beam(index, qs, launches))
+        kernels.append(time_topk(index, qs, args.reps))
         del main_inputs
         torch.cuda.empty_cache()
         lap("phases 3 and 4 (main path)")
@@ -3619,6 +4036,7 @@ def main():
         say("hosts " + json.dumps(hosts))
         lap("phase 11 (b), (c), (e), (f)")
         add_path_launches(kernels, "server (phase 11)", hosts["launches"])
+        finish_topk_entry(kernels)
     say(f"total {time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(smi_line())

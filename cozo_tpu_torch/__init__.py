@@ -19,10 +19,12 @@ This package imports PyTorch and numpy, never JAX and nothing of
   devices, with the row-sharded sweep and k-NN and the edge-sharded
   PageRank and SSSP steps.
 
-Six hand-written CUDA kernels: `csrc/fused_sweep.cu` (the fused lane),
-`csrc/beam_search.cu` (the batched HNSW search), `csrc/graph_pagerank.cu`,
-`graph_sssp.cu` and `graph_labelprop.cu` (the graph rules) and
-`csrc/minhash.cu` (the LSH backfill's segment-min).  Entry points run on
+Seven hand-written CUDA kernels: `csrc/fused_sweep.cu` (the fused lane),
+`csrc/slab_topk.cu` (every selection of the sweep lanes, where the JAX
+package calls `lax.approx_max_k`), `csrc/beam_search.cu` (the batched
+HNSW search), `csrc/graph_pagerank.cu`, `graph_sssp.cu` and
+`graph_labelprop.cu` (the graph rules) and `csrc/minhash.cu` (the LSH
+backfill's segment-min).  Entry points run on
 the card unless the caller passes device="cpu":
 
     from cozo_tpu_torch import Db

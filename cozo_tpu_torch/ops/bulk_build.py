@@ -18,7 +18,9 @@
   heuristic — they are too few to matter.
 
 Where the JAX version calls `lax.approx_max_k` (rt=0.9), this one calls
-`torch.topk`, which is exact.
+`exact_knn.select_topk` (the hand kernel `csrc/slab_topk.cu`: exact, with
+the bias and the int8 table's scales applied as the slab is read, ties by
+ascending position as the JAX merges break them).
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ import torch
 
 from ..utils.device import (default_device, mm_bf16, PendingPull,
                             quantize_i8, to_device)
-from .exact_knn import merge_chunks, SweepTable, _chunking
+from .exact_knn import (_chunk_buffers, _chunking, _cols, merge_chunks,
+                        select_topk, SweepTable)
 
 
 def _select(tbl: torch.Tensor, bias: torch.Tensor, pool_ids: torch.Tensor,
@@ -79,14 +82,15 @@ def _dominance(rows: torch.Tensor, b: torch.Tensor, pool_ids: torch.Tensor,
     return sel
 
 
-def _pool(nds, nis, slots: torch.Tensor, P: int, qn, metric: str):
-    """The wave's candidate pool from the per-chunk top-(P+1): merge, mask
+def _pool(bufs, slots: torch.Tensor, P: int, qn, metric: str):
+    """The wave's candidate pool from the per-chunk top-(P+1) (the merge
+    buffer `bufs`, `exact_knn._chunk_buffers`): merge, mask
     self-matches, keep the top P; distances from the scores (L2 with the
     wave's squared norms `qn`)."""
-    scores, ids = merge_chunks(nds, nis, P + 1)
+    scores, ids = merge_chunks(*bufs, P + 1)
     scores = torch.where(ids == slots[:, None],
                          torch.full_like(scores, -math.inf), scores)
-    scores, ti = torch.topk(scores, P)
+    scores, ti = select_topk(scores, P)
     pool_ids = torch.gather(ids, 1, ti)
     pool_d = qn - scores if metric == "L2" else 1.0 - scores
     pool_d = torch.where(torch.isfinite(scores), pool_d,
@@ -118,16 +122,15 @@ def _build_step(tbl: torch.Tensor, bias: torch.Tensor, new_rows: torch.Tensor,
     # cosine/IP rows are the (normalized) vectors themselves
     qs = new_rows * 0.5 if metric == "L2" else new_rows
 
-    nds, nis = [], []
+    bufs = _chunk_buffers(qs.shape[0], n_chunks, P + 1, torch.float32,
+                          qs.device)
     for c in range(n_chunks):
         s = mm_bf16(qs, tbl[c])
-        s += bias[c]
-        nd, ni = torch.topk(s, P + 1)
+        select_topk(s, P + 1, bias=bias[c], offset=c * chunk,
+                    out=_cols(bufs, c, P + 1))
         del s  # free the [W, chunk] slab before the next chunk's
-        nds.append(nd)
-        nis.append(ni + c * chunk)
     qn = torch.sum(qs * qs, dim=1, keepdim=True) if metric == "L2" else None
-    pool_ids, pool_d = _pool(nds, nis, slots, P, qn, metric)
+    pool_ids, pool_d = _pool(bufs, slots, P, qn, metric)
     sel = _select(tbl, bias, pool_ids, pool_d, mmax, metric)
     return _pack(pool_ids, pool_d, sel)
 
@@ -156,18 +159,16 @@ def _build_step_i8(tbl_i8: torch.Tensor, scale: torch.Tensor,
     bias.view(-1).index_put_((slots,), new_bias)
     qs = new_rows * 0.5 if metric == "L2" else new_rows
 
-    nds, nis = [], []
+    bufs = _chunk_buffers(qs.shape[0], n_chunks, P + 1, torch.float32,
+                          qs.device)
     for c in range(n_chunks):
         s = mm_bf16(qs, tbl_i8[c])
-        s *= scale[c][None, :]
-        s += bias[c][None, :]
-        nd, ni = torch.topk(s, P + 1)
+        select_topk(s, P + 1, col_scale=scale[c], bias=bias[c],
+                    offset=c * chunk, out=_cols(bufs, c, P + 1))
         del s
-        nds.append(nd)
-        nis.append(ni + c * chunk)
     qn = (torch.sum(new_rows * new_rows, dim=1, keepdim=True) * 0.25
           if metric == "L2" else None)
-    pool_ids, pool_d = _pool(nds, nis, slots, P, qn, metric)
+    pool_ids, pool_d = _pool(bufs, slots, P, qn, metric)
 
     # pairwise candidate distances from rows dequantised in bf16
     safe = torch.where(pool_ids >= 0, pool_ids, torch.zeros_like(pool_ids))

@@ -7,7 +7,11 @@ with a score bias [n_chunks, CHUNK] (0 alive, -inf dead/padding).  A loop
 over chunks computes the scores (f32, or bf16 inputs with f32 results)
 and keeps each chunk's top candidates; ONE top-k merges them, then an
 exact f32 re-rank of the over-fetched candidates.  Where the JAX version
-calls `lax.approx_max_k`, this one calls `torch.topk`, which is exact.
+calls `lax.approx_max_k`, this one calls `select_topk`, the hand kernel
+`csrc/slab_topk.cu`: an exact selection that takes the slab's bias (and
+the i8 lane's rescale and bf16 rounding) as it reads the slab, with
+`lax.top_k`'s tie rule (equal keys by ascending position, +0.0 above
+-0.0); the merges use it too.
 Queries arrive as f16 (or f32) and unpadded, and results come back as one
 packed int32 array (ids | score bits), as in the JAX version, so both
 packages score the same inputs and return the same contract.
@@ -27,6 +31,7 @@ of the JAX package's upload, zero-pad, int8 quantisation).
 
 from __future__ import annotations
 
+import ctypes
 import math
 import threading
 from typing import Optional, Tuple
@@ -36,6 +41,7 @@ import torch
 
 from ..utils.device import (default_device, int_mm, mm_bf16,
                             prepare_queries, quantize_i8, to_device)
+from . import _build
 from . import fused_sweep as _fs
 
 MAX_CHUNK = 1 << 17
@@ -81,14 +87,189 @@ def rerank_pack(flat: torch.Tensor, qs: torch.Tensor, ids: torch.Tensor,
     return torch.cat([out_i.to(torch.int32), ts.view(torch.int32)], dim=1)
 
 
-def merge_chunks(nds, nis, kf: int):
-    """The best kf of the per-chunk candidates (scores, global ids)."""
-    alld = torch.cat(nds, dim=1)
-    alli = torch.cat(nis, dim=1)
+# -- the per-chunk selection: csrc/slab_topk.cu -------------------------------
+
+_TOPK_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong]
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+                  + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_longlong, ctypes.c_void_p])
+# the most bytes of sort scratch one launch takes (kf past the kernel's
+# shared sort buffer); more rows go in further launches
+TOPK_SCRATCH_BYTES = 1 << 28
+
+
+def _bind_topk(lib: ctypes.CDLL) -> ctypes.CDLL:
+    if lib.cozo_slab_topk.argtypes is None:
+        lib.cozo_slab_topk.argtypes = _TOPK_ARGTYPES
+        lib.cozo_slab_topk.restype = ctypes.c_int
+        lib.cozo_slab_topk_sort_cap.argtypes = []
+        lib.cozo_slab_topk_sort_cap.restype = ctypes.c_int
+    return lib
+
+
+def _topk_lib() -> ctypes.CDLL:
+    return _bind_topk(_build.load("slab_topk"))
+
+
+def order_key(v: torch.Tensor) -> torch.Tensor:
+    """The int32 key of f32 (or bf16, widened) values that orders as the
+    values do, +0.0 above -0.0 (`lax.top_k`'s total order)."""
+    u = v.float().contiguous().view(torch.int32)
+    return u ^ ((u >> 31) & 0x7FFFFFFF)
+
+
+def slab_key(x: torch.Tensor, col_scale=None, row_scale=None, bias=None,
+             bf16: bool = False) -> torch.Tensor:
+    """The selection's key of slab x [B, W] (f32, int32 or bf16): ((x *
+    col_scale[j]) * row_scale[i]) + bias[j], each factor where given, in
+    separate f32 passes, then rounded to bf16 where asked."""
+    key = x.float()
+    if col_scale is not None:
+        key = key * col_scale[None, :]
+    if row_scale is not None:
+        key = key * row_scale[:, None]
+    if bias is not None:
+        key = key + bias[None, :]
+    return key.to(torch.bfloat16) if bf16 else key
+
+
+def select_topk_plain(x: torch.Tensor, kf: int, col_scale=None,
+                      row_scale=None, bias=None, bf16: bool = False,
+                      offset: int = 0):
+    """Plain version of `select_topk`: the keys' `order_key`, each made
+    unique by its position (key << 32 | 2^32 - 1 - position, int64), and
+    the kf largest of those: the first kf of a stable descending sort of
+    the keys (ties by ascending position), at the cost of a top-k.
+    Returns (values [B, kf] f32, or bf16 where asked or x is bf16; ids
+    [B, kf] int64 = position + offset)."""
+    key = slab_key(x, col_scale, row_scale, bias,
+                   bf16 or x.dtype == torch.bfloat16)
+    pos = torch.arange(key.shape[1], dtype=torch.int64, device=key.device)
+    unique = (order_key(key).to(torch.int64) << 32) | (0xFFFFFFFF - pos)
+    _, pos = torch.topk(unique, kf)
+    return torch.gather(key, 1, pos), pos + offset
+
+
+def _check_topk(x, kf, col_scale, row_scale, bias, bf16, out):
+    if x.dim() != 2 or x.stride(1) != 1:
+        raise ValueError(f"select_topk: x must be [B, W] with unit column "
+                         f"stride, got {tuple(x.shape)} / {x.stride()}")
+    B, W = x.shape
+    if x.dtype not in (torch.float32, torch.int32, torch.bfloat16):
+        raise TypeError(f"select_topk: x must be f32, int32 or bf16, got "
+                        f"{x.dtype}")
+    if x.dtype == torch.bfloat16 and not (
+            col_scale is None and row_scale is None and bias is None):
+        raise ValueError("select_topk: a bf16 slab takes no prologue")
+    if not 1 <= kf <= W or W >= 1 << 31:
+        raise ValueError(f"select_topk: needs 1 <= kf <= W < 2^31 (kf={kf}, "
+                         f"W={W})")
+    for name, v, n in (("col_scale", col_scale, W), ("row_scale", row_scale, B),
+                       ("bias", bias, W)):
+        if v is not None and (v.dtype != torch.float32 or v.dim() != 1
+                              or v.shape[0] != n or not v.is_contiguous()
+                              or v.device != x.device):
+            raise ValueError(f"select_topk: {name} must be contiguous f32 "
+                             f"[{n}] on {x.device}")
+    if out is not None:
+        vals, ids = out
+        want = torch.bfloat16 if bf16 or x.dtype == torch.bfloat16 \
+            else torch.float32
+        if (tuple(vals.shape) != (B, kf) or tuple(ids.shape) != (B, kf)
+                or vals.dtype != want or ids.dtype != torch.int64
+                or vals.stride(1) != 1 or ids.stride(1) != 1
+                or (B > 1 and vals.stride(0) != ids.stride(0))
+                or vals.device != x.device or ids.device != x.device):
+            raise ValueError(f"select_topk: out must be ({want}, int64) "
+                             f"[{B}, {kf}] with unit column stride and one "
+                             f"row stride, on {x.device}")
+
+
+def select_topk(x: torch.Tensor, kf: int, col_scale=None, row_scale=None,
+                bias=None, bf16: bool = False, offset: int = 0, out=None):
+    """The kf largest keys of each row of slab x [B, W] (f32, int32, or
+    bf16 without a prologue; key as `slab_key`), descending, equal keys
+    by ascending position: (values, ids = position + offset int64), into
+    `out` (two [B, kf] views with one row stride, e.g. a chunk's columns
+    of a merge buffer) where given.  CUDA tensors launch
+    `csrc/slab_topk.cu` on the current stream (each launch counted in
+    `select_topk.launches`); CPU tensors run `select_topk_plain`."""
+    _check_topk(x, kf, col_scale, row_scale, bias, bf16, out)
+    if x.device.type == "cpu":
+        vals, ids = select_topk_plain(x, kf, col_scale, row_scale, bias,
+                                      bf16, offset)
+        if out is None:
+            return vals, ids
+        out[0].copy_(vals)
+        out[1].copy_(ids)
+        return out
+    if x.device.type != "cuda":
+        raise ValueError(f"select_topk: unsupported device {x.device}")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        out, launches = _topk_run(_topk_lib(), x, kf, col_scale, row_scale,
+                                  bias, bf16, offset, out, stream)
+    select_topk.launches += launches
+    return out
+
+
+select_topk.launches = 0
+
+
+def _topk_run(lib, x, kf, col_scale, row_scale, bias, bf16, offset, out,
+              stream):
+    """Enqueues the kernel of `lib` on `stream` for checked arguments, with
+    sort scratch where kf needs it, in launches of at most
+    TOPK_SCRATCH_BYTES of scratch; returns (out, the number of
+    launches)."""
+    if x.dtype == torch.bfloat16:  # exact widening; the kernel rounds back
+        x, bf16 = x.float(), True
+    B, W = x.shape
+    if out is None:
+        out = (torch.empty((B, kf), device=x.device,
+                           dtype=torch.bfloat16 if bf16 else torch.float32),
+               torch.empty((B, kf), dtype=torch.int64, device=x.device))
+    n_sort = _pad_pow2(kf)
+    scratch, rows = None, max(B, 1)
+    if n_sort > lib.cozo_slab_topk_sort_cap():
+        rows = max(1, min(B, TOPK_SCRATCH_BYTES // (8 * n_sort)))
+        scratch = torch.empty((rows, n_sort), dtype=torch.int64,
+                              device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    launches = 0
+    for row0 in range(0, B, rows):
+        err = lib.cozo_slab_topk(
+            x.data_ptr(), int(x.dtype == torch.int32),
+            x.stride(0) if B > 1 else W, min(rows, B - row0), W, kf,
+            ptr(col_scale), ptr(row_scale), ptr(bias), out[0].data_ptr(),
+            int(bf16), out[1].data_ptr(), out[0].stride(0) if B > 1 else kf,
+            offset, ptr(scratch), n_sort, row0, stream)
+        _build.check(lib, err, "slab_topk launch")
+        launches += 1
+    return out, launches
+
+
+def merge_chunks(alld: torch.Tensor, alli: torch.Tensor, kf: int):
+    """The best kf of the per-chunk candidates alld [B, n_chunks * kc]
+    (scores, chunk-major) with their global ids alli: the chunks' own
+    order breaks ties, lower position first, as the JAX merge's
+    `lax.top_k` does."""
     if alld.shape[1] == kf:
         return alld, alli
-    bs, sel = torch.topk(alld, min(kf, alld.shape[1]))
+    bs, sel = select_topk(alld, min(kf, alld.shape[1]))
     return bs, torch.gather(alli, 1, sel)
+
+
+def _chunk_buffers(B: int, n_chunks: int, kc: int, dtype, device):
+    """The merge buffer's scores and ids, [B, n_chunks * kc]: chunk c's
+    selection writes columns c * kc ... (c + 1) * kc."""
+    return (torch.empty((B, n_chunks * kc), dtype=dtype, device=device),
+            torch.empty((B, n_chunks * kc), dtype=torch.int64, device=device))
+
+
+def _cols(bufs, c: int, kc: int):
+    return tuple(t[:, c * kc:(c + 1) * kc] for t in bufs)
 
 
 def _sweep(tbl: torch.Tensor, bias: torch.Tensor, qs: torch.Tensor,
@@ -102,18 +283,16 @@ def _sweep(tbl: torch.Tensor, bias: torch.Tensor, qs: torch.Tensor,
     n_chunks, chunk, d_pad = tbl.shape
     kf = max(k, rerank_k)
     kc = min(kf, chunk)
-    nds, nis = [], []
+    bufs = _chunk_buffers(qs.shape[0], n_chunks, kc, torch.float32, qs.device)
     for c in range(n_chunks):
         if compute_dtype == "bf16":
             s = mm_bf16(qs, tbl[c])
         else:
             s = qs @ tbl[c].T
-        s += bias[c]
-        nd, ni = torch.topk(s, kc)
+        select_topk(s, kc, bias=bias[c], offset=c * chunk,
+                    out=_cols(bufs, c, kc))
         del s  # free the [B, chunk] slab before the next chunk's
-        nds.append(nd)
-        nis.append(ni + c * chunk)
-    bs, bi = merge_chunks(nds, nis, kf)
+    bs, bi = merge_chunks(*bufs, kf)
     if rerank_k <= 0:
         return torch.cat([bi.to(torch.int32), bs.view(torch.int32)], dim=1)
     valid = (bi >= 0) & torch.isfinite(bs)
@@ -143,17 +322,15 @@ def _sweep_i8(tbl_i8: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     n_chunks, chunk, d_pad = tbl.shape
     kf = max(k, rerank_k)
     kc = min(kf, chunk)
-    nds, nis = [], []
+    bufs = _chunk_buffers(qs.shape[0], n_chunks, kc, torch.bfloat16,
+                          qs.device)
     for c in range(n_chunks):
-        s = int_mm(q_i8, tbl_i8[c]).float()
-        s *= scale[c][None, :]
-        s *= q_scale[:, None]
-        s += bias[c][None, :]
-        nd, ni = torch.topk(s.to(torch.bfloat16), kc)
+        s = int_mm(q_i8, tbl_i8[c])
+        select_topk(s, kc, col_scale=scale[c], row_scale=q_scale,
+                    bias=bias[c], bf16=True, offset=c * chunk,
+                    out=_cols(bufs, c, kc))
         del s
-        nds.append(nd)
-        nis.append(ni + c * chunk)
-    bs, bi = merge_chunks(nds, nis, kf)
+    bs, bi = merge_chunks(*bufs, kf)
     valid = (bi >= 0) & torch.isfinite(bs.float())
     return rerank_pack(tbl.reshape(-1, d_pad), qs, bi, valid, k, metric)
 

@@ -188,17 +188,17 @@ def serve(tbl_flat: torch.Tensor, bias_flat: torch.Tensor,
     Returns the packed int32 [B, 2k] (ids | score bits) of
     `exact_knn._sweep`.
 
-    Selection over the packed array is an exact `torch.topk` at every
-    width, where the JAX version switches to `approx_max_k` past 4,096
-    packed columns."""
-    from .exact_knn import rerank_pack
+    Selection over the packed array is the exact `exact_knn.select_topk`
+    (`csrc/slab_topk.cu`) at every width, where the JAX version switches
+    to `approx_max_k` past 4,096 packed columns."""
+    from .exact_knn import rerank_pack, select_topk
 
     qs = qs_in.float()
     if d_in and d_in < d_pad:
         qs = torch.nn.functional.pad(qs, (0, d_pad - d_in))
     packed = fused_sweep(qs.to(torch.bfloat16).contiguous(), tbl_flat,
                          bias_flat)
-    vals, pos = torch.topk(packed, min(kf, packed.shape[1]))
+    vals, pos = select_topk(packed, min(kf, packed.shape[1]))
     col = vals.view(torch.int32) & (SEG - 1)
     rows_id = (pos >> 1) * SEG + col
     valid = vals > NEG_FILL * 0.5

@@ -11,9 +11,10 @@ Design (ScaNN-family asymmetric scoring):
     against the f32 vectors (which stay in host RAM), restoring exact
     top-k order.
 
-Differences from the JAX module: the per-chunk selection is an exact
-`torch.topk` where JAX calls `lax.approx_max_k`.  An exact top-k has no
-un-aggregated form, so every chunk gives exactly kf candidates and the JAX
+Differences from the JAX module: the per-chunk selection is the exact
+`exact_knn.select_topk` (the hand kernel `csrc/slab_topk.cu`, which
+rescales and biases the int32 products as it reads them) where JAX calls
+`lax.approx_max_k`.  An exact top-k has no un-aggregated form, so every chunk gives exactly kf candidates and the JAX
 module's `_AGG_CHUNKS` switch (aggregate per chunk past 16 chunks, defer
 to the end merge below) has no counterpart here.  Queries are uploaded as
 f32 and normalised and quantised on the device
@@ -32,7 +33,8 @@ import torch
 
 from ..utils.device import (default_device, int_mm, PendingPull,
                             prepare_queries, to_device)
-from .exact_knn import _chunking, merge_chunks
+from .exact_knn import (_chunk_buffers, _chunking, _cols, merge_chunks,
+                        select_topk)
 
 
 def _qsweep(tbl_i8: torch.Tensor, scales: torch.Tensor, bias: torch.Tensor,
@@ -46,17 +48,15 @@ def _qsweep(tbl_i8: torch.Tensor, scales: torch.Tensor, bias: torch.Tensor,
     use bias 0 (dead rows -inf).  Returns the packed int32 [B, 2 kf]
     (ids | score bits)."""
     n_chunks, chunk, _ = tbl_i8.shape
-    nds, nis = [], []
+    kc = min(kf, chunk)
+    bufs = _chunk_buffers(qs_i8.shape[0], n_chunks, kc, torch.float32,
+                          qs_i8.device)
     for c in range(n_chunks):
-        s = int_mm(qs_i8, tbl_i8[c]).float()
-        s *= scales[c][None, :]
-        s *= q_scale[:, None]
-        s += bias[c][None, :]
-        nd, ni = torch.topk(s, min(kf, chunk))
+        s = int_mm(qs_i8, tbl_i8[c])
+        select_topk(s, kc, col_scale=scales[c], row_scale=q_scale,
+                    bias=bias[c], offset=c * chunk, out=_cols(bufs, c, kc))
         del s  # free the [B, chunk] slab before the next chunk's
-        nds.append(nd)
-        nis.append(ni + c * chunk)
-    ss, ii = merge_chunks(nds, nis, kf)
+    ss, ii = merge_chunks(*bufs, kf)
     return torch.cat([ii.to(torch.int32), ss.view(torch.int32)], dim=1)
 
 

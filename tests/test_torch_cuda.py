@@ -1,6 +1,6 @@
 """Tests of the port that need an NVIDIA card (marker `cuda`): each CUDA
-kernel (`fused_sweep`, `beam_search`, the three graph kernels, `minhash`)
-against its plain PyTorch version, the graph rules' entry points and a
+kernel (`fused_sweep`, `beam_search`, the three graph kernels, `minhash`,
+`slab_topk`) against its plain PyTorch version, the graph rules' entry points and a
 MinHash-LSH Db on the card against the same calls on the CPU, the
 MinHash dispatch's own pinned buffers,
 the lanes end to end through the kernels, the staging buffers of a
@@ -23,12 +23,14 @@ from chip_smoke import (BEAM_CASES, GRAPH_LP_LABELS, GRAPH_LP_WIDTHS,
                         GRAPH_PR_CASES, GRAPH_SSSP_CASES, MINHASH_CASES,
                         PR_L1_TOL, SSSP_FORCED_SHARES, graph_csr,
                         lp_inputs, minhash_inputs, minhash_tensors,
-                        pagerank_agreement, pr_inputs, sssp_inputs)
+                        pagerank_agreement, pr_inputs, sssp_inputs,
+                        topk_cases, topk_inputs, topk_same)
 from chip_smoke import PHASE2_SHAPES as SHAPES
 from chip_smoke import (agreement_ok, beam_args, beam_case, beam_ok,
                         compare_beam, compare_fused, random_case)
 from cozo_tpu_torch import HnswIndex, sweep_search
 from cozo_tpu_torch.ops import _build
+from cozo_tpu_torch.ops import exact_knn as ek
 from cozo_tpu_torch.ops import fused_sweep as fs
 from cozo_tpu_torch.ops import graph_algos as ga
 from cozo_tpu_torch.ops import minhash as mh
@@ -664,3 +666,52 @@ def test_device_trace_names_a_kernel(cuda, tmp_path):
         events = json.load(f)["traceEvents"]
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
     assert any("sweep_" in k for k in kernels), sorted(kernels)
+
+
+TOPK_CASES = topk_cases(widths=(512, 4097, 10_240), ragged=None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", range(len(TOPK_CASES)),
+                         ids=[f"B{B}-W{W}-kf{kf}-{v}-{k}"
+                              for B, W, kf, v, k in TOPK_CASES])
+def test_slab_topk_matches_plain(cuda, i):
+    """Every variant and kind of `chip_smoke.py` phase 2 up to W = 10,240:
+    values and ids bit-equal to the plain version, two runs identical, one
+    launch each."""
+    B, W, kf, variant, kind = TOPK_CASES[i]
+    x, kw = topk_inputs(B, W, variant, kind, i, cuda)
+    before = ek.select_topk.launches
+    got = ek.select_topk(x, kf, **kw)
+    again = ek.select_topk(x, kf, **kw)
+    assert ek.select_topk.launches == before + 2
+    assert topk_same(got, ek.select_topk_plain(x, kf, **kw))
+    assert topk_same(got, again)
+
+
+@pytest.mark.cuda
+def test_slab_topk_refuses_tensors_off_the_card(cuda):
+    x = torch.zeros((4, 512), device=cuda)
+    with pytest.raises(ValueError):
+        ek.select_topk(x, 10, bias=torch.zeros(512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", ["f32", "bf16", "i8", "fused"])
+def test_every_sweep_lane_selects_through_slab_topk(cuda, cd):
+    """A lane's search launches the selection kernel (one per chunk and
+    the merge; the fused lane once over its packed array) and returns the
+    CPU's ids."""
+    rng = np.random.default_rng(4)
+    data = rng.standard_normal((3000, 24)).astype(np.float32)
+    qs = rng.standard_normal((64, 24)).astype(np.float32)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        idx = HnswIndex(dim=24, m=8, ef_construction=32, distance="Cosine",
+                        device=dev)
+        idx.bulk_build(data, wave=1024)
+        before = ek.select_topk.launches
+        got[dev] = sweep_search(idx, qs, 5, compute_dtype=cd)[0]
+        if dev == "cuda":
+            assert ek.select_topk.launches > before
+    assert np.mean(got["cpu"] == got["cuda"]) > 0.99

@@ -30,10 +30,12 @@ def _inserted(distance, n, d, seed):
 @pytest.mark.parametrize("distance", ["L2", "Cosine", "IP"])
 def test_sweep_i8_lane_matches_exact(distance):
     """int8 scoring + exact f32 re-rank: recall against the host's exact
-    answer clears the JAX test's bar (0.97) and is no worse than the JAX
-    lane's on the same index (0.002: the bf16 slab's ties break
-    differently under `torch.topk` and `approx_max_k`, so the comparison is
-    after the re-rank); re-ranked distances are exact f32."""
+    answer clears the JAX test's bar (0.97), and the ids are the JAX
+    lane's on the same index, rank for rank.  (The comparison is after the
+    re-rank: JAX's un-aggregated `approx_max_k` on the CPU hands its
+    merge the bins in an order of its own, by which that merge breaks the
+    bf16 slab's ties, and XLA fuses the slab's last multiply and add.)
+    Re-ranked distances are exact f32."""
     rng, data, jidx, tidx = _inserted(distance, 3000, 48, 6)
     B, k = 128, 10
     qs = rng.standard_normal((B, 48)).astype(np.float32)
@@ -42,7 +44,7 @@ def test_sweep_i8_lane_matches_exact(distance):
     gt_ids, gt_d = tidx._bf_candidates_np(qs, k)
     rec = recall(ids, gt_ids)
     assert rec > 0.97, rec
-    assert rec >= recall(ids_j, gt_ids) - 0.002
+    assert np.array_equal(ids, np.asarray(ids_j))
     mask = ids == gt_ids  # rows where ranks agree exactly
     np.testing.assert_allclose(dists[mask], gt_d[mask], rtol=2e-3, atol=2e-3)
 
