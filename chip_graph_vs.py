@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""A graph kernel of this checkout beside another checkout's, on one card.
+"""A kernel of this checkout beside another checkout's, on one card.
 
     git archive <commit> | tar -x -C .archive/other   # a git-ignored dir
     python3 chip_graph_vs.py --other .archive/other
     python3 chip_graph_vs.py --kernel pagerank --other .archive/other
+    python3 chip_graph_vs.py --kernel slab_topk --other .archive/other
 
-Builds the kernel's source (`cozo_tpu_torch/csrc/graph_labelprop.cu` or
-`graph_pagerank.cu`) of both checkouts with this checkout's nvcc flags,
-runs each build in turns (other, this, this, other) and prints a line a
-shape.
+Builds the kernel's source (`cozo_tpu_torch/csrc/graph_labelprop.cu`,
+`graph_pagerank.cu` or `slab_topk.cu`) of both checkouts with this
+checkout's nvcc flags, runs each build in turns (other, this, this,
+other) and prints a line a shape.
 
 `--kernel labelprop` (the default; the C entry point `cozo_lp_pick` has
 kept its arguments since it was written) stages the label-propagation
@@ -27,6 +28,16 @@ destination-sorted sources) or the binned one; each result is held to the
 plain version (L1, the same top 100) and two runs must be bit-identical,
 unless `--unchecked-other` says that the other build computes something
 else (a stream floor with the gather replaced).
+
+`--kernel slab_topk` times the per-chunk selection (`slab_topk.cu`, whose
+C entry point `cozo_slab_topk` has kept its arguments since it was
+written) at the slabs `chip_smoke.py` phase 4 times: the lanes' six
+chunks and the five merges, from the table of phase 3's index (the same
+`glove_like` rows, seed 42, made into the sweep table without the graph),
+and at a worst case, ascending keys at the bf16 lane's shape.  Each call
+is replayed from a CUDA graph (`chip_smoke.graph_ms`: the device's time);
+each result is held to the plain version, bit for bit, and two runs must
+be identical.
 
 `--sector-model` runs no kernel and needs no card: it counts, on the
 host, the distinct 32-byte sectors each window of 32 consecutive gathers
@@ -58,15 +69,32 @@ def build_other(root, out_dir, name):
 
     # a file of its own per checkout: dlopen hands back the library
     # already loaded from a path
-    out = os.path.join(out_dir, f"{name}_{len(os.listdir(out_dir))}.so")
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out,
-                    os.path.join(root, "cozo_tpu_torch", "csrc",
-                                 f"{name}.cu")],
-                   check=True, capture_output=True, text=True)
+    out = os.path.join(out_dir, f"{name}_{abs(hash(root))}.so")
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out,
+                           os.path.join(root, "cozo_tpu_torch", "csrc",
+                                        f"{name}.cu")],
+                          check=True, capture_output=True, text=True)
+    say_ptxas(f"{name} of {root}", proc.stderr)
     lib = ctypes.CDLL(out)
     lib.cozo_cuda_error_string.argtypes = [ctypes.c_int]
     lib.cozo_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def say_ptxas(what, log):
+    """ptxas's registers, shared memory and spills of each kernel."""
+    for line in log.splitlines():
+        if "Used" in line or "spill" in line:
+            cs.say(f"  ptxas {what}: {line.strip()}")
+
+
+def build_others(roots, out_dir, name):
+    """`build_other` of each root, the builds run together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(roots)) as ex:
+        libs = list(ex.map(lambda r: build_other(r, out_dir, name), roots))
+    return dict(zip(roots, libs))
 
 
 # the kernels of either PageRank build, for the profiler's breakdown
@@ -212,6 +240,73 @@ def compare_pagerank(libs, indptr, dst, dev, reps, where, check_other):
                f"({ms['this']}), {other / this:.2f}x")
 
 
+def sweep_index(data):
+    """What the sweep reads of phase 3's index (its rows, slots equal to
+    ids, every row alive), without the graph, its tables made by one
+    call of each lane."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from cozo_tpu_torch import sweep_search
+
+    index = SimpleNamespace(
+        vectors=data, norms=np.einsum("ij,ij->i", data, data, dtype=np.float64),
+        alive=np.ones(len(data), bool), n=len(data), dim=data.shape[1],
+        distance="Cosine", version=1, sweep_pending=set(), device=None,
+        _sweep_table=None)
+    q = data[:64]
+    for cd, rk in (("f32", None), ("i8", 64), ("fused", None)):
+        sweep_search(index, q, cs.K, compute_dtype=cd, rerank_k=rk,
+                     exact_rerank=cd != "f32")
+    return index
+
+
+def ascending_slab(dev):
+    """The worst case of a running threshold at the bf16 lane's shape:
+    every row's keys ascend, so every element beats the threshold."""
+    import torch
+
+    return ("ascending keys", torch.arange(
+        131_072, dtype=torch.float32, device=dev).expand(cs.NQ, -1)
+        .contiguous(), 26, {})
+
+
+def compare_topk(libs, shapes, reps):
+    """Each build on every slab, in turns (other, this, this, other)."""
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    for lane, x, kf, kw in shapes:
+        B, W = x.shape
+        want = cs.topk_plain_blocks(x, kf, kw)
+        runs = {name: (lambda lib=lib: ek._topk_run(
+            lib, x, kf, kw.get("col_scale"), kw.get("row_scale"),
+            kw.get("bias"), kw.get("bf16", False), 0, None,
+            torch.cuda.current_stream().cuda_stream)[0])
+            for name, lib in libs.items()}
+        for name, run in runs.items():
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            if not (cs.topk_same(got, want) and cs.topk_same(got, again)):
+                raise SystemExit(f"{name} disagrees with plain: {lane}")
+        del want
+        for name in libs:
+            if name == "this":
+                continue
+            ms = {name: [], "this": []}
+            for turn in (name, "this", "this", name):
+                ms[turn].append(cs.graph_ms(runs[turn], reps))
+            other, this = (sum(v) / len(v) for v in (ms[name], ms["this"]))
+            cs.say(f"slab_topk {lane} [{B} x {W}] {x.dtype} kf {kf} "
+                   f"prologue {sorted(kw) or 'none'}: {name} {other:.4f} ms "
+                   f"({ms[name]}), this {this:.4f} ms ({ms['this']}), "
+                   f"{other / this:.2f}x; both bit-equal to plain")
+        del x, kw, runs
+        torch.cuda.empty_cache()
+
+
 def compare_lanes(libs, cache_key, n_real, ended, dev, reps, where):
     import torch
 
@@ -250,14 +345,15 @@ def main():
     ap.add_argument("--sector-model", action="store_true",
                     help="PageRank's gather model on the host instead (no "
                          "card): sectors an edge of each layout")
-    ap.add_argument("--kernel", choices=("labelprop", "pagerank"),
+    ap.add_argument("--kernel", choices=("labelprop", "pagerank",
+                                         "slab_topk"),
                     default="labelprop")
     ap.add_argument("--unchecked-other", action="store_true",
                     help="the other build computes another function (a "
                          "stream floor): time it, do not hold it to plain")
     ap.add_argument("--reps", type=int, default=None,
                     help="replays timed (default: 100 picks, 20 PageRank "
-                         "calls)")
+                         "calls, 5 selections)")
     args = ap.parse_args()
     if args.sector_model:
         from cozo_tpu_torch.ops import graph_algos as ga
@@ -278,10 +374,29 @@ def main():
     from cozo_tpu_torch.utils.datasets import glove_like
 
     dev = default_device()
+    if args.kernel == "slab_topk":
+        import itertools
+
+        from cozo_tpu_torch.ops import exact_knn as ek
+
+        with tempfile.TemporaryDirectory() as tmp:
+            libs = {root: ek._bind_topk(lib) for root, lib in build_others(
+                args.other, tmp, "slab_topk").items()}
+            libs["this"] = ek._topk_lib()
+            for what, (_, log) in _build.BUILD_INFO.items():
+                say_ptxas(f"{what} of this checkout", log)
+            data = glove_like(cs.N + cs.NQ, cs.D, seed=42)
+            qs, data = data[cs.N:], data[:cs.N]
+            index = sweep_index(data)
+            compare_topk(libs, itertools.chain(
+                cs.topk_main_shapes(index, qs),
+                cs.topk_merge_shapes(index, qs), [ascending_slab(dev)]),
+                args.reps or 5)
+        cs.say(cs.smi_line())
+        return 0
     if args.kernel == "pagerank":
         with tempfile.TemporaryDirectory() as tmp:
-            libs = {root: build_other(root, tmp, "graph_pagerank")
-                    for root in args.other}
+            libs = build_others(args.other, tmp, "graph_pagerank")
             libs["this"] = _build.load("graph_pagerank")
             reps = args.reps or 20
             ip, d = cs.make_graph(cs.LJ_NODES, cs.LJ_EDGES)

@@ -44,8 +44,10 @@ Phases, each reported on its own line; any failure exits non-zero:
      10, 26, 40, 97, 256, 1,000 and the width, B = 1 and 17 and a ragged
      block of launches (300 rows, kf = 131,072), with planted ties, +-0.0,
      a row all -inf, a row with fewer live entries than kf and a bf16 key
-     slab from int8 products: values and ids bit-equal to the plain
-     version, two runs bit-identical;
+     slab from int8 products; ascending and descending keys and the best
+     in the last columns at widths 512 and 131,072; the merges' widths 260
+     and 970: values and ids bit-equal to the plain version, two runs
+     bit-identical;
   5. (run before phase 3) drive the Db through CozoScript, the script of
      `benches/bench_hybrid_1m.py` phases 1-4 at full size: `glove_like`
      data (seed 42), `Db("mem")` on the card, ingest by `:put` batches of
@@ -89,7 +91,8 @@ Phases, each reported on its own line; any failure exits non-zero:
      bar; prints a `hosts` line;
   3. drive the index's main path through the user entry points on the
      index phase 5 built (the same data, `bulk_build(wave=8192)`): then
-     `sweep_search` with the f32 lane as ground truth and the fused,
+     `sweep_search` with the f32 lane as ground truth (its first call,
+     then 3 timed warm calls with the same ids) and the fused,
      bf16+rerank, raw bf16 and i8+rerank lanes at B=16,384 (one warm call
      and `--reps` timed reps for the fused lane, 3 for the others),
      holding each lane's recall@10 to its bar; then `HnswIndex.search`
@@ -150,8 +153,11 @@ Phases, each reported on its own line; any failure exits non-zero:
      from phase 3's index: the bf16 / f32 lanes' [16,384 x 131,072] f32
      with the bias at kf 26 and 10, the i8 lane's int32 products at kf
      64, the quant shape [4,096 x 131,072] at kf 40, the build's [8,192 x
-     131,072] at kf 97 and the fused lane's packed array at kf 26, beside
-     the plain version (in row blocks) and `torch.topk` on the key slab; the graph kernels at phase 7's, `minhash` at phase
+     131,072] at kf 97 and the fused lane's packed array at kf 26, then
+     the merges' buffers as the lanes fill them: [16,384 x 260] kf 26,
+     [16,384 x 100] kf 10, [16,384 x 640] bf16 kf 64, the build's [8,192
+     x 970] kf 97 and its pool [8,192 x 97] kf 96, beside the plain
+     version (in row blocks) and `torch.topk` on the key slab; the graph kernels at phase 7's, `minhash` at phase
      8's first backfill chunk, with a chunk's upload and copy back) with
      CUDA events, beside its bound and its plain version, and the fused
      routes and PageRank beside a one-call PyTorch yardstick (for
@@ -826,20 +832,31 @@ TOPK_VARIANTS = {
 # values from TOPK_TIES (+-0.0 among them; a 4-wide int8 product); dead: a
 # row all -inf and a row with 3 live entries (int32 slabs: every column
 # but 3 dead); i8_real: a bf16 key slab from int8 products of quantised
-# normal rows (the i8 lane's ties)
-TOPK_KINDS = ("random", "ties", "dead", "i8_real")
+# normal rows (the i8 lane's ties); then the orders a running threshold
+# finds hardest: ascending keys (every element beats the threshold),
+# descending keys, and tail: the 300 best in the last columns
+TOPK_KINDS = ("random", "ties", "dead", "i8_real", "ascending", "descending",
+              "tail")
+TOPK_ORDER_KINDS = TOPK_KINDS[4:]
 TOPK_TIES = (0.0, -0.0, 1.0, -1.0, 2.5, -2.5, -np.inf)
 TOPK_WIDTHS = (512, 4097, 10_240, 16_384, 131_072)
 TOPK_KFS = (1, 10, 26, 40, 97, 256, 1000, None)  # None: the full width
 TOPK_RAGGED = (300, 131_072)  # kf = W: 256 rows a launch, then 44
+# the merges' widths (a bf16 lane's 10 x 26, the build's 10 x 97): one
+# warp a row, several rows a block
+TOPK_NARROW = (260, 970)
 
 
 def topk_cases(widths=TOPK_WIDTHS, ragged=TOPK_RAGGED):
     """Phase 2's (B, W, kf, variant, kind): every width at every kf (B = 17,
-    every fifth case B = 1), the variants and kinds in turn; every variant
-    with every kind at the second width, kf = 26 and 97; and the ragged
-    block of launches (kf = W past the scratch of one launch)."""
+    every fifth case B = 1), the variants and the first four kinds in
+    turn; every variant with each of those kinds at the second width, kf =
+    26 and 97; the ragged block of launches (kf = W past the scratch of
+    one launch); then every variant with every order kind at the first
+    and the last width, kf = 26 and 97; and the narrow widths at every kf,
+    the variants and all kinds in turn."""
     names = list(TOPK_VARIANTS)
+    first = TOPK_KINDS[:4]
     cases = []
     for W in widths:
         for kf in TOPK_KFS:
@@ -849,13 +866,26 @@ def topk_cases(widths=TOPK_WIDTHS, ragged=TOPK_RAGGED):
             i = len(cases)
             cases.append((1 if i % 5 == 4 else 17, W, kf,
                           names[i % len(names)],
-                          TOPK_KINDS[(i // len(names)) % len(TOPK_KINDS)]))
+                          first[(i // len(names)) % len(first)]))
     for variant in names:
-        for kind in TOPK_KINDS:
+        for kind in first:
             for kf in (26, 97):
                 cases.append((17, widths[1], kf, variant, kind))
     if ragged:
         cases.append((ragged[0], ragged[1], ragged[1], "packed", "random"))
+    for W in (widths[0], widths[-1]):
+        for variant in names:
+            for kind in TOPK_ORDER_KINDS:
+                for kf in (26, 97):
+                    cases.append((17, W, kf, variant, kind))
+    for n, W in enumerate(TOPK_NARROW):
+        for m, kf in enumerate(TOPK_KFS):
+            kf = W if kf is None else kf
+            if kf > W:
+                continue
+            cases.append((1 if m % 5 == 4 else 17, W, kf,
+                          names[(n + m) % len(names)],
+                          TOPK_KINDS[(3 * n + m) % len(TOPK_KINDS)]))
     return cases
 
 
@@ -865,6 +895,27 @@ def _int8_rows(rng, n, d):
     sc = np.abs(v).max(axis=1) / 127.0
     return np.clip(np.rint(v / sc[:, None]), -127, 127).astype(np.int32), \
         sc.astype(np.float32)
+
+
+def _ordered(rng, x, kind):
+    """(slab, column scale, bias) of an order kind from a random slab: the
+    scale constant and the bias in the slab's order, so that the keys
+    keep it (ascending, descending), or the 300 best in the last columns
+    (tail)."""
+    B, W = x.shape
+    c = np.full(W, 0.005, np.float32)
+    b = np.sort(-rng.random(W)).astype(np.float32)
+    if kind == "tail":
+        t = min(W, 300)
+        big = x.max() + 1 + rng.integers(0, 1000, (B, t)) \
+            if x.dtype.kind == "i" else 50 + rng.random((B, t))
+        x = x.copy()
+        x[:, -t:] = big.astype(x.dtype)
+        return x, c, b * np.float32(0.001)
+    x = np.sort(x, axis=1)
+    if kind == "descending":
+        x, b = x[:, ::-1], b[::-1]
+    return x, c, np.ascontiguousarray(b)
 
 
 def topk_inputs(B, W, variant, kind, seed, dev):
@@ -917,6 +968,8 @@ def topk_inputs(B, W, variant, kind, seed, dev):
                 x[1] = -np.inf
                 x[1, rng.choice(W, 3, replace=False)] = keep
             b[::7] = -np.inf
+    if kind in TOPK_ORDER_KINDS:
+        x, c, b = _ordered(rng, x, kind)
     xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     if dtype == "bf16":
         xt = xt.to(torch.bfloat16)
@@ -1022,10 +1075,20 @@ def phase_main(index, qs, build_s, reps):
     gt, gt_d = sweep_search(index, qs, K, rt=1.0, compute_dtype="f32",
                             exact_rerank=False)
     topk_read("index f32 (phase 3)", "phase 3")
-    say(f"phase 3 f32 ground truth in {time.time() - t0:.2f}s (first call; "
-        f"earlier, PERF.md section 5: {EARLIER_LANE_MS['f32']} ms a batch warm)")
+    first_s = time.time() - t0
     if gt.shape != (NQ, K) or not np.isfinite(gt_d).all() or (gt < 0).any():
         raise SystemExit("phase 3 failed: f32 lane returned bad rows")
+    warm = []
+    for _ in range(OTHER_LANE_REPS):
+        t0 = time.time()
+        again, _ = sweep_search(index, qs, K, rt=1.0, compute_dtype="f32",
+                                exact_rerank=False)
+        warm.append(1e3 * (time.time() - t0))
+        if not np.array_equal(again, gt):
+            raise SystemExit("phase 3 failed: f32 lane not reproducible")
+    say(f"phase 3 f32 ground truth in {first_s:.2f}s (first call), warm "
+        f"median {np.median(warm):.1f} ms a batch ({warm}; earlier, PERF.md "
+        f"section 5: {EARLIER_LANE_MS['f32']} ms a batch warm)")
 
     lanes = {}
     # the int8 lane re-ranks 64 candidates, as the JAX package's bench
@@ -3241,10 +3304,65 @@ def topk_main_shapes(index, qs):
     yield ("fused lane", packed, 26, {})
 
 
+def topk_merge_shapes(index, qs):
+    """The merges' slabs from phase 3's index, as `merge_chunks` and
+    `bulk_build._pool` take them: each lane's merge buffer with every
+    chunk's selection written into its columns as `_sweep` / `_sweep_i8`
+    / `_build_step` write it (the bf16 lane + re-rank: 26 a chunk; raw
+    bf16: 10; the i8 lane: 64, bf16; a build wave of 8,192 rows, the
+    first chunk's: 97), then the build's pool, P = 96 of the merged 97
+    with the self-match masked.  (lane, slab, kf, keyword arguments)."""
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+    from cozo_tpu_torch.utils.device import (int_mm, mm_bf16,
+                                             prepare_queries)
+
+    st = index._sweep_table
+    dev = st.tbl.device
+    n_chunks, chunk = st.tbl.shape[:2]
+    q = torch.from_numpy(np.ascontiguousarray(qs, np.float32)).to(dev)
+    qh = prepare_queries(q, "Cosine", st.d_pad, half=True)
+    _, q_i8, q_scale = prepare_queries(q, "Cosine", st.d_pad, half=True,
+                                       quantize=True, reciprocal=True)
+    tbl_i8, scale = (st.tbl_i8, st.scale_i8) if st.tbl_i8 is not None \
+        else ek.quantize_tbl(st.tbl, st.bias)
+
+    def merge_buffer(queries, kc, dtype, select):
+        bufs = ek._chunk_buffers(queries.shape[0], n_chunks, kc, dtype, dev)
+        for c in range(n_chunks):
+            select(c, kc, ek._cols(bufs, c, kc))
+        return bufs
+
+    for lane, kc in (("bf16 lane merge", 26), ("bf16 raw merge", 10)):
+        bufs = merge_buffer(qh, kc, torch.float32, lambda c, kc, out: (
+            ek.select_topk(mm_bf16(qh, st.tbl[c]), kc, bias=st.bias[c],
+                           offset=c * chunk, out=out)))
+        yield (lane, bufs[0], kc, {})
+    bufs = merge_buffer(qh, 64, torch.bfloat16, lambda c, kc, out: (
+        ek.select_topk(int_mm(q_i8, tbl_i8[c]), kc, col_scale=scale[c],
+                       row_scale=q_scale, bias=st.bias[c], bf16=True,
+                       offset=c * chunk, out=out)))
+    yield ("i8 lane merge", bufs[0], 64, {})
+    wave = st.tbl[0][:8192]
+    bufs = merge_buffer(wave, 97, torch.float32, lambda c, kc, out: (
+        ek.select_topk(mm_bf16(wave, st.tbl[c]), kc, bias=st.bias[c],
+                       offset=c * chunk, out=out)))
+    yield ("build merge", bufs[0], 97, {})
+    scores, ids = ek.merge_chunks(*bufs, 97)
+    slots = torch.arange(8192, device=dev)
+    scores = torch.where(ids == slots[:, None],
+                         torch.full_like(scores, -np.inf), scores)
+    yield ("build pool", scores.contiguous(), 96, {})
+
+
 def time_topk(index, qs, reps):
-    """Phase 4 for `slab_topk` at each main shape: values and ids bit-equal
-    to the plain version, two runs identical, then the kernel's, the plain
-    version's (in row blocks) and `torch.topk`'s time on the same key slab,
+    """Phase 4 for `slab_topk` at each slab the main path hands it (the
+    lanes' chunks, then the merges'): values and ids bit-equal
+    to the plain version, two runs identical, then the kernel's (its calls
+    replayed from a CUDA graph: the device's time, not the host's), the
+    plain version's (in row blocks) and `torch.topk`'s time on the same
+    key slab,
     beside the bound (one read of the slab and of the prologue's vectors,
     one write of the output).  Returns its entry of the `kernels` line (the
     bf16 lane's numbers; every shape under "shapes"), its launches by path
@@ -3254,7 +3372,8 @@ def time_topk(index, qs, reps):
     from cozo_tpu_torch.ops import exact_knn as ek
 
     shapes = {}
-    for lane, x, kf, kw in topk_main_shapes(index, qs):
+    for lane, x, kf, kw in itertools.chain(topk_main_shapes(index, qs),
+                                           topk_merge_shapes(index, qs)):
         B, W = x.shape
         got = ek.select_topk(x, kf, **kw)
         again = ek.select_topk(x, kf, **kw)
@@ -3267,7 +3386,7 @@ def time_topk(index, qs, reps):
             raise SystemExit(f"phase 4 failed: slab_topk disagrees with plain "
                              f"({lane})")
         torch.cuda.empty_cache()
-        ms = cuda_ms(lambda: ek.select_topk(x, kf, **kw), reps)
+        ms = graph_ms(lambda: ek.select_topk(x, kf, **kw), reps)
         plain_ms = cuda_ms(lambda: topk_plain_blocks(x, kf, kw), 1)
         key = ek.slab_key(x, kw.get("col_scale"), kw.get("row_scale"),
                           kw.get("bias"), kw.get("bf16", False))
@@ -3278,7 +3397,8 @@ def time_topk(index, qs, reps):
         vec = sum(4 * W for n in ("col_scale", "bias") if n in kw)
         nbytes = (x.numel() * x.element_size() + vec
                   + (4 * B if "row_scale" in kw else 0)
-                  + B * kf * ((2 if kw.get("bf16") else 4) + 8))
+                  + B * kf * ((2 if kw.get("bf16") or x.dtype == torch.bfloat16
+                               else 4) + 8))
         bound = nbytes / PEAK_BYTES * 1e3
         shapes[lane] = {"B": B, "W": W, "kf": kf, "dtype": str(x.dtype),
                         "prologue": sorted(kw), "ms": ms, "plain_ms": plain_ms,

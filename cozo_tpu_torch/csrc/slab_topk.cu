@@ -29,49 +29,88 @@
 // in the wanted order.  No NaN arises on these paths; -inf is a dead row
 // or padding and ranks below every finite key.
 //
-// The design (simple and right first):
-//   * One block a row.  Pass 1 reads the row once and keeps each thread's
-//     largest composite: the kf-th largest of those NTHREADS maxima is a
-//     composite t with at least kf elements at or above it (the kf
-//     maxima above it are kf distinct elements), and the row's kf-th
-//     largest is at or above t.  Pass 2 reads the row again and appends
-//     every composite >= t to a candidate buffer in shared memory, one
-//     atomic a warp (ballot).  On data without heavy ties that is about
-//     kf + a few elements; the buffer is sorted (bitonic, descending) and
-//     its first kf written.  Two reads of the slab.
-//   * Otherwise (kf past NTHREADS / 2, fewer than kf threads with an
-//     element, or more than CAP candidates: ties, padding, dead rows) a
-//     radix select of the composite, 8 bits a round, histograms in shared
-//     memory: each round reads the row (or, once at most CAP elements
+// What bounds it: bytes.  The least the function needs is one read of the
+// slab, 4 B W a row (the scales and bias are shared by all rows and stay
+// in L2), and the outputs, 12 B kf a row: at [16,384 x 131,072] 8.59 GB,
+// 2.56 ms at 3.35 TB/s.
+//
+// The design: one read of the slab, a warp a row.
+//   * The warp route (kf up to WARP_MAX_KF).  Each warp streams its row
+//     once in steps of 128 columns (a 16-byte load a lane, or four 4-byte
+//     loads where the row does not allow vectors), UNROLL steps' loads in
+//     flight before the first is used, and keeps a running threshold t:
+//     every composite above t goes to the warp's candidate buffer in
+//     shared memory (a ballot and a popcount give each lane its slot; the
+//     count lives in registers, no atomics).  When the buffer passes HIGH
+//     (room for one more step), the warp sorts it (bitonic, __syncwarp
+//     between stages), keeps its kf best and raises t to the kf-th of them.
+//     At the row's end it sorts what is left and writes the first kf.  No
+//     block barrier is on the path: a block holds NWARPS rows.
+//     The stream's time is the latency of its loads: bytes in flight are
+//     the warps an SM holds times UNROLL x 512 B.  ptxas held to 64
+//     registers (MIN_BLOCKS = 4 blocks of 8 warps an SM) with UNROLL = 2
+//     keeps 32 warps resident without a spill; that beat UNROLL 3 or 4 at
+//     fewer warps, and 5 or 6 blocks, which spill (timed in turns on the
+//     H100, `chip_graph_vs.py --kernel slab_topk`).  The kernel is
+//     instantiated per prologue shape (PRO_*) so that a lane that loads
+//     no scale keeps no registers for it; those that load the column
+//     scale, and those with scalar loads, need 72 registers (3 blocks an
+//     SM) to keep clear of spills.
+//     Why it stays exact: t is always a composite with at least kf
+//     elements of the row at or above it (the kf kept in the buffer, or
+//     the seed's kf below), so an element below t is never among the kf
+//     wanted, and t itself is already in the buffer; every element above t
+//     is appended, and a compaction keeps the kf best of the buffer, which
+//     hold every wanted element seen so far.  Composites are unique, so
+//     this holds on any data: ties, dead rows, rows with fewer live entries
+//     than kf, rows whose keys only rise.
+//   * The seed (kf up to SEED_MAX_KF, rows at least 4 kf wide): before the
+//     stream the warp reads the first SEED_COLS columns of its share and
+//     keeps each lane's m best composites (m = 1, 2 or 4, 32 m >= 2 kf
+//     where 4 allows) in registers; the kf-th largest of those 32 m
+//     distinct elements is a valid t from the start.  The stream then
+//     re-reads those columns (from L1 / L2) and appends only what is at or
+//     above it: on narrow rows (the merges, the fused lane's packed array)
+//     the row takes one small final sort instead of compactions.
+//   * The re-seed: keys that keep rising (a sorted row) beat every
+//     threshold, and the buffer would compact every HIGH - kf appends.
+//     After RESEED_AFTER compactions (random rows take at most 4) the warp
+//     seeds again from the rest of its share, which it then streams: two
+//     reads of that rest, as a two-pass selection would.
+//   * Rows too few for the card (B times the warps a row below
+//     TARGET_WARPS): G = 2, 4 ... NWARPS warps share a row, each its own
+//     steps (step s of the row goes to warp s mod G) with its own buffer
+//     and threshold; after one block barrier the row's first warp gathers
+//     the G sorted lists' entries at or above the largest of their kf-th
+//     entries (a valid t again) and sorts them.
+//   * The radix route (kf past WARP_MAX_KF): a block a row, a radix
+//     select of the composite, 8 bits a round, histograms in shared
+//     memory; each round reads the row (or, once at most CAP elements
 //     share the prefix, the candidate buffer) until the threshold
 //     composite is exact.  The elements above it go to a sort buffer, in
 //     shared memory up to SORT_CAP entries, past that in the scratch the
-//     caller gives (`sort_n` entries a row), which is then sorted the
-//     same way.  Slower, and only where the fast route cannot answer.
-//
-// What bounds it: bytes.  The least the function needs is one read of the
-// slab, 4 B W a row (the scales and bias are shared by all rows), and the
-// outputs, 12 B kf a row: at [16,384 x 131,072] 8.59 GB, 2.56 ms at
-// 3.35 TB/s.  The fast route reads the slab twice (the second read finds
-// little of a 512 KB row in the 50 MB L2 while ~400 rows are in flight).
+//     caller gives (`sort_n` entries a row), which is then sorted.  It
+//     re-reads the row; no main-path shape reaches it (kf 10-97 there).
 //
 // Where trouble is likely, and what the code does about it:
 //   1. 64-bit offsets: B x W reaches 2^31 (16,384 x 131,072); a row's
-//      start is row * ldx in 64 bits, ids are 64-bit.
+//      start is row * ldx in 64 bits, ids are 64-bit, columns unsigned.
 //   2. No FMA contraction in the prologue: `__fmul_rn` / `__fadd_rn`, never
 //      contracted, so the key is bit-equal to the plain version's
 //      separate passes; int32 -> f32 by `__int2float_rn`, bf16 by
 //      `__float2bfloat16_rn`, as torch rounds.
 //   3. Order-preserving keys, as above; each value's own bits are written
 //      out (decoded from the composite).
-//   4. Rows with fewer live entries than kf: the -inf entries rank by
-//      position like any tie; many of them overflow the candidate buffer
-//      and take the radix route.
-//   5. Every kf from 1 to W: the fast route up to NTHREADS / 2, the radix
+//   4. A compaction must not lose what another lane appended in the same
+//      step: the appends of a step are all written before the sort's first
+//      __syncwarp, and a slot is never written below the kept kf.
+//   5. Every kf from 1 to W: the warp route up to WARP_MAX_KF, the radix
 //      route beyond, with a sort buffer in device memory past SORT_CAP.
 //   6. Any row stride (ldx >= W) and width: float4 / int4 loads when the
 //      row starts, the stride, the width and the scale and bias vectors
 //      allow them, scalar loads otherwise.
+//   7. The slab is read once: its loads are `__ldcs` (evict first), so
+//      that the scales and the bias, read by every row, stay in L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,21 +119,39 @@
 namespace {
 
 #ifndef COZO_TOPK_THREADS
-#define COZO_TOPK_THREADS 512
+#define COZO_TOPK_THREADS 256
 #endif
 #ifndef COZO_TOPK_CAP
 #define COZO_TOPK_CAP 2048
 #endif
+#ifndef COZO_TOPK_WARP_BUF
+#define COZO_TOPK_WARP_BUF 512
+#endif
 
 constexpr int NTHREADS = COZO_TOPK_THREADS;
-constexpr int CAP = COZO_TOPK_CAP;       // candidate buffer, entries
-constexpr int SORT_CAP = COZO_TOPK_CAP;  // shared sort buffer, entries
-constexpr int FAST_MAX = NTHREADS / 2;   // largest kf of the fast route
+constexpr int NWARPS = NTHREADS / 32;
+constexpr int CAP = COZO_TOPK_CAP;       // the radix route's candidate buffer
+constexpr int SORT_CAP = COZO_TOPK_CAP;  // its shared sort buffer, entries
 constexpr int RADIX_BITS = 8;
 constexpr int RADIX = 1 << RADIX_BITS;
+constexpr int STEP = 128;                // columns a warp reads in one step
+constexpr int WBUF = COZO_TOPK_WARP_BUF;  // a warp's candidate buffer, entries
+constexpr int HIGH = WBUF - STEP;        // compact past this: room for a step
+constexpr int WARP_MAX_KF = WBUF / 2 < HIGH ? WBUF / 2 : HIGH;
+constexpr int SEED_MAX_KF = 128;         // 32 lanes x 4 registers
+constexpr int SEED_COLS = 2048;          // of the warp's share
+constexpr int RESEED_AFTER = 6;          // compactions (random rows: <= 4)
+constexpr int UNROLL = 2;                // steps whose loads are in flight
+constexpr int MIN_BLOCKS = 4;            // an SM's: ptxas keeps 64 registers
+constexpr long long TARGET_WARPS = 4096;  // warps a launch should give the card
+constexpr int MIN_SHARE = 1024;          // least columns of a warp's share
 static_assert(NTHREADS % 32 == 0 && NTHREADS <= SORT_CAP, "block size");
+static_assert((WBUF & (WBUF - 1)) == 0 && WBUF >= 2 * STEP, "warp buffer");
+static_assert(WARP_MAX_KF >= SEED_MAX_KF, "the seed's kf takes the warp route");
+static_assert(HIGH + 4 * 32 <= WBUF, "a re-seed sorts past the candidates");
 
 typedef unsigned long long u64;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
 __device__ __forceinline__ unsigned order_key(float v) {
   const unsigned u = __float_as_uint(v);
@@ -105,8 +162,8 @@ __device__ __forceinline__ unsigned key_bits(unsigned k) {
   return (k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k;
 }
 
-__device__ __forceinline__ u64 composite(float key, int pos) {
-  return ((u64)order_key(key) << 32) | (u64)(~(unsigned)pos);
+__device__ __forceinline__ u64 composite(float key, unsigned pos) {
+  return ((u64)order_key(key) << 32) | (u64)(~pos);
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -133,6 +190,284 @@ struct Prologue {
 template <typename T> struct Vec4;
 template <> struct Vec4<float> { typedef float4 type; };
 template <> struct Vec4<int> { typedef int4 type; };
+
+__device__ __forceinline__ int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// ---------------------------------------------------------- the warp route
+
+// What a step loads beside the slab: nothing (the fused lane's packed
+// array, the merges), the bias (the f32 / bf16 lanes, the build), or
+// any of the column scale and the bias (the int8 lanes, the int8 build).
+// A row scale may come with each.  The first two keep fewer registers.
+enum { PRO_NONE = 0, PRO_BIAS = 1, PRO_ANY = 2 };
+
+// A lane's four elements of one step of a row, as loaded.
+template <typename T>
+struct Raw {
+  T x[4];
+  float c[4], b[4];
+};
+
+// The column of a lane's i-th element of step g: with vectors, four
+// neighbours (one 16-byte load); else four columns 32 apart.
+template <bool VEC>
+__device__ __forceinline__ unsigned col_of(unsigned g, unsigned lane, int i) {
+  return VEC ? (g * 32u + lane) * 4u + (unsigned)i : g * 128u + lane + 32u * (unsigned)i;
+}
+
+template <typename T, bool VEC, int PRO>
+__device__ __forceinline__ void load_step(const T* __restrict__ xr, unsigned W, unsigned g,
+                                          unsigned lane, const Prologue& p, Raw<T>& r) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    r.x[i] = 0;
+    r.c[i] = 1.f;
+    r.b[i] = 0.f;
+  }
+  if (VEC) {
+    typedef typename Vec4<T>::type V;
+    const unsigned q = g * 32u + lane;
+    if (4u * q < W) {  // W % 4 == 0: the four columns live together
+      const V v = __ldcs(reinterpret_cast<const V*>(xr) + q);
+      r.x[0] = v.x;
+      r.x[1] = v.y;
+      r.x[2] = v.z;
+      r.x[3] = v.w;
+      if (PRO == PRO_ANY && p.c) {
+        const float4 c4 = __ldg(reinterpret_cast<const float4*>(p.c) + q);
+        r.c[0] = c4.x;
+        r.c[1] = c4.y;
+        r.c[2] = c4.z;
+        r.c[3] = c4.w;
+      }
+      if (PRO != PRO_NONE && p.b) {
+        const float4 b4 = __ldg(reinterpret_cast<const float4*>(p.b) + q);
+        r.b[0] = b4.x;
+        r.b[1] = b4.y;
+        r.b[2] = b4.z;
+        r.b[3] = b4.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned j = col_of<false>(g, lane, i);
+      if (j < W) {
+        r.x[i] = __ldcs(xr + j);
+        if (PRO == PRO_ANY && p.c) r.c[i] = __ldg(p.c + j);
+        if (PRO != PRO_NONE && p.b) r.b[i] = __ldg(p.b + j);
+      }
+    }
+  }
+}
+
+// Sorts buf[0, n) descending, n a power of two, by one warp (bitonic, in
+// shared memory).  Starts and ends with __syncwarp.
+__device__ __forceinline__ void warp_sort_desc(u64* buf, int n, unsigned lane) {
+  __syncwarp();
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int p = (int)lane; p < (n >> 1); p += 32) {
+        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
+        const int l = i | j;
+        const u64 a = buf[i], b = buf[l];
+        const bool desc = (i & k) == 0;
+        if (desc ? (a < b) : (a > b)) {
+          buf[i] = b;
+          buf[l] = a;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Sorts the warp's cnt candidates (zeros below them up to a power of two
+// of at least `least`); returns that power of two.
+__device__ __forceinline__ int warp_sort_candidates(u64* buf, int cnt, int least,
+                                                    unsigned lane) {
+  const int n = pow2_at_least(cnt > least ? cnt : least);
+  for (int i = cnt + (int)lane; i < n; i += 32) buf[i] = 0;
+  warp_sort_desc(buf, n, lane);
+  return n;
+}
+
+// The first kf of the sorted buf: values (f32 or bf16 bits) and ids, by
+// `stride` threads from thread `first`.
+template <bool OUT_BF16>
+__device__ __forceinline__ void write_out(const u64* buf, int kf, void* out_v, long long* out_i,
+                          long long row_off, long long id_off, int first, int stride) {
+  for (int i = first; i < kf; i += stride) {
+    const u64 cv = buf[i];
+    const unsigned bits = key_bits((unsigned)(cv >> 32));
+    const long long pos = (long long)(~(unsigned)(cv & 0xFFFFFFFFull));
+    if (OUT_BF16)
+      static_cast<unsigned short*>(out_v)[row_off + i] = (unsigned short)(bits >> 16);
+    else
+      static_cast<unsigned*>(out_v)[row_off + i] = bits;
+    out_i[row_off + i] = pos + id_off;
+  }
+}
+
+// The kf-th largest of the lanes' m best composites (m = 1, 2 or 4: 32 m
+// >= 2 kf up to kf 64, >= kf up to SEED_MAX_KF) over the warp's steps s0,
+// s0 + 1, ... below s1 (its step s is the row's step sub + s G): at least
+// kf elements of the row are at or above it; 0 where those steps hold
+// fewer than kf.  Sorts in scratch[0, 32 m).  U steps' loads in flight.
+template <typename T, bool VEC, int PRO, int U>
+__device__ __forceinline__ u64 seed(const T* __restrict__ xr, unsigned W, int kf,
+                                    const Prologue& p, u64* scratch, unsigned lane,
+                                    unsigned sub, unsigned G, unsigned s0, unsigned s1) {
+  const unsigned n_steps = (W + STEP - 1) / STEP;
+  const int m = kf <= 16 ? 1 : kf <= 32 ? 2 : 4;
+  u64 best[4] = {0, 0, 0, 0};
+  for (unsigned s = s0; s < s1 && sub + s * G < n_steps; s += U) {
+    Raw<T> raw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) load_step<T, VEC, PRO>(xr, W, sub + (s + u) * G, lane, p, raw[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned j = col_of<VEC>(sub + (s + u) * G, lane, i);
+        if (j >= W) continue;
+        const u64 cv = composite(p.key(to_float(raw[u].x[i]), raw[u].c[i], raw[u].b[i]), j);
+#pragma unroll
+        for (int e = 3; e > 0; --e)  // sorted insertion, best[0] largest
+          if (e < m && cv > best[e]) best[e] = cv > best[e - 1] ? best[e - 1] : cv;
+        if (cv > best[0]) best[0] = cv;
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (e < m) scratch[e * 32 + lane] = best[e];
+  warp_sort_desc(scratch, 32 * m, lane);
+  const u64 v = scratch[kf - 1];
+  __syncwarp();  // every lane has read v before the buffer is written again
+  return v;
+}
+
+// One warp's share of a row (steps sub, sub + G, ...): its kf best,
+// sorted, at buf[0, kf) (zeros where the share has fewer elements).
+template <typename T, bool VEC, int PRO>
+__device__ __forceinline__ void warp_select(const T* __restrict__ xr, unsigned W, int kf,
+                                            const Prologue& p, u64* buf, unsigned lane,
+                                            unsigned sub, unsigned G) {
+  const unsigned n_steps = (W + STEP - 1) / STEP;
+  const unsigned lt = (1u << lane) - 1u;
+  u64 t = 0;  // append composites above t; 0 ranks below every composite
+  const bool seeded = kf <= SEED_MAX_KF && W / G >= 4u * (unsigned)kf;
+  if (seeded) {
+    const u64 s = seed<T, VEC, PRO, UNROLL>(xr, W, kf, p, buf, lane, sub, G, 0, SEED_COLS / STEP);
+    t = s ? s - 1 : 0;  // s's element is not yet in the buffer
+  }
+  int cnt = 0, compactions = 0;
+  for (unsigned s0 = 0; sub + s0 * G < n_steps; s0 += UNROLL) {
+    if (seeded && compactions == RESEED_AFTER) {
+      // keys that keep rising defeat a running threshold: a threshold from
+      // the lanes' best over the rest of the row (one more read of it, a
+      // step at a time: no registers beyond the stream's), sorted past the
+      // candidates (cnt <= HIGH here)
+      const u64 s = seed<T, VEC, PRO, 1>(xr, W, kf, p, buf + cnt, lane, sub, G, s0, ~0u);
+      if (s > t) t = s - 1;
+      ++compactions;
+    }
+    Raw<T> raw[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      load_step<T, VEC, PRO>(xr, W, sub + (s0 + u) * G, lane, p, raw[u]);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const unsigned g = sub + (s0 + u) * G;
+      if (g >= n_steps) break;
+      unsigned key[4];
+      bool may = false;
+      const unsigned thi = (unsigned)(t >> 32);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        key[i] = order_key(p.key(to_float(raw[u].x[i]), raw[u].c[i], raw[u].b[i]));
+        may |= col_of<VEC>(g, lane, i) < W && key[i] >= thi;
+      }
+      if (!__any_sync(FULL, may)) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned j = col_of<VEC>(g, lane, i);
+        const u64 cv = ((u64)key[i] << 32) | (u64)(~j);
+        const bool take = j < W && cv > t;
+        const unsigned mask = __ballot_sync(FULL, take);
+        if (take) buf[cnt + __popc(mask & lt)] = cv;
+        cnt += __popc(mask);
+      }
+      if (cnt > HIGH) {  // keep the kf best, raise t to the kf-th
+        warp_sort_candidates(buf, cnt, 1, lane);
+        t = buf[kf - 1];
+        cnt = kf;
+        ++compactions;
+      }
+    }
+  }
+  warp_sort_candidates(buf, cnt, kf, lane);
+}
+
+template <typename T, bool OUT_BF16, bool VEC, int PRO>
+__global__ void __launch_bounds__(NTHREADS, PRO == PRO_ANY || !VEC ? MIN_BLOCKS - 1 : MIN_BLOCKS)
+slab_topk_warps(const T* __restrict__ x, long long ldx, int B, int W, int kf,
+                const float* __restrict__ col_scale, const float* __restrict__ row_scale,
+                const float* __restrict__ bias, void* out_v, long long* out_i,
+                long long ldo, long long id_off, long long row0, int G) {
+  __shared__ u64 wbuf[NWARPS * WBUF];
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned warp = threadIdx.x >> 5;
+  const unsigned sub = warp % (unsigned)G;  // this warp's place in its row
+  const long long local = (long long)blockIdx.x * (NWARPS / G) + warp / (unsigned)G;
+  const bool live = local < B;
+  const long long row = row0 + local;
+  u64* buf = wbuf + warp * WBUF;
+  if (live) {
+    Prologue p;
+    p.c = col_scale;
+    p.b = bias;
+    p.has_r = row_scale != nullptr;
+    p.r = p.has_r ? row_scale[row] : 1.f;
+    p.bf16 = OUT_BF16;
+    warp_select<T, VEC, PRO>(x + row * ldx, (unsigned)W, kf, p, buf, lane, sub, (unsigned)G);
+  }
+  if (G > 1) {
+    // the row's first warp merges the G lists: every wanted element is in
+    // one of them, at or above the largest of their kf-th entries
+    __syncthreads();
+    if (!live || sub != 0) return;
+    u64 t = 0;
+    for (int v = 0; v < G; ++v) {
+      const u64 e = buf[v * WBUF + kf - 1];
+      t = e > t ? e : t;
+    }
+    const unsigned lt = (1u << lane) - 1u;
+    int cnt = 0;
+    for (int v = 0; v < G; ++v) {
+      for (int i0 = 0; i0 < kf; i0 += 32) {
+        const int i = i0 + (int)lane;
+        const u64 cv = i < kf ? buf[v * WBUF + i] : 0;
+        const bool take = cv != 0 && cv >= t;
+        const unsigned mask = __ballot_sync(FULL, take);
+        __syncwarp();  // every lane has read before any writes (in place)
+        if (take) buf[cnt + __popc(mask & lt)] = cv;
+        cnt += __popc(mask);
+      }
+    }
+    warp_sort_candidates(buf, cnt, kf, lane);
+  } else if (!live) {
+    return;
+  }
+  write_out<OUT_BF16>(buf, kf, out_v, out_i, row * ldo, id_off, (int)lane, 32);
+}
+
+// --------------------------------------------------------- the radix route
 
 // f(position, key) for every element of the row, each thread its own
 // elements (float4 / int4 groups strided by the block when `vec`).  Every
@@ -177,13 +512,13 @@ __device__ __forceinline__ void for_row(const T* __restrict__ xr, int W,
 // Appends `v` to buf at the slot counter *cnt hands out, one atomic a warp;
 // slots past `cap` are counted and dropped.  All 32 lanes must call it.
 __device__ __forceinline__ void warp_append(bool take, u64 v, u64* buf, int* cnt, int cap) {
-  const unsigned m = __ballot_sync(0xFFFFFFFFu, take);
+  const unsigned m = __ballot_sync(FULL, take);
   if (m == 0) return;
   const int lane = (int)(threadIdx.x & 31);
   const int leader = __ffs(m) - 1;
   int base = 0;
   if (lane == leader) base = atomicAdd(cnt, __popc(m));
-  base = __shfl_sync(0xFFFFFFFFu, base, leader);
+  base = __shfl_sync(FULL, base, leader);
   if (take) {
     const int slot = base + __popc(m & ((1u << lane) - 1u));
     if (slot < cap) buf[slot] = v;
@@ -211,36 +546,14 @@ __device__ void block_sort_desc(u64* buf, int n) {
   }
 }
 
-__device__ __forceinline__ int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
-}
-
-// The first kf of the sorted buf: values (f32 or bf16 bits) and ids.
-template <bool OUT_BF16>
-__device__ void write_out(const u64* buf, int kf, void* out_v, long long* out_i,
-                          long long row_off, long long id_off) {
-  for (int i = (int)threadIdx.x; i < kf; i += NTHREADS) {
-    const u64 cv = buf[i];
-    const unsigned bits = key_bits((unsigned)(cv >> 32));
-    const long long pos = (long long)(~(unsigned)(cv & 0xFFFFFFFFull));
-    if (OUT_BF16)
-      static_cast<unsigned short*>(out_v)[row_off + i] = (unsigned short)(bits >> 16);
-    else
-      static_cast<unsigned*>(out_v)[row_off + i] = bits;
-    out_i[row_off + i] = pos + id_off;
-  }
-}
-
 template <typename T, bool OUT_BF16>
 __global__ void __launch_bounds__(NTHREADS)
-slab_topk_kernel(const T* __restrict__ x, long long ldx, int W, int kf,
-                 const float* __restrict__ col_scale,
-                 const float* __restrict__ row_scale,
-                 const float* __restrict__ bias, void* out_v,
-                 long long* out_i, long long ldo, long long id_off,
-                 u64* scratch, int sort_n, int vec, long long row0) {
+slab_topk_radix(const T* __restrict__ x, long long ldx, int W, int kf,
+                const float* __restrict__ col_scale,
+                const float* __restrict__ row_scale,
+                const float* __restrict__ bias, void* out_v,
+                long long* out_i, long long ldo, long long id_off,
+                u64* scratch, int sort_n, int vec, long long row0) {
   __shared__ u64 cand[CAP];
   __shared__ u64 sbuf[SORT_CAP];
   __shared__ unsigned hist[RADIX];
@@ -254,43 +567,9 @@ slab_topk_kernel(const T* __restrict__ x, long long ldx, int W, int kf,
   p.has_r = row_scale != nullptr;
   p.r = p.has_r ? row_scale[row] : 1.f;
   p.bf16 = OUT_BF16;
-  const long long row_off = row * ldo;
   const int tid = (int)threadIdx.x;
 
-  // ---- fast route: a threshold from the threads' maxima, one filter pass
-  if (kf <= FAST_MAX) {
-    u64 best = 0;  // no element: 0 ranks below every composite
-    for_row(xr, W, vec != 0, p, [&](int j, float k, bool live) {
-      if (live) {
-        const u64 cv = composite(k, j);
-        best = cv > best ? cv : best;
-      }
-    });
-    sbuf[tid] = best;
-    if (tid == 0) s_cnt = 0;
-    __syncthreads();
-    block_sort_desc(sbuf, NTHREADS);
-    const u64 t = sbuf[kf - 1];
-    if (t != 0) {
-      for_row(xr, W, vec != 0, p, [&](int j, float k, bool live) {
-        const u64 cv = live ? composite(k, j) : 0;
-        warp_append(live && cv >= t, cv, cand, &s_cnt, CAP);
-      });
-      __syncthreads();
-      const int cnt = s_cnt;
-      if (cnt <= CAP) {
-        const int n = pow2_at_least(cnt);
-        for (int i = cnt + tid; i < n; i += NTHREADS) cand[i] = 0;
-        __syncthreads();
-        block_sort_desc(cand, n);
-        write_out<OUT_BF16>(cand, kf, out_v, out_i, row_off, id_off);
-        return;
-      }
-    }
-    __syncthreads();  // every thread read s_cnt before it is reset
-  }
-
-  // ---- radix route: the exact threshold composite, 8 bits a round
+  // the exact threshold composite, 8 bits a round
   const int n_sort = pow2_at_least(kf);
   u64* sb = n_sort <= SORT_CAP ? sbuf : scratch + (long long)blockIdx.x * sort_n;
   u64 prefix = 0;
@@ -311,7 +590,7 @@ slab_topk_kernel(const T* __restrict__ x, long long ldx, int W, int kf,
       // the elements that share the prefix move to shared memory, those
       // above it go to the sort buffer (kf - need of them)
       for_row(xr, W, vec != 0, p, [&](int j, float k, bool live) {
-        const u64 cv = live ? composite(k, j) : 0;
+        const u64 cv = live ? composite(k, (unsigned)j) : 0;
         warp_append(live && COZO_ABOVE(cv), cv, sb, &s_sel, n_sort);
         warp_append(live && COZO_MATCH(cv), cv, cand, &s_cnt, CAP);
       });
@@ -329,7 +608,7 @@ slab_topk_kernel(const T* __restrict__ x, long long ldx, int W, int kf,
     } else {
       for_row(xr, W, vec != 0, p, [&](int j, float k, bool live) {
         if (live) {
-          const u64 cv = composite(k, j);
+          const u64 cv = composite(k, (unsigned)j);
           if (COZO_MATCH(cv)) atomicAdd(&hist[(unsigned)(cv >> dshift) & (RADIX - 1)], 1u);
         }
       });
@@ -359,7 +638,7 @@ slab_topk_kernel(const T* __restrict__ x, long long ldx, int W, int kf,
     }
   } else {
     for_row(xr, W, vec != 0, p, [&](int j, float k, bool live) {
-      const u64 cv = live ? composite(k, j) : 0;
+      const u64 cv = live ? composite(k, (unsigned)j) : 0;
       warp_append(live && cv >= prefix, cv, sb, &s_sel, n_sort);
     });
   }
@@ -369,24 +648,51 @@ slab_topk_kernel(const T* __restrict__ x, long long ldx, int W, int kf,
   for (int i = kf + tid; i < n_sort; i += NTHREADS) sb[i] = 0;
   __syncthreads();
   block_sort_desc(sb, n_sort);
-  write_out<OUT_BF16>(sb, kf, out_v, out_i, row_off, id_off);
+  write_out<OUT_BF16>(sb, kf, out_v, out_i, row * ldo, id_off, tid, NTHREADS);
 }
 
 bool aligned16(const void* q) { return q == nullptr || ((uintptr_t)q & 15u) == 0; }
+
+// The warps a row takes: more while the launch has fewer than
+// TARGET_WARPS and each keeps at least MIN_SHARE columns.
+int warps_a_row(int B, int W) {
+  int G = 1;
+  while (G < NWARPS && (long long)B * G < TARGET_WARPS && W / (2 * G) >= MIN_SHARE) G <<= 1;
+  return G;
+}
 
 template <typename T, bool OUT_BF16>
 int launch(const void* x, long long ldx, int B, int W, int kf, const void* c,
            const void* r, const void* b, void* out_v, void* out_i, long long ldo,
            long long id_off, void* scratch, int sort_n, long long row0,
            void* stream) {
-  const int vec = (W % 4 == 0 && ldx % 4 == 0 && aligned16(x) && aligned16(c) &&
-                   aligned16(b)) ? 1 : 0;
-  auto kern = slab_topk_kernel<T, OUT_BF16>;
-  kern<<<dim3((unsigned)B), NTHREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const T*>(x), ldx, W, kf, static_cast<const float*>(c),
-      static_cast<const float*>(r), static_cast<const float*>(b), out_v,
-      static_cast<long long*>(out_i), ldo, id_off, static_cast<u64*>(scratch),
-      sort_n, vec, row0);
+  const bool vec = W % 4 == 0 && ldx % 4 == 0 && aligned16(x) && aligned16(c) &&
+                   aligned16(b);
+  const T* xt = static_cast<const T*>(x);
+  const float *cf = static_cast<const float*>(c), *rf = static_cast<const float*>(r),
+              *bf = static_cast<const float*>(b);
+  long long* ids = static_cast<long long*>(out_i);
+  if (kf <= WARP_MAX_KF) {
+    const int G = warps_a_row(B, W);
+    const int rows = NWARPS / G;
+    // one of the kernels, by the vectors the prologue reads and the loads
+    // the row allows
+    typedef void (*Kernel)(const T*, long long, int, int, int, const float*, const float*,
+                           const float*, void*, long long*, long long, long long, long long,
+                           int);
+    const Kernel kerns[3][2] = {
+        {slab_topk_warps<T, OUT_BF16, false, PRO_NONE>, slab_topk_warps<T, OUT_BF16, true, PRO_NONE>},
+        {slab_topk_warps<T, OUT_BF16, false, PRO_BIAS>, slab_topk_warps<T, OUT_BF16, true, PRO_BIAS>},
+        {slab_topk_warps<T, OUT_BF16, false, PRO_ANY>, slab_topk_warps<T, OUT_BF16, true, PRO_ANY>}};
+    auto kern = kerns[c ? PRO_ANY : b ? PRO_BIAS : PRO_NONE][vec ? 1 : 0];
+    kern<<<dim3((unsigned)((B + rows - 1) / rows)), NTHREADS, 0, (cudaStream_t)stream>>>(
+        xt, ldx, B, W, kf, cf, rf, bf, out_v, ids, ldo, id_off, row0, G);
+  } else {
+    auto kern = slab_topk_radix<T, OUT_BF16>;
+    kern<<<dim3((unsigned)B), NTHREADS, 0, (cudaStream_t)stream>>>(
+        xt, ldx, W, kf, cf, rf, bf, out_v, ids, ldo, id_off, static_cast<u64*>(scratch),
+        sort_n, vec ? 1 : 0, row0);
+  }
   return (int)cudaGetLastError();
 }
 

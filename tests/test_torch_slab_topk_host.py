@@ -5,18 +5,29 @@ As `tests/test_torch_minhash_host.py` does for its kernel: the source is
 compiled with g++ against `tests/test_torch_beam_host.py`'s stand-in
 `cuda_runtime.h` (one `std::thread` per CUDA thread, blocks one after
 another, barriers, shuffles, ballots and atomics), with the few CUDA
-names this kernel adds beside it (`__ffs`, the round-to-nearest
-conversions and arithmetic, a stand-in `cuda_bf16.h`), and its C entry
-point is called with CPU tensors through the module's own launch helper
-(`exact_knn._topk_run`).  Two builds: one warp a block with buffers of
-256 entries (so kf past 16 takes the radix route, kf 256 sorts in shared
-memory and 512 or the full width in the scratch the helper allocates, and
-heavy ties overflow the candidate buffer), and two warps with the card's
-2,048-entry buffers (kf up to 32 on the fast route).  The cases are
-`chip_smoke.py` phase 2's at its two smallest widths (512 and 4,097, every
-kf from 1 to W, B = 1 and 17, every variant with every kind: planted
-ties, +-0.0, a row all -inf, a row with fewer live entries than kf, a bf16
-key slab from int8 products), and a ragged block of launches.
+names this kernel adds beside it (`__ffs`, `__any_sync`, the
+round-to-nearest conversions and arithmetic, a stand-in `cuda_bf16.h`),
+and its C entry point is called with CPU tensors through the module's
+own launch helper (`exact_knn._topk_run`).  Three builds:
+
+* one warp a block with 256-entry buffers: one warp a row, kf up to 128
+  on the warp route (a compaction every 128 - kf appends past the
+  seed), kf 256 on the radix route in shared memory, 512 or the full
+  width in the scratch the helper allocates;
+* two warps with the card's buffers (2,048 entries for the radix route,
+  512 a warp): kf up to 256 on the warp route, two warps sharing a row of
+  4,097 when the launch has few rows, two rows a block on narrow rows;
+* two warps with 256-entry warp buffers: the same with the compaction
+  many times a row.
+
+The cases are `chip_smoke.py` phase 2's at its two smallest widths (512
+and 4,097, every kf from 1 to W, B = 1 and 17, every variant with every
+kind: planted ties, +-0.0, a row all -inf, a row with fewer live entries
+than kf, a bf16 key slab from int8 products), every variant with the
+order kinds (ascending and descending keys, the best in the last
+columns) at both widths (ascending keys past the seed's columns re-seed
+the threshold), the merges' widths 260 and 970, and a ragged block of
+launches.
 
 Tolerance: none.  Values and ids must be bit-equal to the plain version,
 and two runs bit-identical.  What this cannot show: that nvcc takes the
@@ -40,6 +51,7 @@ from tests.test_torch_graph_host import to_host_cpp
 # the CUDA names slab_topk.cu uses beyond the beam test's stand-in
 EXTRA = r'''
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline bool __any_sync(unsigned m, bool p) { return __ballot_sync(m, p) != 0; }
 inline float __int2float_rn(int x) { return (float)x; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
@@ -61,9 +73,13 @@ inline float __bfloat162float(__nv_bfloat16 h) {
 '''
 
 BUILDS = {"32 threads, 256-entry buffers": ["-DCOZO_TOPK_THREADS=32",
-                                             "-DCOZO_TOPK_CAP=256"],
+                                             "-DCOZO_TOPK_CAP=256",
+                                             "-DCOZO_TOPK_WARP_BUF=256"],
           "64 threads, 2,048-entry buffers": ["-DCOZO_TOPK_THREADS=64",
-                                              "-DCOZO_TOPK_CAP=2048"]}
+                                              "-DCOZO_TOPK_CAP=2048"],
+          "64 threads, 256-entry warp buffers": [
+              "-DCOZO_TOPK_THREADS=64", "-DCOZO_TOPK_CAP=2048",
+              "-DCOZO_TOPK_WARP_BUF=256"]}
 CASES = topk_cases(widths=(512, 4097), ragged=None)
 CPU = torch.device("cpu")
 
@@ -107,8 +123,9 @@ def run_source(lib, x, kf, kw):
                          ids=[f"B{B}-W{W}-kf{kf}-{v}-{k}"
                               for B, W, kf, v, k in CASES])
 def test_slab_topk_source_on_the_host(libs, build, i):
-    """Every phase-2 case at widths 512 and 4,097: values and ids
-    bit-equal to the plain version, two runs identical."""
+    """Every phase-2 case at widths 512 and 4,097, the order kinds at both
+    and the narrow widths: values and ids bit-equal to the plain version,
+    two runs identical."""
     B, W, kf, variant, kind = CASES[i]
     x, kw = topk_inputs(B, W, variant, kind, i, CPU)
     got = run_source(libs[build], x, kf, kw)
