@@ -31,8 +31,8 @@ else (a stream floor with the gather replaced).
 
 `--kernel slab_topk` times the per-chunk selection (`slab_topk.cu`, whose
 C entry point `cozo_slab_topk` has kept its arguments since it was
-written) at the slabs `chip_smoke.py` phase 4 times: the lanes' six
-chunks and the five merges, from the table of phase 3's index (the same
+written) at the slabs `chip_smoke.py` phase 4 times: the f32, quant
+and fused lanes' chunks and the five merges, from the table of phase 3's index (the same
 `glove_like` rows, seed 42, made into the sweep table without the graph),
 and at a worst case, ascending keys at the bf16 lane's shape.  Each call
 is replayed from a CUDA graph (`chip_smoke.graph_ms`: the device's time);

@@ -212,9 +212,11 @@ BARS = {"fused+rerank": 0.999, "bf16+rerank": 0.999, "bf16-raw": 0.962,
 OTHER_LANE_REPS = 3  # timed reps of the lanes beside the fused one
 # each lane's earlier time a batch on one H100, as PERF.md section 5 records
 # it, printed beside this run's
-EARLIER_LANE_MS = {"f32": 487.4, "fused+rerank": 16.77, "bf16+rerank": "383-384",
-               "bf16-raw": "383-384", "i8+rerank": 547.2,
-               "quant": "0.588 s scan + 0.273 s host re-rank"}
+EARLIER_LANE_MS = {"f32": "163.1-165.9", "fused+rerank": "14.5-16.1",
+                   "bf16+rerank": "67.6-76.7", "bf16-raw": "67.6-76.7",
+                   "i8+rerank": "70.8-79.3",
+                   "quant": "0.073-0.078 s scan + pull, 0.205-0.312 s host "
+                            "re-rank"}
 QUANT_N, QUANT_D, QUANT_NQ, QUANT_GT = 2_097_152, 768, 4096, 1024
 I8_BUILD_N = 262_144
 
@@ -1026,23 +1028,311 @@ def phase_topk_vs_plain(dev):
 
 
 TOPK_LAUNCHES = {}  # path -> slab_topk launches on it, each counted from 0
+SWEEP_LAUNCHES = {}  # path -> sweep_topk launches on it, each counted from 0
+# what the calls made since `topk_zero` must launch, by kernel
+EXPECTED = {"slab_topk": 0, "sweep_topk": 0}
+
+
+def _merges(n_chunks, kc, kf):
+    """`merge_chunks` launches `select_topk` unless the buffer is kf wide."""
+    return 0 if n_chunks * kc == kf else 1
+
+
+def _chunk_step(q, n_chunks, chunk, d_pad, kf, int8):
+    """(sweep_topk, slab_topk) launches of one call of a lane's chunk step
+    (`sweep_topk` on the piece `sweep_piece` picks, then `merge_chunks`):
+    one kernel, or on the two-step route a selection a piece; and the
+    merge."""
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    n_total = n_chunks * chunk
+    piece = ek.sweep_piece(n_total, chunk, q.shape[0], d_pad, min(kf, chunk),
+                           int8, q.device)
+    kc = min(kf, piece)
+    merge = _merges(n_total // piece, kc, kf)
+    if ek.sweep_route(d_pad, kc, piece) == "kernel":
+        return 1, merge
+    return 0, n_total // piece + merge
+
+
+def install_launch_ledger():
+    """Wraps each function of the port that launches the selection kernels
+    (the sweeps, the build steps, the fused lane's pick, the quant scan) so
+    that every call on the card adds to EXPECTED what it must launch: the
+    gates of `topk_read` then hold each kernel's count on a path to the
+    exact number its calls imply.  The wrappers call the functions as they
+    are; nothing else changes."""
+    import inspect
+
+    from cozo_tpu_torch.ops import bulk_build as bb
+    from cozo_tpu_torch.ops import exact_knn as ek
+    from cozo_tpu_torch.ops import fused_sweep as fs
+    from cozo_tpu_torch.ops import quant_knn as qk
+
+    def sweep(a):
+        n_chunks, chunk, d_pad = a["tbl"].shape
+        kf = max(a["k"], a["rerank_k"])
+        if a["compute_dtype"] != "bf16":  # f32: a selection a chunk
+            return 0, n_chunks + _merges(n_chunks, min(kf, chunk), kf)
+        return _chunk_step(a["qs"], n_chunks, chunk, d_pad, kf, False)
+
+    def sweep_i8(a):
+        n_chunks, chunk, d_pad = a["tbl"].shape
+        kf = max(a["k"], a["rerank_k"])
+        return _chunk_step(a["qs"], n_chunks, chunk, d_pad, kf, True)
+
+    def build_step(a):  # and the pool's selection
+        n_chunks, chunk, d_pad = a["tbl"].shape
+        sw, sl = _chunk_step(a["new_rows"], n_chunks, chunk, d_pad,
+                             a["P"] + 1, False)
+        return sw, sl + 1
+
+    def build_step_i8(a):
+        n_chunks = a["tbl_i8"].shape[0]
+        return 0, n_chunks + _merges(n_chunks, a["P"] + 1, a["P"] + 1) + 1
+
+    def qsweep(a):
+        n_chunks, chunk, _ = a["tbl_i8"].shape
+        kc = min(a["kf"], chunk)
+        return 0, n_chunks + _merges(n_chunks, kc, a["kf"])
+
+    def wrap(mod, name, count, device_arg):
+        fn = getattr(mod, name)
+        if getattr(fn, "ledger", False):
+            return
+        sig = inspect.signature(fn)
+
+        def wrapped(*args, **kw):
+            a = sig.bind(*args, **kw)
+            a.apply_defaults()
+            if a.arguments[device_arg].device.type == "cuda":
+                sw, sl = count(a.arguments) if count else (0, 1)
+                EXPECTED["sweep_topk"] += sw
+                EXPECTED["slab_topk"] += sl
+            return fn(*args, **kw)
+
+        wrapped.ledger = True
+        setattr(mod, name, wrapped)
+
+    wrap(ek, "_sweep", sweep, "qs")
+    wrap(ek, "_sweep_i8", sweep_i8, "qs")
+    wrap(bb, "_build_step", build_step, "new_rows")
+    wrap(bb, "_build_step_i8", build_step_i8, "new_rows")
+    wrap(fs, "serve", None, "qs_in")  # one pick over the packed array
+    wrap(qk, "_qsweep", qsweep, "qs_i8")
 
 
 def topk_zero():
     from cozo_tpu_torch.ops import exact_knn as ek
 
     ek.select_topk.launches = 0
+    ek.sweep_topk.launches = ek.sweep_topk.two_step = 0
+    EXPECTED.update(slab_topk=0, sweep_topk=0)
 
 
-def topk_read(path, phase):
-    """slab_topk's launches since `topk_zero`, kept as `path`'s; the phase
-    fails if there were none."""
+def topk_read(path, phase, sweep):
+    """slab_topk's and sweep_topk's launches since `topk_zero`, kept as
+    `path`'s.  The phase fails unless each equals what the path's calls
+    imply (`install_launch_ledger`), sweep_topk launched where the path
+    runs a bf16 or i8 sweep or an f32-table build (`sweep` true) and never
+    elsewhere, slab_topk launched on the other paths (their selections and
+    merges), and no chunk step took the two-step route.  Returns
+    slab_topk's count."""
     from cozo_tpu_torch.ops import exact_knn as ek
 
     n = TOPK_LAUNCHES[path] = ek.select_topk.launches
-    if n < 1:
-        raise SystemExit(f"{phase} failed: slab_topk never launched on {path}")
+    m = SWEEP_LAUNCHES[path] = ek.sweep_topk.launches
+    want = (EXPECTED["slab_topk"], EXPECTED["sweep_topk"])
+    if ((n, m) != want or (m >= 1) != sweep or not (sweep or n >= 1)
+            or ek.sweep_topk.two_step):
+        raise SystemExit(
+            f"{phase} failed on {path}: slab_topk launched {n} times and "
+            f"sweep_topk {m} (two-step {ek.sweep_topk.two_step}), where the "
+            f"calls imply {want[0]} and {want[1]}")
     return n
+
+
+# -- sweep_topk: the bf16 / i8 lanes' and the build's chunk step ------------
+
+SWEEP_KINDS = ("bf16", "int8")
+SWEEP_KCS = (1, 10, 26, 64, 97, 256)
+SWEEP_WIDTHS = (256, 4096, 131_072)  # a piece's table rows
+SWEEP_BS = (1, 17, 130)
+SWEEP_DS = (16, 64, 128)
+SWEEP_VARIANTS = ("random", "ties", "dead", "ascending")
+SWEEP_TOL = 1e-5  # bf16 route: |value - plain| <= SWEEP_TOL * max(1, |plain|)
+SWEEP_ID_SHARE = 0.999  # bf16 route: ids equal on at least this share
+
+
+def sweep_cases():
+    """Phase 2's (kind, B, piece, n_pieces, d_pad, kc, variant): every
+    piece width at every kc up to it, both kinds, B, the number of pieces
+    (1-3), d_pad and the variant in turn; then every variant of each kind
+    at [17 x 2 pieces of 4,096], d_pad 128, kc 26 and 97."""
+    cases = []
+    for W in SWEEP_WIDTHS:
+        for kc in SWEEP_KCS:
+            if kc > W:
+                continue
+            for kind in SWEEP_KINDS:
+                i = len(cases)
+                cases.append((kind, SWEEP_BS[i % 3], W, 1 + (i // 2) % 3,
+                              SWEEP_DS[(i // 3) % 3], kc,
+                              SWEEP_VARIANTS[i % 4]))
+    for kind in SWEEP_KINDS:
+        for variant in SWEEP_VARIANTS:
+            for kc in (26, 97):
+                cases.append((kind, 17, 4096, 2, 128, kc, variant))
+    return cases
+
+
+def sweep_inputs(kind, B, piece, n_pieces, d_pad, variant, seed, dev):
+    """(q, tbl, keyword arguments of `sweep_topk`) of a phase-2 case: unit
+    rows zero-padded past d_pad - 4 (as the lanes' 100 -> 128), a few dead
+    rows (-inf bias; int8: column scale 0); "ties": each piece's last 8 rows
+    repeated at the next piece's start, a quarter of the rows zero with a
+    +-0.0 bias, the first query zero; "dead": 3 live rows a piece;
+    "ascending": keys that rise along the piece (a bias step past the
+    scores' range).  bf16, or int8 with the lanes' max-abs scales."""
+    import torch
+
+    from cozo_tpu_torch.utils.device import quantize_i8
+
+    rng = np.random.default_rng(seed)
+    n = piece * n_pieces
+    d = max(1, d_pad - 4)
+    q = np.zeros((B, d_pad), np.float32)
+    t = np.zeros((n, d_pad), np.float32)
+    q[:, :d] = rng.standard_normal((B, d))
+    t[:, :d] = rng.standard_normal((n, d))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    t /= np.linalg.norm(t, axis=1, keepdims=True)
+    bias = np.zeros(n, np.float32)
+    bias[rng.random(n) < 0.02] = -np.inf
+    if variant == "ties":
+        for p in range(1, n_pieces):
+            t[p * piece:p * piece + 8] = t[p * piece - 8:p * piece]
+            bias[p * piece:p * piece + 8] = bias[p * piece - 8:p * piece]
+        zero = rng.choice(n, n // 4, replace=False)
+        t[zero] = 0.0
+        bias[zero] = rng.choice(np.float32([0.0, -0.0]), len(zero))
+        q[0] = 0.0
+    elif variant == "dead":
+        bias[:] = -np.inf
+        for p in range(n_pieces):
+            bias[p * piece + rng.choice(piece, 3, replace=False)] = 0.0
+    elif variant == "ascending":
+        t *= 1e-3
+        bias = (np.arange(n) % piece).astype(np.float32) * 0.25
+    qt = torch.from_numpy(q).to(dev)
+    tt = torch.from_numpy(t).to(dev)
+    bt = torch.from_numpy(bias).to(dev)
+    if kind == "bf16":
+        return qt.to(torch.bfloat16), tt.to(torch.bfloat16), {"bias": bt}
+    t_i8, cs = quantize_i8(tt, reciprocal=True)
+    cs = torch.where(torch.isfinite(bt), cs, torch.zeros_like(cs))
+    q_i8, rs = quantize_i8(qt, reciprocal=True)
+    return q_i8, t_i8, {"bias": bt, "col_scale": cs.contiguous(),
+                        "row_scale": rs.contiguous()}
+
+
+def sweep_slab_keys(q, tbl, kw):
+    """The plain version's keys of the whole [B, n_total] slab."""
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+    from cozo_tpu_torch.utils.device import int_mm, mm_bf16
+
+    if q.dtype == torch.int8:
+        return ek.slab_key(int_mm(q, tbl), kw["col_scale"], kw["row_scale"],
+                           kw["bias"], bf16=True)
+    return ek.slab_key(mm_bf16(q, tbl), bias=kw["bias"])
+
+
+def sweep_agreement(got, want, keys):
+    """The kernel's (values, ids) against the plain version's: for int8
+    bit-equality; for bf16 the values within SWEEP_TOL x max(1, |value|)
+    at every rank, ids equal on >= SWEEP_ID_SHARE of (row, rank) entries,
+    and every other entry a near-tie: the plain key of the kernel's id
+    within that tolerance of the plain value at its rank.  Returns
+    (ok, share of equal ids, max |value error| over finite values)."""
+    import torch
+
+    ok, share, err = sweep_values_agree(got, want)
+    if got[0].dtype == torch.bfloat16:
+        return ok, share, err
+    gv, gi = got
+    wv, wi = want
+    other = gi != wi
+    if ok and bool(other.any()):
+        tol = SWEEP_TOL * torch.clamp(wv.abs(), min=1.0)
+        kv = torch.gather(keys, 1, gi.clamp(min=0))
+        kdiff = torch.where(torch.isinf(kv) & (kv == wv),
+                            torch.zeros_like(kv), (kv - wv).abs())
+        ok = bool((kdiff[other] <= tol[other]).all())
+    return ok, share, err
+
+
+def sweep_values_agree(got, want):
+    """`sweep_agreement` without the near-tie test (which needs the whole
+    slab): int8 bit-equal; bf16 values within the tolerance at every rank
+    (-inf where the plain version's is) and ids equal on >=
+    SWEEP_ID_SHARE.  (ok, share of equal ids, max |value error| over
+    finite values)."""
+    import torch
+
+    share = float((got[1] == want[1]).float().mean())
+    if got[0].dtype == torch.bfloat16:
+        return topk_same(got, want), share, 0.0
+    fin = torch.isfinite(want[0])
+    diff = (got[0] - want[0]).abs()
+    tol = SWEEP_TOL * torch.clamp(want[0].abs(), min=1.0)
+    same_inf = bool(torch.equal(got[0][~fin], want[0][~fin]))
+    err = float(diff[fin].max()) if bool(fin.any()) else 0.0
+    return (bool((diff[fin] <= tol[fin]).all()) and same_inf
+            and share >= SWEEP_ID_SHARE), share, err
+
+
+def phase_sweep_vs_plain(dev):
+    """Phase 2 for `sweep_topk`: every case of `sweep_cases` against
+    `sweep_topk_plain` on the card (int8 bit-equal; bf16 by
+    `sweep_agreement`), two runs bit-identical.  Launches here are not
+    counted on any path."""
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    t0 = time.time()
+    cases = sweep_cases()
+    worst = {"bf16": (1.0, 0.0), "int8": (1.0, 0.0)}
+    for i, (kind, B, W, n_p, d_pad, kc, variant) in enumerate(cases):
+        q, tbl, kw = sweep_inputs(kind, B, W, n_p, d_pad, variant, i, dev)
+        before = ek.sweep_topk.launches
+        got = ek.sweep_topk(q, tbl, W, kc, **kw)
+        again = ek.sweep_topk(q, tbl, W, kc, **kw)
+        want = ek.sweep_topk_plain(q, tbl, W, kc, **kw)
+        torch.cuda.synchronize()
+        launched = ek.sweep_topk.launches - before == 2
+        ok, share, err = sweep_agreement(got, want,
+                                         sweep_slab_keys(q, tbl, kw))
+        twice = topk_same(got, again)
+        w = worst[kind]
+        worst[kind] = (min(w[0], share), max(w[1], err))
+        if not (ok and twice and launched):
+            say(f"phase 2 sweep_topk vs plain {kind} B={B} piece={W} x {n_p} "
+                f"d_pad={d_pad} kc={kc} {variant}: agree {ok} (ids equal "
+                f"{share:.5f}, max err {err:.3g}), two runs identical "
+                f"{twice}, launched {launched} FAIL")
+            raise SystemExit("phase 2 failed: sweep_topk disagrees with plain")
+        del q, tbl, kw, got, again, want
+    torch.cuda.empty_cache()
+    say(f"phase 2 sweep_topk vs plain: {len(cases)} cases (B {SWEEP_BS}, "
+        f"pieces of {SWEEP_WIDTHS} x 1-3, d_pad {SWEEP_DS}, kc {SWEEP_KCS}, "
+        f"{list(SWEEP_VARIANTS)}) in {time.time() - t0:.1f}s: int8 values "
+        f"and ids bit-equal; bf16 values within {SWEEP_TOL} x max(1, |v|) "
+        f"(max err {worst['bf16'][1]:.3g}), ids equal on >= "
+        f"{worst['bf16'][0]:.5f} of entries (bar {SWEEP_ID_SHARE}), every "
+        f"other a near-tie; two runs identical")
 
 
 def recall(ids, gt):
@@ -1074,7 +1364,7 @@ def phase_main(index, qs, build_s, reps):
     topk_zero()
     gt, gt_d = sweep_search(index, qs, K, rt=1.0, compute_dtype="f32",
                             exact_rerank=False)
-    topk_read("index f32 (phase 3)", "phase 3")
+    topk_read("index f32 (phase 3)", "phase 3", sweep=False)
     first_s = time.time() - t0
     if gt.shape != (NQ, K) or not np.isfinite(gt_d).all() or (gt < 0).any():
         raise SystemExit("phase 3 failed: f32 lane returned bad rows")
@@ -1108,7 +1398,8 @@ def phase_main(index, qs, build_s, reps):
             ids, dists = sweep_search(index, qs, K, rt=rt, compute_dtype=cd,
                                       exact_rerank=rerank, rerank_k=rk)
             per_rep.append(NQ / (time.time() - t0))
-        topk_read(f"index {tag} (phase 3)", "phase 3")
+        topk_read(f"index {tag} (phase 3)", "phase 3",
+                  sweep=cd in ("bf16", "i8"))
         r = recall(ids, gt)
         ok = (ids.shape == (NQ, K) and np.isfinite(dists[ids >= 0]).all()
               and r >= BARS[tag])
@@ -1159,7 +1450,7 @@ def phase_quant_dispatch(index, qs, gt):
             rerank_s.append(quant_search.last_timing[1])
     finally:
         del os.environ["COZO_TPU_F32_TABLE_MAX"]
-    topk_read("index quant (phase 3)", "phase 3")
+    topk_read("index quant (phase 3)", "phase 3", sweep=False)
     r = recall(ids, gt)
     ok = (index._quant_sweep is not None and ids.shape == (NQ, K)
           and np.isfinite(dists[ids >= 0]).all() and r >= BARS["quant"])
@@ -1379,7 +1670,7 @@ def phase_db(data, qs):
     fs.fused_sweep.launches = 0
     topk_zero()
     db, out = build_db(data)
-    topk_read("db ::hnsw create (phase 5)", "phase 5")
+    topk_read("db ::hnsw create (phase 5)", "phase 5", sweep=True)
     topk_zero()
     out.update(n=n, d=d)
     say(f"phase 5 ingest: {n} rows in {out['ingest_s']:.1f}s "
@@ -1541,7 +1832,11 @@ def phase_db(data, qs):
 
     out["launches"] = {"beam_search": vs.beam_search.launches,
                        "fused_sweep": fs.fused_sweep.launches,
-                       "slab_topk": topk_read("db (phase 5)", "phase 5"),
+                       "slab_topk": topk_read("db (phase 5)", "phase 5",
+                                              sweep=True),
+                       "sweep_topk": SWEEP_LAUNCHES["db (phase 5)"],
+                       "sweep_topk_ddl": SWEEP_LAUNCHES[
+                           "db ::hnsw create (phase 5)"],
                        "slab_topk_ddl": TOPK_LAUNCHES[
                            "db ::hnsw create (phase 5)"]}
     if out["launches"]["beam_search"] < 1:
@@ -1614,6 +1909,7 @@ def all_counts():
 
     return {"beam_search": vs.beam_search.launches,
             "slab_topk": ek.select_topk.launches,
+            "sweep_topk": ek.sweep_topk.launches,
             "minhash": mh.segment_min.launches, **graph_counts(),
             **{f"fused_sweep[{r}]": c
                for r, c in fs.fused_sweep.route_launches.items()}}
@@ -2610,7 +2906,7 @@ def phase_mesh_sweep(index, data, qs, truth, dev, reps):
             raise SystemExit("phase 9 failed: the sharded sweep")
         del ss, parts
         torch.cuda.empty_cache()
-    topk_read("mesh (phase 9)", "phase 9")
+    topk_read("mesh (phase 9)", "phase 9", sweep=True)
     (ids1, mi1, ms1), (ids2, mi2, ms2) = runs[1], runs[2]
     differ = mi1 != mi2
     tied = bool((ms1[differ] == ms2[differ]).all())
@@ -2912,8 +3208,9 @@ def phase_engines(data, qs, dev):
     say(f"phase 10 kernel launches on the engines path: {launches}")
     if launches["beam_search"] < len(ENGINES) or \
             launches["graph_pagerank"] < len(ENGINES) or \
-            launches["slab_topk"] < len(ENGINES):
+            launches["sweep_topk"] < len(ENGINES):
         raise SystemExit("phase 10 failed: a kernel of the path never launched")
+    topk_read("engines (phase 10)", "phase 10", sweep=True)
     out["card"] = smi_line()
     say("engines " + json.dumps(out))
     return launches
@@ -3021,7 +3318,7 @@ def phase_quant_wide():
         t0 = time.time()
         ids, dists = quant_search(data, table, qs, K)
         qps.append(QUANT_NQ / (time.time() - t0))
-    topk_read("quant (phase 3b)", "phase 3b")
+    topk_read("quant (phase 3b)", "phase 3b", sweep=False)
     scan_s, rerank_s = quant_search.last_timing
     norms = np.concatenate([
         np.einsum("nd,nd->n", blk, blk) for blk in np.array_split(data, 16)])
@@ -3064,7 +3361,8 @@ def phase_i8_build(data, qs):
             index.bulk_build(rows, wave=8192)
             torch.cuda.synchronize()
             build_s = time.time() - t0
-            topk_read(f"{mode} build (phase 3c)", "phase 3c")
+            topk_read(f"{mode} build (phase 3c)", "phase 3c",
+                      sweep=mode == "f32")
             served = None
             if mode == "i8":  # the build's table serves, through the dispatcher
                 qt = index._quant_sweep
@@ -3265,40 +3563,32 @@ def topk_plain_blocks(x, kf, kw):
 
 def topk_main_shapes(index, qs):
     """The slabs `select_topk` takes on the main path, from phase 3's index
-    (its first chunk): (lane, slab, kf, keyword arguments).  The bf16 lane
-    (+ re-rank: kf 26; raw: kf 10) and the f32 lane take the same
-    [16,384 x 131,072] f32 product with the bias; the i8 lane its int32
-    products (rescaled, biased, bf16 key, kf 64: phase 3 re-ranks 64);
-    the quant lane 4,096 queries' int32 products (kf 40, phase 3b's batch
-    and overfetch); the build a wave of 8,192 rows (kf P + 1 = 97); the
-    fused lane the kernel's packed [16,384 x 10,240] (kf 26)."""
+    (its first chunk): (lane, slab, kf, keyword arguments).  The f32 lane
+    its true-f32 [16,384 x 131,072] product with the bias (kf 10); the
+    quant lane 4,096 queries' int32 products (kf 40, phase 3b's batch and
+    overfetch); the fused lane the kernel's packed [16,384 x 10,240] (kf
+    26).  (The bf16 and i8 lanes and the f32-table build select inside
+    `sweep_topk`: no slab.)"""
     import torch
 
     from cozo_tpu_torch.ops import fused_sweep as fs
     from cozo_tpu_torch.ops.exact_knn import quantize_tbl
-    from cozo_tpu_torch.utils.device import (int_mm, mm_bf16,
-                                             prepare_queries)
+    from cozo_tpu_torch.utils.device import int_mm, prepare_queries
 
     st = index._sweep_table
     dev = st.tbl.device
     q = torch.from_numpy(np.ascontiguousarray(qs, np.float32)).to(dev)
+    q32 = prepare_queries(q, "Cosine", st.d_pad)
     qh = prepare_queries(q, "Cosine", st.d_pad, half=True)
-    q32, q_i8, q_scale = prepare_queries(q, "Cosine", st.d_pad, half=True,
-                                         quantize=True, reciprocal=True)
-    del q32
+    _, q_i8, q_scale = prepare_queries(q, "Cosine", st.d_pad, half=True,
+                                       quantize=True, reciprocal=True)
     tbl_i8, scale = (st.tbl_i8, st.scale_i8) if st.tbl_i8 is not None \
         else quantize_tbl(st.tbl, st.bias)
     bias = st.bias[0]
-    yield ("bf16 lane", mm_bf16(qh, st.tbl[0]), 26, {"bias": bias})
-    yield ("bf16 raw / f32 lane", mm_bf16(qh, st.tbl[0]), 10, {"bias": bias})
-    yield ("i8 lane", int_mm(q_i8, tbl_i8[0]), 64,
-           {"col_scale": scale[0], "row_scale": q_scale, "bias": bias,
-            "bf16": True})
+    yield ("f32 lane", q32 @ st.tbl[0].T, 10, {"bias": bias})
     yield ("quant lane", int_mm(q_i8[:4096], tbl_i8[0]), 40,
            {"col_scale": scale[0], "row_scale": q_scale[:4096].contiguous(),
             "bias": bias})
-    yield ("build step", mm_bf16(st.tbl[0][:8192], st.tbl[0]), 97,
-           {"bias": bias})
     packed = fs.fused_sweep(qh.to(torch.bfloat16).contiguous(),
                             st.tbl_fused, st.bias_fused)
     yield ("fused lane", packed, 26, {})
@@ -3365,7 +3655,7 @@ def time_topk(index, qs, reps):
     key slab,
     beside the bound (one read of the slab and of the prologue's vectors,
     one write of the output).  Returns its entry of the `kernels` line (the
-    bf16 lane's numbers; every shape under "shapes"), its launches by path
+    f32 lane's numbers; every shape under "shapes"), its launches by path
     filled in at the end of the run."""
     import torch
 
@@ -3413,15 +3703,13 @@ def time_topk(index, qs, reps):
             f"runs identical {twice}")
         del x, kw
         torch.cuda.empty_cache()
-    main = shapes["bf16 lane"]
+    main = shapes["f32 lane"]
     return {
         "name": "slab_topk", "route": "cuda",
         "source": "cozo_tpu_torch/csrc/slab_topk.cu",
         "replaces": "cozo_tpu/ops/exact_knn.py:118",
         "replaces_all": ["cozo_tpu/ops/exact_knn.py:118",
-                         "cozo_tpu/ops/exact_knn.py:209",
                          "cozo_tpu/ops/quant_knn.py:88",
-                         "cozo_tpu/ops/bulk_build.py:144",
                          "cozo_tpu/ops/bulk_build.py:266",
                          "cozo_tpu/ops/pallas_sweep.py:201"],
         "launches": 0, "launches_by_path": {},
@@ -3434,11 +3722,196 @@ def time_topk(index, qs, reps):
     }
 
 
+PEAK_INT8 = 1979e12  # H100 SXM dense int8 OP/s
+SWEEP_TURNS = 3  # rounds of (kernel, old two-step route) timed in turns
+
+
+def sweep_main_shapes(st, qs):
+    """The chunk steps the main path hands `sweep_topk`, from a sweep table
+    `st` (phase 3's index, or a synthetic one of the main shape) and the
+    queries: (lane, q, tbl, chunk, kc, keyword arguments), `chunk` the
+    lane's chunk (the old route's piece).  The bf16 lane
+    + re-rank (kc 26) and raw (kc 10) on the 16,384 queries as
+    `prepare_queries` rounds them, the i8 lane's int8 queries (kc 64), a
+    build wave of 8,192 rows (the table's first, as queries; kc P + 1 =
+    97), the mesh's scan of one shard (raw bf16, kc 10, the table in
+    `ShardedSweep`'s chunks of 16,384 rows), and the bf16 lane + re-rank
+    with keys that rise along the table (the table scaled by 2^-10, a
+    bias step of 0.25: the seed's case)."""
+    import torch
+
+    from cozo_tpu_torch.ops.exact_knn import quantize_tbl
+    from cozo_tpu_torch.utils.device import prepare_queries
+
+    dev = st.tbl.device
+    n_chunks, chunk, d_pad = st.tbl.shape
+    tbl16 = st.tbl.reshape(-1, d_pad).to(torch.bfloat16)
+    bias = st.bias.reshape(-1)
+    q = torch.from_numpy(np.ascontiguousarray(qs, np.float32)).to(dev)
+    qh = prepare_queries(q, "Cosine", d_pad, half=True).to(torch.bfloat16)
+    _, q_i8, q_scale = prepare_queries(q, "Cosine", d_pad, half=True,
+                                       quantize=True, reciprocal=True)
+    tbl_i8, scale = quantize_tbl(st.tbl, st.bias)
+    yield "bf16 lane", qh, tbl16, chunk, 26, {"bias": bias}
+    yield "bf16 raw", qh, tbl16, chunk, 10, {"bias": bias}
+    yield ("i8 lane", q_i8, tbl_i8.reshape(-1, d_pad), chunk, 64,
+           {"bias": bias, "col_scale": scale.reshape(-1),
+            "row_scale": q_scale})
+    yield "build step", tbl16[:8192].contiguous(), tbl16, chunk, 97, {
+        "bias": bias}
+    yield "mesh shard (raw, chunks of 16,384)", qh, tbl16, 16_384, 10, {
+        "bias": bias}
+    rising = torch.arange(bias.numel(), device=dev).float() * 0.25
+    yield ("bf16 lane, rising keys", qh, tbl16 * 2.0 ** -10, chunk, 26,
+           {"bias": torch.where(torch.isfinite(bias), rising, bias)})
+
+
+def sweep_plain_blocks(q, tbl, piece, kc, kw):
+    """`sweep_topk_plain` over row blocks of q (its selection of a whole
+    [16,384 x 131,072] slab would take some 45 GB)."""
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    parts = []
+    for r0 in range(0, q.shape[0], TOPK_PLAIN_ROWS):
+        sl = slice(r0, r0 + TOPK_PLAIN_ROWS)
+        kb = dict(kw)
+        if "row_scale" in kb:
+            kb["row_scale"] = kb["row_scale"][sl].contiguous()
+        parts.append(ek.sweep_topk_plain(q[sl], tbl, piece, kc, **kb))
+    return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
+
+
+def sweep_library(q, tbl, piece, kc, kw):
+    """The yardstick, never called by the port: per piece one library
+    product (`torch.mm` to f32, or `torch._int_mm`), the key in PyTorch,
+    and `torch.topk`."""
+    import torch
+
+    for p in range(tbl.shape[0] // piece):
+        cols = slice(p * piece, (p + 1) * piece)
+        if q.dtype == torch.int8:
+            s = torch._int_mm(q, tbl[cols].T).float()
+            s = s * kw["col_scale"][cols] * kw["row_scale"][:, None]
+        else:
+            s = torch.mm(q, tbl[cols].T, out_dtype=torch.float32)
+        torch.topk(s + kw["bias"][cols], kc)
+        del s
+
+
+def time_sweep(st, qs, reps):
+    """Phase 4 for `sweep_topk` at each chunk step of the main path
+    (`sweep_main_shapes`), at the piece `sweep_piece` gives the lane: the
+    kernel against the plain version first (int8 bit-equal, bf16 by
+    `sweep_values_agree`), then its time (CUDA events, a launch covers all
+    the pieces), the old two-step route's a chunk at a time (the product
+    writes each chunk's slab, `slab_topk` reads it) in turns with it, the
+    plain version's (row blocks) and the library yardstick's, beside the
+    bound: the products at the tensor cores' peak (989 TFLOP/s bf16, 1,979
+    TOP/s int8) or the bytes (the queries, the table and the vectors read
+    once, the outputs written once) at 3.35 TB/s, the larger.  Returns its
+    entry of the `kernels` line (the bf16 lane's numbers; every shape under
+    "shapes"), its launches by path filled in at the end of the run."""
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    shapes = {}
+    for lane, q, tbl, chunk, kc, kw in sweep_main_shapes(st, qs):
+        B, d_pad = q.shape
+        n_total = tbl.shape[0]
+        # the kernel at the piece the lanes hand it; the old route a chunk
+        # at a time, as it ran
+        piece = ek.sweep_piece(n_total, chunk, B, d_pad, kc,
+                               q.dtype == torch.int8, q.device)
+        n_p = n_total // piece
+        got = ek.sweep_topk(q, tbl, piece, kc, **kw)
+        t0 = time.time()
+        want = sweep_plain_blocks(q, tbl, piece, kc, kw)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.time() - t0)
+        again = ek.sweep_topk(q, tbl, piece, kc, **kw)
+        torch.cuda.synchronize()
+        ok, share, err = sweep_values_agree(got, want)
+        twice = topk_same(got, again)
+        del got, want, again
+        if not (ok and twice):
+            raise SystemExit(f"phase 4 failed: sweep_topk disagrees with "
+                             f"plain ({lane}: ids equal {share}, max err "
+                             f"{err})")
+        out = ek._chunk_buffers(B, n_p, kc, torch.bfloat16 if q.dtype ==
+                                torch.int8 else torch.float32, q.device)
+        out_old = ek._chunk_buffers(B, n_total // chunk, kc, out[0].dtype,
+                                    q.device)
+        kern, old = [], []
+        for _ in range(SWEEP_TURNS):
+            kern.append(cuda_ms(lambda: ek.sweep_topk(q, tbl, piece, kc,
+                                                      out=out, **kw), reps))
+            old.append(cuda_ms(lambda: ek.sweep_two_step(
+                q, tbl, chunk, kc, kw["bias"], kw.get("col_scale"),
+                kw.get("row_scale"), 0, out_old), 1))
+        del out_old
+        torch.cuda.empty_cache()
+        library_ms = cuda_ms(lambda: sweep_library(q, tbl, chunk, kc, kw), 1)
+        torch.cuda.empty_cache()
+        ops = 2.0 * B * n_total * d_pad
+        peak = PEAK_INT8 if q.dtype == torch.int8 else PEAK_BF16
+        nbytes = (q.numel() * q.element_size() + tbl.numel() * tbl.element_size()
+                  + 4 * n_total * (2 if "col_scale" in kw else 1)
+                  + (4 * B if "row_scale" in kw else 0)
+                  + B * n_p * kc * ((2 if q.dtype == torch.int8 else 4) + 8))
+        bound = max(ops / peak, nbytes / PEAK_BYTES) * 1e3
+        ms = float(np.median(kern))
+        shapes[lane] = {
+            "B": B, "n_total": n_total, "piece": piece, "chunk": chunk,
+            "kc": kc,
+            "d_pad": d_pad, "dtype": str(q.dtype), "ms": ms, "ms_turns": kern,
+            "two_step_ms": float(np.median(old)), "two_step_turns": old,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+            "bound_by": "operations" if ops / peak >= nbytes / PEAK_BYTES
+            else "bytes", "ids_equal": share, "max_abs_err": err}
+        say(f"phase 4 sweep_topk ({lane}: [{B} x {n_total}] {q.dtype} in "
+            f"{n_p} piece(s) of {piece}, d_pad {d_pad}, kc {kc}): {ms:.3f} ms "
+            f"a launch ({100 * bound / ms:.1f}% of the bound {bound:.3f} ms, "
+            f"{ops / 1e12:.2f} T{'OP' if q.dtype == torch.int8 else 'FLOP'}, "
+            f"{nbytes / 1e9:.3f} GB; turns {[round(x, 3) for x in kern]}), "
+            f"the old two-step route in chunks of {chunk} "
+            f"{np.median(old):.3f} ms (turns "
+            f"{[round(x, 3) for x in old]}), library mm + topk "
+            f"{library_ms:.3f} ms, plain {plain_ms:.1f} ms (blocks of "
+            f"{TOPK_PLAIN_ROWS} rows, host clock); ids equal {share:.5f}, "
+            f"max err {err:.3g}, two runs identical {twice}")
+        del q, tbl, kw, out
+        torch.cuda.empty_cache()
+    main = shapes["bf16 lane"]
+    return {
+        "name": "sweep_topk", "route": "cuda",
+        "source": "cozo_tpu_torch/csrc/sweep_topk.cu",
+        "replaces": "cozo_tpu/ops/exact_knn.py:100-123",
+        "replaces_all": ["cozo_tpu/ops/exact_knn.py:100-123",
+                         "cozo_tpu/ops/exact_knn.py:199-213",
+                         "cozo_tpu/ops/bulk_build.py:137-147"],
+        "launches": 0, "launches_by_path": {},
+        "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],  # torch.mm + torch.topk a piece
+        "two_step_ms": main["two_step_ms"],
+        "shape": {k: main[k] for k in ("B", "n_total", "piece", "chunk",
+                                       "kc")},
+        "shapes": shapes,
+    }
+
+
 def finish_topk_entry(kernels):
-    """slab_topk's entry gains the launches counted on each path."""
+    """slab_topk's and sweep_topk's entries gain the launches counted on
+    each path."""
     for entry in kernels:
-        if entry["name"] == "slab_topk":
-            entry["launches_by_path"].update(TOPK_LAUNCHES)
+        by = {"slab_topk": TOPK_LAUNCHES, "sweep_topk": SWEEP_LAUNCHES}.get(
+            entry["name"])
+        if by is not None:
+            entry["launches_by_path"].update(by)
             entry["launches"] = sum(entry["launches_by_path"].values())
 
 
@@ -3597,6 +4070,12 @@ def phase_server(db):
         status, res = http(url, "/text-query", {"script": GRAPH_PR})
         out["pagerank_request_ms"] = (time.perf_counter() - t0) * 1e3
         out["launches"] = all_counts()
+        # small joins and PageRank: no sweep, no selection on this path
+        if (out["launches"]["slab_topk"], out["launches"]["sweep_topk"]) != (
+                EXPECTED["slab_topk"], EXPECTED["sweep_topk"]):
+            raise SystemExit(f"phase 11 failed: the selection kernels "
+                             f"launched {out['launches']} where the calls "
+                             f"imply {EXPECTED}")
         same = status == 200 and res.get("ok") is True \
             and res["rows"] == direct and len(direct) > 0
         out["pagerank_bit_equal"] = bool(same)
@@ -3998,14 +4477,15 @@ def topk_only(args, dev):
     t1 = time.time()
     index.bulk_build(data, wave=8192)
     say(f"topk-only: bulk_build of {args.n} x {D} in {time.time() - t1:.1f}s")
-    topk_read("build (--topk-only)", "build")
+    topk_read("build (--topk-only)", "build", sweep=True)
     for cd, rk in (("f32", None), ("bf16", None), ("i8", 64),
                    ("fused", None)):
         topk_zero()
         t1 = time.time()
         sweep_search(index, qs, K, compute_dtype=cd, rerank_k=rk,
                      exact_rerank=cd != "f32")
-        topk_read(f"lane {cd} (--topk-only)", "lanes")
+        topk_read(f"lane {cd} (--topk-only)", "lanes",
+                  sweep=cd in ("bf16", "i8"))
         say(f"topk-only: lane {cd} B={NQ} first call {time.time() - t1:.2f}s")
     kernels = [time_topk(index, qs, args.reps)]
     finish_topk_entry(kernels)
@@ -4013,6 +4493,45 @@ def topk_only(args, dev):
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
     say("topk-only run: no verdict on the main path")
+    return 0
+
+
+def synthetic_sweep_table(n, dev, seed=0):
+    """A sweep table of the main path's shape without an index: n unit
+    rows of D dims (normal, seeded, made on the card) in `_chunking`'s
+    chunks, padded to d_pad 128, padding rows dead; and NQ unit queries."""
+    import torch
+    from types import SimpleNamespace
+
+    from cozo_tpu_torch.ops.exact_knn import _chunking
+
+    chunk, n_chunks = _chunking(n)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tbl = torch.zeros((n_chunks * chunk, 128), device=dev)
+    tbl[:n, :D] = torch.nn.functional.normalize(
+        torch.randn((n, D), generator=g, device=dev), dim=1)
+    bias = torch.zeros(n_chunks * chunk, device=dev)
+    bias[n:] = -np.inf
+    qs = torch.nn.functional.normalize(
+        torch.randn((NQ, D), generator=g, device=dev), dim=1)
+    return (SimpleNamespace(tbl=tbl.view(n_chunks, chunk, 128),
+                            bias=bias.view(n_chunks, chunk)),
+            qs.cpu().numpy())
+
+
+def sweep_only(args, dev):
+    """--sweep-only: the loop for work on the chunk-step kernel: phase 2's
+    sweep_topk cases, then phase 4's sweep_topk timings on a synthetic
+    table of --n rows (the main path's shape, no index)."""
+    t0 = time.time()
+    phase_sweep_vs_plain(dev)
+    say(f"[{time.time() - t0:.1f}s] phase 2 (sweep_topk) done")
+    st, qs = synthetic_sweep_table(args.n, dev)
+    kernels = [time_sweep(st, qs, args.reps)]
+    say(f"total {time.time() - t0:.1f}s")
+    say(json.dumps({"kernels": kernels}))
+    say(smi_line())
+    say("sweep-only run: no verdict on the main path")
     return 0
 
 
@@ -4048,6 +4567,10 @@ def main():
                          "version, build an index of --n rows, run each "
                          "sweep lane once and time slab_topk on it; no "
                          "verdict")
+    ap.add_argument("--sweep-only", action="store_true",
+                    help="build the kernels, hold sweep_topk to its plain "
+                         "version and time it on a synthetic table of --n "
+                         "rows; no verdict")
     ap.add_argument("--quality-main-draw", action="store_true",
                     help="with --hosts-only: the graph-quality check on "
                          "the first --n rows of the main path's draw and "
@@ -4069,6 +4592,7 @@ def main():
     from cozo_tpu_torch import default_device
 
     dev = default_device()
+    install_launch_ledger()
     say(f"device: {torch.cuda.get_device_name(0)} "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
     if args.n != N and not args.hosts_only:
@@ -4084,11 +4608,14 @@ def main():
         return hosts_only(args)
     if args.topk_only:
         return topk_only(args, dev)
+    if args.sweep_only:
+        return sweep_only(args, dev)
     phase_minhash_vs_plain(dev)
     if args.lsh_only:
         return lsh_only(args)
     phase_kernel_vs_plain(dev)
     phase_topk_vs_plain(dev)
+    phase_sweep_vs_plain(dev)
     phase_beam_vs_plain()
     phase_graph_vs_plain(dev)
     lap = lambda what: say(f"[{time.time() - t_all:.1f}s] {what} done")  # noqa: E731
@@ -4124,6 +4651,7 @@ def main():
     else:
         kernels.append(time_beam(index, qs, launches))
         kernels.append(time_topk(index, qs, args.reps))
+        kernels.append(time_sweep(index._sweep_table, qs, args.reps))
         del main_inputs
         torch.cuda.empty_cache()
         lap("phases 3 and 4 (main path)")

@@ -17,10 +17,14 @@
   Upper levels (6%/0.4%/... of nodes at m=16) keep the per-node host
   heuristic — they are too few to matter.
 
-Where the JAX version calls `lax.approx_max_k` (rt=0.9), this one calls
-`exact_knn.select_topk` (the hand kernel `csrc/slab_topk.cu`: exact, with
-the bias and the int8 table's scales applied as the slab is read, ties by
-ascending position as the JAX merges break them).
+Where the JAX version computes a chunk's product and its
+`lax.approx_max_k` (rt=0.9) in one scan body, the f32-table step calls
+`exact_knn.sweep_topk` (the hand kernel `csrc/sweep_topk.cu`: the bf16
+product and an exact selection in one kernel, no score slab in device
+memory); the int8-table step multiplies bf16 queries by the int8 table
+and calls `exact_knn.select_topk` (the hand kernel `csrc/slab_topk.cu`:
+exact, with the bias and the table's scales applied as the slab is
+read).  Both break ties by ascending position, as the JAX merges do.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch
 from ..utils.device import (default_device, mm_bf16, PendingPull,
                             quantize_i8, to_device)
 from .exact_knn import (_chunk_buffers, _chunking, _cols, merge_chunks,
-                        select_topk, SweepTable)
+                        select_topk, sweep_piece, sweep_topk, SweepTable)
 
 
 def _select(tbl: torch.Tensor, bias: torch.Tensor, pool_ids: torch.Tensor,
@@ -108,27 +112,30 @@ def _pack(pool_ids, pool_d, sel) -> torch.Tensor:
 
 def _build_step(tbl: torch.Tensor, bias: torch.Tensor, new_rows: torch.Tensor,
                 new_bias: torch.Tensor, slots: torch.Tensor, P: int,
-                mmax: int, metric: str) -> torch.Tensor:
+                mmax: int, metric: str,
+                tbl16: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One device step per wave (counterpart of `_build_step_fn`):
     scatter the wave's rows into the resident table IN PLACE (the JAX
-    version donates the buffers), sweep the whole table for each wave
-    vector's top-P candidates (self-match masked), and run the batched
-    selection heuristic.  Returns the packed int32 [W, 3P]
-    (ids | dist bits | sel)."""
+    version donates the buffers), and into its flat bf16 copy `tbl16`
+    where given (else one is made from the table), sweep the whole table
+    for each wave vector's top-P candidates (`sweep_topk`; self-match
+    masked), and run the batched selection heuristic.  Returns the packed
+    int32 [W, 3P] (ids | dist bits | sel)."""
     n_chunks, chunk, d_pad = tbl.shape
     tbl.view(-1, d_pad).index_put_((slots,), new_rows)
     bias.view(-1).index_put_((slots,), new_bias)
+    if tbl16 is None:
+        tbl16 = tbl.reshape(-1, d_pad).to(torch.bfloat16)
+    else:
+        tbl16.index_put_((slots,), new_rows.to(torch.bfloat16))
     # query form from storage form: L2 rows are 2v (q·row = 2 q·v);
     # cosine/IP rows are the (normalized) vectors themselves
     qs = new_rows * 0.5 if metric == "L2" else new_rows
 
-    bufs = _chunk_buffers(qs.shape[0], n_chunks, P + 1, torch.float32,
-                          qs.device)
-    for c in range(n_chunks):
-        s = mm_bf16(qs, tbl[c])
-        select_topk(s, P + 1, bias=bias[c], offset=c * chunk,
-                    out=_cols(bufs, c, P + 1))
-        del s  # free the [W, chunk] slab before the next chunk's
+    piece = sweep_piece(tbl16.shape[0], chunk, qs.shape[0], d_pad, P + 1,
+                        False, qs.device)
+    bufs = sweep_topk(qs.to(torch.bfloat16), tbl16, piece, P + 1,
+                      bias.reshape(-1))
     qn = torch.sum(qs * qs, dim=1, keepdim=True) if metric == "L2" else None
     pool_ids, pool_d = _pool(bufs, slots, P, qn, metric)
     sel = _select(tbl, bias, pool_ids, pool_d, mmax, metric)
@@ -220,6 +227,10 @@ def bulk_build_device(index, data: np.ndarray, wave: int = 4096,
         st.tbl = torch.zeros((n_chunks, chunk, d_pad), dtype=torch.float32,
                              device=dev)
         st.bias = tbl_bias
+        # the flat bf16 copy the step's sweep reads, kept in step with the
+        # table wave by wave
+        tbl16 = torch.zeros((n_chunks * chunk, d_pad), dtype=torch.bfloat16,
+                            device=dev)
 
     # level 0 link bookkeeping (vectorized reverse links need distances)
     cap = index.vectors.shape[0]
@@ -281,7 +292,7 @@ def bulk_build_device(index, data: np.ndarray, wave: int = 4096,
         if use_i8:
             packed_d = _build_step_i8(tbl_i8, tbl_scale, tbl_bias, *wave_in)
         else:
-            packed_d = _build_step(st.tbl, st.bias, *wave_in)
+            packed_d = _build_step(st.tbl, st.bias, *wave_in, tbl16=tbl16)
             st.version = index.version
         index.sweep_pending.clear()
         pull = PendingPull(packed_d)
@@ -295,6 +306,8 @@ def bulk_build_device(index, data: np.ndarray, wave: int = 4096,
 
     if pending is not None:
         _process_wave(*pending)
+    if not use_i8:  # the serving bf16 lane starts from the build's copy
+        st.tbl_bf16, st.bf16_version = tbl16, st.version
 
     if use_i8:
         # hand the finished int8 table to the serving path: the build's

@@ -3,15 +3,19 @@
 search.
 
 Layout: the table lives on the device as [n_chunks, CHUNK, d_pad] f32
-with a score bias [n_chunks, CHUNK] (0 alive, -inf dead/padding).  A loop
-over chunks computes the scores (f32, or bf16 inputs with f32 results)
-and keeps each chunk's top candidates; ONE top-k merges them, then an
-exact f32 re-rank of the over-fetched candidates.  Where the JAX version
-calls `lax.approx_max_k`, this one calls `select_topk`, the hand kernel
-`csrc/slab_topk.cu`: an exact selection that takes the slab's bias (and
-the i8 lane's rescale and bf16 rounding) as it reads the slab, with
-`lax.top_k`'s tie rule (equal keys by ascending position, +0.0 above
--0.0); the merges use it too.
+with a score bias [n_chunks, CHUNK] (0 alive, -inf dead/padding).  Each
+chunk's scores (f32, or bf16 / int8 inputs with f32 / int32 results) give
+its top candidates; ONE top-k merges them, then an exact f32 re-rank of
+the over-fetched candidates.  Where the JAX version computes a chunk's
+product and its `lax.approx_max_k` in one scan body, the bf16 and i8
+lanes call `sweep_topk`, the hand kernel `csrc/sweep_topk.cu`: the
+product and an exact selection in one kernel, the score slab never in
+device memory.  The f32 lane's true-f32 product (which no tensor-core
+format gives bit for bit) writes its slab, and `select_topk`, the hand
+kernel `csrc/slab_topk.cu`, selects from it: an exact selection that
+takes the slab's bias (and the i8 lane's rescale and bf16 rounding) as
+it reads the slab.  Both follow `lax.top_k`'s tie rule (equal keys by
+ascending position, +0.0 above -0.0); the merges use `select_topk` too.
 Queries arrive as f16 (or f32) and unpadded, and results come back as one
 packed int32 array (ids | score bits), as in the JAX version, so both
 packages score the same inputs and return the same contract.
@@ -173,17 +177,21 @@ def _check_topk(x, kf, col_scale, row_scale, bias, bf16, out):
             raise ValueError(f"select_topk: {name} must be contiguous f32 "
                              f"[{n}] on {x.device}")
     if out is not None:
-        vals, ids = out
-        want = torch.bfloat16 if bf16 or x.dtype == torch.bfloat16 \
-            else torch.float32
-        if (tuple(vals.shape) != (B, kf) or tuple(ids.shape) != (B, kf)
-                or vals.dtype != want or ids.dtype != torch.int64
-                or vals.stride(1) != 1 or ids.stride(1) != 1
-                or (B > 1 and vals.stride(0) != ids.stride(0))
-                or vals.device != x.device or ids.device != x.device):
-            raise ValueError(f"select_topk: out must be ({want}, int64) "
-                             f"[{B}, {kf}] with unit column stride and one "
-                             f"row stride, on {x.device}")
+        _check_topk_out(out, B, kf, torch.bfloat16 if bf16
+                        or x.dtype == torch.bfloat16 else torch.float32,
+                        x.device, "select_topk")
+
+
+def _check_topk_out(out, B, width, want, device, who):
+    vals, ids = out
+    if (tuple(vals.shape) != (B, width) or tuple(ids.shape) != (B, width)
+            or vals.dtype != want or ids.dtype != torch.int64
+            or vals.stride(1) != 1 or ids.stride(1) != 1
+            or (B > 1 and vals.stride(0) != ids.stride(0))
+            or vals.device != device or ids.device != device):
+        raise ValueError(f"{who}: out must be ({want}, int64) [{B}, "
+                         f"{width}] with unit column stride and one row "
+                         f"stride, on {device}")
 
 
 def select_topk(x: torch.Tensor, kf: int, col_scale=None, row_scale=None,
@@ -250,6 +258,216 @@ def _topk_run(lib, x, kf, col_scale, row_scale, bias, bf16, offset, out,
     return out, launches
 
 
+# -- the chunk step: csrc/sweep_topk.cu ---------------------------------------
+
+SWEEP_MAX_D = 128     # the kernel's widest row (d_pad)
+SWEEP_MAX_KC = 256    # its largest kc
+SWEEP_PIECE = 256     # a piece is a multiple of this many table rows
+SWEEP_FILL = 0.9      # `sweep_piece`: the share of the SMs' waves enough
+_SWEEP_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
+
+
+def _bind_sweep(lib: ctypes.CDLL) -> ctypes.CDLL:
+    if lib.cozo_sweep_topk.argtypes is None:
+        lib.cozo_sweep_topk.argtypes = _SWEEP_ARGTYPES
+        lib.cozo_sweep_topk.restype = ctypes.c_int
+        lib.cozo_sweep_topk_rows.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.cozo_sweep_topk_rows.restype = ctypes.c_int
+    return lib
+
+
+def _sweep_lib() -> ctypes.CDLL:
+    return _bind_sweep(_build.load("sweep_topk"))
+
+
+def sweep_piece(n_total: int, chunk: int, B: int, d_pad: int, kc: int,
+                int8: bool, device) -> int:
+    """The piece width the lanes hand `sweep_topk` for a table of n_total
+    rows in chunks of `chunk`: the top kf of the whole table is the top kf
+    of any pieces' top kf, so the piece is free.  On the CPU, and on the
+    card's two-step route (whose slab is a piece wide), the chunk.  On the
+    kernel's route, where fewer and wider pieces mean fewer selections
+    and a tighter threshold, the widest piece (n_total / d for d dividing
+    n_total / SWEEP_PIECE, at least `chunk` / 8 rows) whose blocks (one a
+    piece and tile of the kernel's query rows) fill the card's SMs to
+    SWEEP_FILL of their waves, or the one that fills them best."""
+    if device.type != "cuda" or sweep_route(d_pad, kc, chunk) != "kernel":
+        return chunk
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = _sweep_lib().cozo_sweep_topk_rows(int(int8), kc)
+    n_qt = -(-B // rows)
+    units = n_total // SWEEP_PIECE
+    best, best_fill = chunk, -1.0
+    for d in range(1, units + 1):
+        if n_total // d < max(chunk // 8, SWEEP_PIECE):
+            break
+        if units % d:
+            continue
+        blocks = n_qt * d
+        fill = blocks / (sms * -(-blocks // sms))
+        if fill >= SWEEP_FILL:
+            return n_total // d
+        if fill > best_fill:
+            best, best_fill = n_total // d, fill
+    return best
+
+
+def sweep_route(d_pad: int, kc: int, piece: int) -> str:
+    """The route of `sweep_topk` on the card, from the shape alone:
+    "kernel" for d_pad <= SWEEP_MAX_D, kc <= SWEEP_MAX_KC and a piece that
+    is a multiple of SWEEP_PIECE, else "two_step" (the product, then
+    `select_topk`)."""
+    return ("kernel" if d_pad <= SWEEP_MAX_D and kc <= SWEEP_MAX_KC
+            and piece % SWEEP_PIECE == 0 else "two_step")
+
+
+def _check_sweep(q, tbl, piece, kc, bias, col_scale, row_scale, out):
+    if q.dim() != 2 or tbl.dim() != 2 or q.shape[1] != tbl.shape[1]:
+        raise ValueError(f"sweep_topk: q {tuple(q.shape)} / tbl "
+                         f"{tuple(tbl.shape)} must be [B, d_pad] / "
+                         f"[n_total, d_pad]")
+    if q.dtype != tbl.dtype or q.dtype not in (torch.bfloat16, torch.int8):
+        raise TypeError(f"sweep_topk: q and tbl must both be bf16 or both "
+                        f"int8, got {q.dtype} / {tbl.dtype}")
+    int8 = q.dtype == torch.int8
+    B, d_pad = q.shape
+    n_total = tbl.shape[0]
+    if (B < 1 or d_pad < 16 or d_pad % 16 or piece < 1 or n_total < piece
+            or n_total % piece or not 1 <= kc <= piece):
+        raise ValueError(
+            f"sweep_topk: needs B >= 1, d_pad a multiple of 16, a piece that "
+            f"divides n_total, 1 <= kc <= piece (B={B}, d_pad={d_pad}, "
+            f"n_total={n_total}, piece={piece}, kc={kc})")
+    if int8 != (col_scale is not None) or int8 != (row_scale is not None):
+        raise ValueError("sweep_topk: int8 inputs take col_scale and "
+                         "row_scale, bf16 inputs neither")
+    for name, v, n in (("bias", bias, n_total), ("col_scale", col_scale,
+                                                 n_total),
+                       ("row_scale", row_scale, B)):
+        if name == "bias" or v is not None:
+            if (v is None or v.dtype != torch.float32 or v.dim() != 1
+                    or v.shape[0] != n or not v.is_contiguous()
+                    or v.device != q.device):
+                raise ValueError(f"sweep_topk: {name} must be contiguous "
+                                 f"f32 [{n}] on {q.device}")
+    if not (q.is_contiguous() and tbl.is_contiguous()) \
+            or tbl.device != q.device:
+        raise ValueError("sweep_topk: q and tbl must be contiguous, on one "
+                         "device")
+    if out is not None:
+        _check_topk_out(out, B, (n_total // piece) * kc,
+                        torch.bfloat16 if int8 else torch.float32, q.device,
+                        "sweep_topk")
+
+
+def sweep_topk_plain(q: torch.Tensor, tbl: torch.Tensor, piece: int,
+                     kc: int, bias: torch.Tensor, col_scale=None,
+                     row_scale=None, offset: int = 0, out=None):
+    """Plain version of `sweep_topk`: per piece the product (`mm_bf16`,
+    or `int_mm` for int8), then `select_topk_plain` of its slab with the
+    piece's bias (and scales, and the bf16 rounding for int8), ids offset
+    by the piece's first row.  Returns (values, ids), [B, n_pieces * kc]."""
+    int8 = q.dtype == torch.int8
+    if out is None:
+        out = _chunk_buffers(q.shape[0], tbl.shape[0] // piece, kc,
+                             torch.bfloat16 if int8 else torch.float32,
+                             q.device)
+    for p in range(tbl.shape[0] // piece):
+        cols = slice(p * piece, (p + 1) * piece)
+        if int8:
+            vals, ids = select_topk_plain(
+                int_mm(q, tbl[cols]), kc, col_scale=col_scale[cols],
+                row_scale=row_scale, bias=bias[cols], bf16=True,
+                offset=offset + p * piece)
+        else:
+            vals, ids = select_topk_plain(mm_bf16(q, tbl[cols]), kc,
+                                          bias=bias[cols],
+                                          offset=offset + p * piece)
+        dst = _cols(out, p, kc)
+        dst[0].copy_(vals)
+        dst[1].copy_(ids)
+    return out
+
+
+def sweep_two_step(q, tbl, piece, kc, bias, col_scale, row_scale, offset,
+                   out):
+    """`sweep_topk`'s two-step route on checked arguments: per piece the
+    product (`mm_bf16` or `int_mm`) writes its slab, then `select_topk`
+    selects from it into the piece's columns of `out`."""
+    for p in range(tbl.shape[0] // piece):
+        cols = slice(p * piece, (p + 1) * piece)
+        if q.dtype == torch.int8:
+            select_topk(int_mm(q, tbl[cols]), kc, col_scale=col_scale[cols],
+                        row_scale=row_scale, bias=bias[cols], bf16=True,
+                        offset=offset + p * piece, out=_cols(out, p, kc))
+        else:
+            select_topk(mm_bf16(q, tbl[cols]), kc, bias=bias[cols],
+                        offset=offset + p * piece, out=_cols(out, p, kc))
+    return out
+
+
+def sweep_topk(q: torch.Tensor, tbl: torch.Tensor, piece: int, kc: int,
+               bias: torch.Tensor, col_scale=None, row_scale=None,
+               offset: int = 0, out=None):
+    """The chunk step of the bf16 and int8 sweeps: for each row of q and
+    each piece of `piece` table rows, the kc largest keys of the row's
+    scores against the piece, as `select_topk` selects them from the
+    slab (descending, equal keys by ascending position, +0.0 above -0.0).
+
+      - bf16: q [B, d_pad] and tbl [n_total, d_pad] bf16, scores f32 sums
+        of the bf16 products, key = score + bias[j], values f32;
+      - int8: q and tbl int8, exact int32 products, key = bf16(((s *
+        col_scale[j]) * row_scale[i]) + bias[j]), values bf16.
+
+    Returns (values, ids = position in tbl + offset, int64), [B, n_pieces
+    * kc], piece p in columns [p kc, (p + 1) kc): the merge buffer of
+    `_chunk_buffers`, or `out` (two such views with one row stride).
+    CUDA tensors: the route `sweep_route(d_pad, kc, piece)` names, chosen
+    before any launch: "kernel" launches `csrc/sweep_topk.cu` once on the
+    current stream for every piece (counted in `sweep_topk.launches`),
+    with no slab in device memory; "two_step" (d_pad > 128, kc > 256 or a
+    piece that is not a multiple of 256) runs each piece's product and
+    `select_topk` (counted in `sweep_topk.two_step`).
+    CPU tensors run `sweep_topk_plain`."""
+    _check_sweep(q, tbl, piece, kc, bias, col_scale, row_scale, out)
+    if q.device.type == "cpu":
+        return sweep_topk_plain(q, tbl, piece, kc, bias, col_scale,
+                                row_scale, offset, out)
+    if q.device.type != "cuda":
+        raise ValueError(f"sweep_topk: unsupported device {q.device}")
+    int8 = q.dtype == torch.int8
+    B, d_pad = q.shape
+    n_pieces = tbl.shape[0] // piece
+    if out is None:
+        out = _chunk_buffers(B, n_pieces, kc,
+                             torch.bfloat16 if int8 else torch.float32,
+                             q.device)
+    if sweep_route(d_pad, kc, piece) == "two_step":
+        sweep_two_step(q, tbl, piece, kc, bias, col_scale, row_scale, offset,
+                       out)
+        sweep_topk.two_step += 1
+        return out
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        lib = _sweep_lib()
+        err = lib.cozo_sweep_topk(
+            q.data_ptr(), tbl.data_ptr(), int(int8), B, tbl.shape[0], d_pad,
+            piece, kc, bias.data_ptr(), ptr(col_scale), ptr(row_scale),
+            out[0].data_ptr(), out[1].data_ptr(),
+            out[0].stride(0) if B > 1 else n_pieces * kc, offset, stream)
+    _build.check(lib, err, "sweep_topk launch")
+    sweep_topk.launches += 1
+    return out
+
+
+sweep_topk.launches = 0
+sweep_topk.two_step = 0
+
+
 def merge_chunks(alld: torch.Tensor, alli: torch.Tensor, kf: int):
     """The best kf of the per-chunk candidates alld [B, n_chunks * kc]
     (scores, chunk-major) with their global ids alli: the chunks' own
@@ -274,24 +492,35 @@ def _cols(bufs, c: int, kc: int):
 
 def _sweep(tbl: torch.Tensor, bias: torch.Tensor, qs: torch.Tensor,
            k: int, compute_dtype: str, rerank_k: int = 0,
-           metric: str = "IP") -> torch.Tensor:
+           metric: str = "IP", tbl16: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
     """Counterpart of `_sweep_fn`; `qs` [B, d_pad] f32 as
-    `prepare_queries` gives them.  rerank_k > 0: over-fetch rerank_k
-    candidates in the scan, then re-score them in true f32 (L2 in the
-    cancellation-free diff form) and return the exact top-k.  Returns
-    the packed int32 [B, 2k'] (ids | score bits)."""
+    `prepare_queries` gives them.  bf16: every chunk's product and
+    selection in `sweep_topk` (`tbl16`, the flat bf16 table, is made from
+    `tbl` where not given); f32: a chunk's true-f32 product, then
+    `select_topk`.  rerank_k > 0: over-fetch rerank_k candidates in the
+    scan, then re-score them in true f32 (L2 in the cancellation-free
+    diff form) and return the exact top-k.  Returns the packed int32
+    [B, 2k'] (ids | score bits)."""
     n_chunks, chunk, d_pad = tbl.shape
     kf = max(k, rerank_k)
     kc = min(kf, chunk)
-    bufs = _chunk_buffers(qs.shape[0], n_chunks, kc, torch.float32, qs.device)
-    for c in range(n_chunks):
-        if compute_dtype == "bf16":
-            s = mm_bf16(qs, tbl[c])
-        else:
+    if compute_dtype == "bf16":
+        if tbl16 is None:
+            tbl16 = tbl.reshape(-1, d_pad).to(torch.bfloat16)
+        piece = sweep_piece(tbl16.shape[0], chunk, qs.shape[0], d_pad, kc,
+                            False, qs.device)
+        kc = min(kf, piece)
+        bufs = sweep_topk(qs.to(torch.bfloat16), tbl16, piece, kc,
+                          bias.reshape(-1))
+    else:
+        bufs = _chunk_buffers(qs.shape[0], n_chunks, kc, torch.float32,
+                              qs.device)
+        for c in range(n_chunks):
             s = qs @ tbl[c].T
-        select_topk(s, kc, bias=bias[c], offset=c * chunk,
-                    out=_cols(bufs, c, kc))
-        del s  # free the [B, chunk] slab before the next chunk's
+            select_topk(s, kc, bias=bias[c], offset=c * chunk,
+                        out=_cols(bufs, c, kc))
+            del s  # free the [B, chunk] slab before the next chunk's
     bs, bi = merge_chunks(*bufs, kf)
     if rerank_k <= 0:
         return torch.cat([bi.to(torch.int32), bs.view(torch.int32)], dim=1)
@@ -315,21 +544,20 @@ def _sweep_i8(tbl_i8: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               q_scale: torch.Tensor, k: int, rerank_k: int,
               metric: str) -> torch.Tensor:
     """Counterpart of `_sweep_fn_i8`: int8 x int8 -> int32 products per
-    chunk, rescaled by the row and query scales, biased and rounded to a
-    bf16 slab as the JAX lane does; per-chunk top candidates, one merge,
-    then the same exact f32 re-rank of the over-fetched candidates as
-    `_sweep`.  `qs` / `q_i8` / `q_scale` come from `prepare_queries`."""
+    chunk, rescaled by the row and query scales, biased and rounded to
+    bf16 keys as the JAX lane does, and each chunk's top candidates, all
+    in `sweep_topk`; one merge, then the same exact f32 re-rank of the
+    over-fetched candidates as `_sweep`.  `qs` / `q_i8` / `q_scale` come
+    from `prepare_queries`."""
     n_chunks, chunk, d_pad = tbl.shape
     kf = max(k, rerank_k)
     kc = min(kf, chunk)
-    bufs = _chunk_buffers(qs.shape[0], n_chunks, kc, torch.bfloat16,
-                          qs.device)
-    for c in range(n_chunks):
-        s = int_mm(q_i8, tbl_i8[c])
-        select_topk(s, kc, col_scale=scale[c], row_scale=q_scale,
-                    bias=bias[c], bf16=True, offset=c * chunk,
-                    out=_cols(bufs, c, kc))
-        del s
+    piece = sweep_piece(n_chunks * chunk, chunk, qs.shape[0], d_pad, kc,
+                        True, qs.device)
+    kc = min(kf, piece)
+    bufs = sweep_topk(q_i8, tbl_i8.reshape(-1, d_pad), piece, kc,
+                      bias.reshape(-1), col_scale=scale.reshape(-1),
+                      row_scale=q_scale)
     bs, bi = merge_chunks(*bufs, kf)
     valid = (bi >= 0) & torch.isfinite(bs.float())
     return rerank_pack(tbl.reshape(-1, d_pad), qs, bi, valid, k, metric)
@@ -361,6 +589,10 @@ class SweepTable:
         self.tbl_i8: Optional[torch.Tensor] = None
         self.scale_i8: Optional[torch.Tensor] = None
         self.i8_version = -1
+        # bf16 lane: the flat bf16 table `sweep_topk` reads, derived on
+        # device per version
+        self.tbl_bf16: Optional[torch.Tensor] = None
+        self.bf16_version = -1
         # fused lane (compute_dtype="fused"): flat bf16 table + finite-min
         # bias, derived on device per version
         self.tbl_fused: Optional[torch.Tensor] = None
@@ -499,9 +731,16 @@ class SweepTable:
             )
             exact_rerank = True
         else:
+            tbl16 = None
+            if compute_dtype == "bf16":
+                if self.bf16_version != self.version or self.tbl_bf16 is None:
+                    self.tbl_bf16 = self.tbl.reshape(-1, self.d_pad).to(
+                        torch.bfloat16)
+                    self.bf16_version = self.version
+                tbl16 = self.tbl_bf16
             packed_d = _sweep(
                 self.tbl, self.bias, prepared, k, compute_dtype,
-                rerank_k=rerank_k, metric=index.distance,
+                rerank_k=rerank_k, metric=index.distance, tbl16=tbl16,
             )
         packed = packed_d.cpu().numpy()
         kk = packed.shape[1] // 2

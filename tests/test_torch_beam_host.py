@@ -3,10 +3,12 @@ beam_search.cu`), run on the CPU and held against `beam_search_plain`.
 
 A CUDA kernel has no interpret mode, but this one's block logic is plain
 C++ between a handful of CUDA names.  The test compiles the very source
-with g++ against a small stand-in for `cuda_runtime.h` (below: one
-`std::thread` per CUDA thread, blocks one after another, `std::barrier`
-for `__syncthreads` and `__syncwarp`, shuffles and ballots through a
-per-warp scratch array, atomics through the compiler's builtins), at 64
+with g++ against a small stand-in for `cuda_runtime.h` (below: the
+threads of a block as fibers on the calling thread, each with its own
+stack, blocks one after another, a barrier that opens when every thread
+it counts has arrived for `__syncthreads` and `__syncwarp`, shuffles and
+ballots through a per-warp scratch array, atomics through the
+compiler's builtins), at 64
 threads a block instead of 512 (`COZO_BEAM_THREADS`; every loop of the
 kernel strides by that constant), and calls the C entry point with CPU
 tensors.  ids must EQUAL the plain version's (both sum in f32, in another
@@ -31,18 +33,24 @@ from cozo_tpu_torch.ops import _build
 from cozo_tpu_torch.ops import vector_search as vs
 
 SHIM = r'''
-// Host stand-in for the CUDA runtime: one std::thread per CUDA thread,
-// blocks one after another.  For trying a kernel's block logic without a card.
+// Host stand-in for the CUDA runtime: the threads of a block run as fibers
+// (one stack each, switched by hand) on the calling thread, blocks one
+// after another.  For trying a kernel's block logic without a card.  A
+// fiber runs until it waits at a barrier (__syncthreads, __syncwarp, or
+// the two inside a shuffle or a ballot); the block's fibers take turns in
+// thread order, and a barrier opens when every thread it counts has
+// arrived, as std::barrier does.  The stacks are a pool kept across
+// blocks and launches.  A launch whose fibers all wait with none able to
+// go on (a barrier some thread never reaches) aborts with a message.
 #pragma once
 #include <algorithm>
-#include <atomic>
-#include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <functional>
 #include <memory>
-#include <thread>
 #include <vector>
 
 #define __global__
@@ -77,38 +85,183 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 
+// shim_switch(&save, to): saves the callee-saved registers and the stack
+// pointer of the running context in *save and resumes the one saved in `to`.
+extern "C" void shim_switch(void** save, void* to);
+#if defined(__x86_64__)
+asm(R"(
+.text
+.globl shim_switch
+.hidden shim_switch
+.type shim_switch, @function
+shim_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+.size shim_switch, .-shim_switch
+)");
+#elif defined(__aarch64__)
+asm(R"(
+.text
+.globl shim_switch
+.hidden shim_switch
+.type shim_switch, %function
+shim_switch:
+  sub sp, sp, #176
+  stp x19, x20, [sp, #0]
+  stp x21, x22, [sp, #16]
+  stp x23, x24, [sp, #32]
+  stp x25, x26, [sp, #48]
+  stp x27, x28, [sp, #64]
+  stp x29, x30, [sp, #80]
+  stp d8, d9, [sp, #96]
+  stp d10, d11, [sp, #112]
+  stp d12, d13, [sp, #128]
+  stp d14, d15, [sp, #144]
+  mov x9, sp
+  str x9, [x0]
+  mov sp, x1
+  ldp x19, x20, [sp, #0]
+  ldp x21, x22, [sp, #16]
+  ldp x23, x24, [sp, #32]
+  ldp x25, x26, [sp, #48]
+  ldp x27, x28, [sp, #64]
+  ldp x29, x30, [sp, #80]
+  ldp d8, d9, [sp, #96]
+  ldp d10, d11, [sp, #112]
+  ldp d12, d13, [sp, #128]
+  ldp d14, d15, [sp, #144]
+  add sp, sp, #176
+  ret
+.size shim_switch, .-shim_switch
+)");
+#else
+#error "the fiber shim switches stacks on x86-64 and aarch64 only"
+#endif
+
 namespace shim {
-struct Warp { uint64_t scratch[32]; std::barrier<> bar{32}; };
+constexpr size_t STACK_BYTES = 1 << 20;
+// A barrier of `count` threads: the phase `gen` ends when all have arrived.
+struct Bar {
+  unsigned count = 0, arrived = 0, gen = 0;
+};
+struct Warp { uint64_t scratch[32]; Bar bar; };
+struct Fiber {
+  void* sp = nullptr;
+  uint3s tid{};
+  bool done = false;
+  std::unique_ptr<unsigned char[]> stack{new unsigned char[STACK_BYTES]};
+};
 struct Block {
-  std::unique_ptr<std::barrier<>> bar;
-  std::vector<std::unique_ptr<Warp>> warps;
+  Bar bar;
+  std::vector<Warp> warps;
   unsigned char* smem;
 };
 inline Block* g_block;
-inline thread_local uint3s t_tid, t_bid, t_gdim;
-inline Warp& warp() { return *g_block->warps[t_tid.x >> 5]; }
+inline uint3s t_tid, t_bid, t_gdim;
+inline std::vector<std::unique_ptr<Fiber>> g_pool;  // kept across launches
+inline Fiber* g_cur;
+inline void* g_sched_sp;
+inline std::function<void()> g_task;
+inline unsigned long long g_progress;  // arrivals and fibers finished
+inline Warp& warp() { return g_block->warps[t_tid.x >> 5]; }
 inline int lane() { return t_tid.x & 31; }
+
+inline void yield() {
+  Fiber* f = g_cur;
+  shim_switch(&f->sp, g_sched_sp);
+}
+
+[[noreturn]] inline void fiber_main() {
+  g_task();
+  g_cur->done = true;
+  ++g_progress;
+  shim_switch(&g_cur->sp, g_sched_sp);
+  abort();  // a finished fiber is never resumed
+}
+
+inline void arrive_and_wait(Bar& b) {
+  const unsigned gen = b.gen;
+  ++g_progress;
+  if (++b.arrived == b.count) {
+    b.arrived = 0;
+    ++b.gen;
+    return;
+  }
+  while (b.gen == gen) yield();
+}
+
+// Runs every thread of the current block to its end.
+inline void run_block(unsigned threads) {
+  while (g_pool.size() < threads) g_pool.push_back(std::make_unique<Fiber>());
+  for (unsigned t = 0; t < threads; ++t) {
+    Fiber& f = *g_pool[t];
+    f.tid = {t, 0, 0};
+    f.done = false;
+    // a stack that returns into fiber_main on the first switch to it
+    uintptr_t top = ((uintptr_t)(f.stack.get() + STACK_BYTES)) & ~(uintptr_t)15;
+    void** sp = (void**)top;
+#if defined(__x86_64__)
+    *--sp = nullptr;                  // fiber_main's return address: never used
+    *--sp = (void*)&fiber_main;       // shim_switch's ret
+    for (int i = 0; i < 6; ++i) *--sp = nullptr;
+#else
+    sp -= 22;
+    memset(sp, 0, 22 * sizeof(void*));
+    sp[11] = (void*)&fiber_main;      // x30: the link register
+#endif
+    f.sp = sp;
+  }
+  unsigned left = threads;
+  while (left) {
+    const unsigned long long before = g_progress;
+    for (unsigned t = 0; t < threads; ++t) {
+      Fiber& f = *g_pool[t];
+      if (f.done) continue;
+      g_cur = &f;
+      t_tid = f.tid;
+      shim_switch(&g_sched_sp, f.sp);
+      if (f.done) --left;
+    }
+    if (left && g_progress == before) {
+      fprintf(stderr, "cuda shim: every thread of block (%u, %u) waits at a barrier that "
+                      "cannot open\n", t_bid.x, t_bid.y);
+      abort();
+    }
+  }
+}
 
 template <class K>
 struct Launch {
   dim3 grid; unsigned block; size_t smem; K kern;
   template <class... A> void operator()(A... args) {
+    g_task = [&] { kern(args...); };
     for (unsigned b = 0; b < grid.x * grid.y; ++b) {
       Block blk;
-      blk.bar = std::make_unique<std::barrier<>>(block);
-      for (unsigned w = 0; w < (block + 31) / 32; ++w) blk.warps.push_back(std::make_unique<Warp>());
+      blk.bar.count = block;
+      blk.warps.resize((block + 31) / 32);
+      for (auto& w : blk.warps) w.bar.count = 32;
       blk.smem = (unsigned char*)aligned_alloc(128, ((smem + 127) / 128 + 1) * 128);
       memset(blk.smem, 0xAB, smem);
       g_block = &blk;
-      std::vector<std::thread> ts;
-      for (unsigned t = 0; t < block; ++t)
-        ts.emplace_back([=, this] {
-          t_tid = {t, 0, 0}; t_bid = {b % grid.x, b / grid.x, 0}; t_gdim = {grid.x, grid.y, 1};
-          kern(args...);
-        });
-      for (auto& t : ts) t.join();
+      t_bid = {b % grid.x, b / grid.x, 0};
+      t_gdim = {grid.x, grid.y, 1};
+      run_block(block);
       free(blk.smem);
     }
+    g_task = nullptr;
   }
 };
 template <class K> Launch<K> launch(dim3 g, unsigned b, size_t s, K k) { return {g, b, s, k}; }
@@ -120,12 +273,12 @@ template <class K> Launch<K> launch(dim3 g, unsigned b, size_t s, K k) { return 
 #define SHIM_LAUNCH(kern, grid, block, smem, stream) shim::launch(grid, block, smem, kern)
 #define SHIM_SMEM (shim::g_block->smem)
 
-inline void __syncthreads() { shim::g_block->bar->arrive_and_wait(); }
-inline void __syncwarp() { shim::warp().bar.arrive_and_wait(); }
+inline void __syncthreads() { shim::arrive_and_wait(shim::g_block->bar); }
+inline void __syncwarp() { shim::arrive_and_wait(shim::warp().bar); }
 template <class T> T __shfl_sync(unsigned, T v, int src) {
   auto& w = shim::warp(); uint64_t bits = 0; memcpy(&bits, &v, sizeof(T));
-  w.scratch[shim::lane()] = bits; w.bar.arrive_and_wait();
-  uint64_t r = w.scratch[src & 31]; w.bar.arrive_and_wait();
+  w.scratch[shim::lane()] = bits; shim::arrive_and_wait(w.bar);
+  uint64_t r = w.scratch[src & 31]; shim::arrive_and_wait(w.bar);
   T out; memcpy(&out, &r, sizeof(T)); return out;
 }
 template <class T> T __shfl_xor_sync(unsigned m, T v, int o) { return __shfl_sync(m, v, shim::lane() ^ o); }
@@ -134,9 +287,9 @@ template <class T> T __shfl_up_sync(unsigned m, T v, unsigned d) {
   return __shfl_sync(m, v, src < 0 ? shim::lane() : src);
 }
 inline unsigned __ballot_sync(unsigned, bool p) {
-  auto& w = shim::warp(); w.scratch[shim::lane()] = p; w.bar.arrive_and_wait();
+  auto& w = shim::warp(); w.scratch[shim::lane()] = p; shim::arrive_and_wait(w.bar);
   unsigned m = 0; for (int i = 0; i < 32; ++i) m |= (unsigned)(w.scratch[i] != 0) << i;
-  w.bar.arrive_and_wait(); return m;
+  shim::arrive_and_wait(w.bar); return m;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return u; }
@@ -196,7 +349,7 @@ def host_lib(tmp_path_factory):
         [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
          f"-DCOZO_BEAM_THREADS={THREADS}", f"-I{work}", "-o",
          str(work / "beam_host.so"), str(work / "beam_search.cpp")],
-        capture_output=True, text=True)
+        capture_output=True, text=True, timeout=600)
     if proc.returncode != 0 and "barrier" in proc.stderr and \
             "No such file" in proc.stderr:
         pytest.skip("needs a g++ with C++20 <barrier>")

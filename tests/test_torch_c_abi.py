@@ -62,7 +62,7 @@ def test_c_host_end_to_end(tmp_path):
     src.write_text(C_HOST)
     exe = str(tmp_path / "host")
     subprocess.run(["gcc", "-O2", str(src), *c_bridge.link_flags(lib), "-o",
-                    exe], check=True, capture_output=True)
+                    exe], check=True, capture_output=True, timeout=300)
     backup = tmp_path / "cback.db"
     out = subprocess.run([exe, str(backup)], env=c_bridge.host_env(lib),
                          capture_output=True, text=True, timeout=300,

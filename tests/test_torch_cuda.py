@@ -1,6 +1,6 @@
 """Tests of the port that need an NVIDIA card (marker `cuda`): each CUDA
 kernel (`fused_sweep`, `beam_search`, the three graph kernels, `minhash`,
-`slab_topk`) against its plain PyTorch version, the graph rules' entry points and a
+`slab_topk`, `sweep_topk`) against its plain PyTorch version, the graph rules' entry points and a
 MinHash-LSH Db on the card against the same calls on the CPU, the
 MinHash dispatch's own pinned buffers,
 the lanes end to end through the kernels, the staging buffers of a
@@ -24,7 +24,8 @@ from chip_smoke import (BEAM_CASES, GRAPH_LP_LABELS, GRAPH_LP_WIDTHS,
                         PR_L1_TOL, SSSP_FORCED_SHARES, graph_csr,
                         lp_inputs, minhash_inputs, minhash_tensors,
                         pagerank_agreement, pr_inputs, sssp_inputs,
-                        topk_cases, topk_inputs, topk_same)
+                        sweep_agreement, sweep_cases, sweep_inputs,
+                        sweep_slab_keys, topk_cases, topk_inputs, topk_same)
 from chip_smoke import PHASE2_SHAPES as SHAPES
 from chip_smoke import (agreement_ok, beam_args, beam_case, beam_ok,
                         compare_beam, compare_fused, random_case)
@@ -699,9 +700,11 @@ def test_slab_topk_refuses_tensors_off_the_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cd", ["f32", "bf16", "i8", "fused"])
 def test_every_sweep_lane_selects_through_slab_topk(cuda, cd):
-    """A lane's search launches the selection kernel (one per chunk and
-    the merge; the fused lane once over its packed array) and returns the
-    CPU's ids."""
+    """A lane's search launches its selection kernel (the f32 lane
+    `slab_topk` once per chunk and the merge, the fused lane once over its
+    packed array; the bf16 and i8 lanes `sweep_topk` once for all the
+    pieces `sweep_piece` cuts, and `slab_topk` at most once, to merge
+    them) and returns the CPU's ids."""
     rng = np.random.default_rng(4)
     data = rng.standard_normal((3000, 24)).astype(np.float32)
     qs = rng.standard_normal((64, 24)).astype(np.float32)
@@ -710,8 +713,78 @@ def test_every_sweep_lane_selects_through_slab_topk(cuda, cd):
         idx = HnswIndex(dim=24, m=8, ef_construction=32, distance="Cosine",
                         device=dev)
         idx.bulk_build(data, wave=1024)
-        before = ek.select_topk.launches
+        before = (ek.select_topk.launches, ek.sweep_topk.launches)
         got[dev] = sweep_search(idx, qs, 5, compute_dtype=cd)[0]
         if dev == "cuda":
-            assert ek.select_topk.launches > before
+            after = (ek.select_topk.launches, ek.sweep_topk.launches)
+            if cd in ("bf16", "i8"):
+                assert after[1] == before[1] + 1
+                assert after[0] - before[0] in (0, 1)
+            else:
+                assert after[0] > before[0] and after[1] == before[1]
     assert np.mean(got["cpu"] == got["cuda"]) > 0.99
+
+
+SWEEP_CASES = [c for c in sweep_cases() if c[2] <= 4096]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", range(len(SWEEP_CASES)),
+                         ids=["-".join(map(str, c)) for c in SWEEP_CASES])
+def test_sweep_topk_matches_plain(cuda, i):
+    """Every case of `chip_smoke.py` phase 2 with pieces up to 4,096 rows,
+    by its measure (`sweep_agreement`: int8 bit-equal; bf16 values within
+    1e-5 x max(1, |v|), ids equal on >= 99.9%, every other a near-tie), two
+    runs identical, one launch each."""
+    kind, B, W, n_p, d_pad, kc, variant = SWEEP_CASES[i]
+    q, tbl, kw = sweep_inputs(kind, B, W, n_p, d_pad, variant, i, cuda)
+    before = ek.sweep_topk.launches
+    got = ek.sweep_topk(q, tbl, W, kc, **kw)
+    again = ek.sweep_topk(q, tbl, W, kc, **kw)
+    assert ek.sweep_topk.launches == before + 2
+    ok, share, err = sweep_agreement(got, ek.sweep_topk_plain(q, tbl, W, kc,
+                                                              **kw),
+                                     sweep_slab_keys(q, tbl, kw))
+    assert ok, (share, err)
+    assert topk_same(got, again)
+
+
+@pytest.mark.cuda
+def test_sweep_topk_takes_the_two_step_route_past_its_shapes(cuda):
+    """d_pad 144, kc 300 and pieces of 128 rows take the product and
+    `slab_topk`, counted apart, with the plain version's answer; the
+    kernel is not launched."""
+    for d_pad, kc, piece in ((144, 26, 512), (128, 300, 512), (128, 26, 128)):
+        q, tbl, kw = sweep_inputs("bf16", 5, 512, 2, d_pad, "random", 1, cuda)
+        before = (ek.sweep_topk.launches, ek.sweep_topk.two_step)
+        got = ek.sweep_topk(q, tbl, piece, kc, **kw)
+        assert (ek.sweep_topk.launches, ek.sweep_topk.two_step) == (
+            before[0], before[1] + 1)
+        ok, _, _ = sweep_agreement(got, ek.sweep_topk_plain(q, tbl, piece, kc,
+                                                            **kw),
+                                   sweep_slab_keys(q, tbl, kw))
+        assert ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chunks,chunk,B,kc,int8", [
+    (10, 131_072, 16_384, 26, False), (10, 131_072, 8_192, 97, False),
+    (10, 131_072, 16_384, 64, True), (73, 16_384, 16_384, 10, False),
+    (10, 131_072, 4_096, 26, False), (1, 512, 64, 10, False)])
+def test_the_lanes_piece_divides_the_table(cuda, n_chunks, chunk, B, kc, int8):
+    """`sweep_piece` on the card: a multiple of 256 rows that divides the
+    table, at least a chunk / 8 wide, and the widest of those that fill
+    the SMs as well."""
+    n_total = n_chunks * chunk
+    piece = ek.sweep_piece(n_total, chunk, B, 128, kc, int8, cuda)
+    assert piece % ek.SWEEP_PIECE == 0 and n_total % piece == 0
+    assert piece >= min(n_total, max(chunk // 8, ek.SWEEP_PIECE))
+    # the two-step route keeps the chunk: its slab is a piece wide
+    assert ek.sweep_piece(n_total, chunk, B, 144, kc, int8, cuda) == chunk
+
+
+@pytest.mark.cuda
+def test_sweep_topk_refuses_tensors_off_the_card(cuda):
+    q, tbl, kw = sweep_inputs("bf16", 4, 256, 1, 64, "random", 2, cuda)
+    with pytest.raises(ValueError):
+        ek.sweep_topk(q, tbl, 256, 10, bias=kw["bias"].cpu())

@@ -3,8 +3,8 @@ graph_pagerank.cu`, `graph_sssp.cu`, `graph_labelprop.cu`), run on the
 CPU and held against their plain PyTorch versions.
 
 As `tests/test_torch_beam_host.py` does for the beam search: each source
-is compiled with g++ against that file's stand-in `cuda_runtime.h` (one
-`std::thread` per CUDA thread, blocks one after another, barriers for
+is compiled with g++ against that file's stand-in `cuda_runtime.h` (a
+fiber per CUDA thread, blocks one after another, barriers for
 `__syncthreads` and `__syncwarp`, shuffles through a per-warp scratch
 array), at 64 threads a block (every kernel strides by its block-size
 constant), and its C entry point is called with CPU tensors through the
@@ -87,7 +87,7 @@ def libs(tmp_path_factory):
             stderr=subprocess.PIPE, text=True)
     out = {}
     for name, proc in procs.items():
-        err = proc.communicate()[1]
+        err = proc.communicate(timeout=600)[1]
         if proc.returncode != 0 and "barrier" in err and "No such file" in err:
             pytest.skip("needs a g++ with C++20 <barrier>")
         assert proc.returncode == 0, err[-3000:]

@@ -3,7 +3,7 @@ minhash.cu`), run on the CPU and held against its plain PyTorch version.
 
 As `tests/test_torch_graph_host.py` does for the graph kernels: the source
 is compiled with g++ against `tests/test_torch_beam_host.py`'s stand-in
-`cuda_runtime.h` (one `std::thread` per CUDA thread, blocks one after
+`cuda_runtime.h` (a fiber per CUDA thread, blocks one after
 another, barriers for `__syncthreads`), at 64 threads a block (so n_perm
 128 and 256 take the kernel's loop over permutation groups, and 100 a
 ragged last group) and with tiles of 256 hashes (so docs of 300 tokens and
@@ -47,7 +47,7 @@ def lib(tmp_path_factory):
         [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", *FLAGS,
          f"-I{work}", "-o", str(work / "minhash.so"),
          str(work / "minhash.cpp")],
-        capture_output=True, text=True)
+        capture_output=True, text=True, timeout=600)
     if proc.returncode != 0 and "barrier" in proc.stderr \
             and "No such file" in proc.stderr:
         pytest.skip("needs a g++ with C++20 <barrier>")

@@ -209,6 +209,8 @@ def test_cli_serves_on_the_cpu_when_asked():
         [sys.executable, "-m", "cozo_tpu_torch.hosts.server", "--port", "0",
          "--device", "cpu"],
         stdout=subprocess.PIPE, text=True, env=env, cwd=_ROOT)
+    watchdog = threading.Timer(120, proc.kill)  # the test's own time limit
+    watchdog.start()
     try:
         line = proc.stdout.readline()
         assert "listening" in line and "cpu" in line, line
@@ -216,5 +218,6 @@ def test_cli_serves_on_the_cpu_when_asked():
         status, raw = _request(url, "/text-query", {"script": "?[a] <- [[7]]"})
         assert status == 200 and json.loads(raw)["rows"] == [[7]]
     finally:
+        watchdog.cancel()
         proc.terminate()
         proc.wait(timeout=30)

@@ -22,6 +22,7 @@ import struct
 import subprocess
 import sys
 import textwrap
+import threading
 
 import numpy as np
 import pytest
@@ -285,12 +286,15 @@ def _kill_after(script, n_acked):
                             stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
                             text=True, cwd=_ROOT)
     seen = -1
+    watchdog = threading.Timer(300, proc.kill)  # the test's own time limit
+    watchdog.start()
     for line in proc.stdout:
         seen = int(line.strip())
         if seen >= n_acked:
             break
+    watchdog.cancel()
     os.kill(proc.pid, signal.SIGKILL)
-    proc.wait()
+    proc.wait(timeout=60)
     return seen
 
 
@@ -913,7 +917,10 @@ def test_kvserver_module_serves_a_db(tmp_path):
     def start():
         proc = subprocess.Popen(cmd, cwd=_ROOT, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
+        watchdog = threading.Timer(120, proc.kill)  # the test's own time limit
+        watchdog.start()
         line = proc.stdout.readline()
+        watchdog.cancel()
         assert f"cozo_tpu_torch kv server (tkv) on 127.0.0.1:{port}" in line, \
             (line, proc.stderr.read() if proc.poll() is not None else "")
         return proc

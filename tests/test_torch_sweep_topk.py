@@ -1,0 +1,326 @@
+"""The sweep lanes' chunk step (`cozo_tpu_torch/ops/exact_knn.py`:
+`sweep_topk`, its plain version `sweep_topk_plain` and `sweep_route`; the
+kernel is `csrc/sweep_topk.cu`) on the CPU, where the wrapper runs the
+plain version.
+
+* The plain version over 1, 2, 3 and 7 pieces, merged by `merge_chunks`,
+  is bit-equal to one `select_topk_plain` over the whole slab, for both
+  key kinds (bf16 products + bias; int8 products rescaled, biased and
+  rounded to bf16): ties planted across piece edges, +-0.0, dead columns
+  (-inf bias), rows with fewer live entries than kf, kc 1, 10 and the
+  piece's width.  The inputs are small integers, so every f32 sum is
+  exact in any order: the tolerance is none.
+* `_sweep` (bf16 with re-rank, raw bf16), `_sweep_i8` and `_build_step`
+  go through the wrapper and match the JAX package's `_sweep_fn`,
+  `_sweep_fn_i8` and `_build_step_fn` on the same seeded inputs, by the
+  measures of the existing parity tests: the bf16 lanes as
+  `tests/test_torch_exact_knn.py::test_sweep_lanes_match_jax` holds the
+  f32 lane (the same ids as sets on >= 99.9% of rows, scores within
+  1e-5), the i8 lane as `tests/test_torch_i8.py::
+  test_sweep_i8_lane_matches_exact` (ids rank for rank after the
+  re-rank), the build step on integer rows exactly (ids, distance bits
+  and selection mask).
+* The wrapper refuses what the kernel cannot take, and the route by
+  shape is the one its docstring names.
+
+The kernel itself runs on the card alone (`tests/test_torch_cuda.py`,
+`chip_smoke.py` phase 2): no emulation of `wgmma` here.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cozo_tpu.ops.bulk_build import _build_step_fn
+from cozo_tpu.ops.exact_knn import _sweep_fn, _sweep_fn_i8
+from chip_smoke import topk_same
+from cozo_tpu_torch.ops import bulk_build as bb
+from cozo_tpu_torch.ops import exact_knn as ek
+from cozo_tpu_torch.utils.device import int_mm, mm_bf16, prepare_queries
+
+PIECE = 256
+
+
+def chunk_inputs(B, n_pieces, d, kind, variant, seed):
+    """(q, tbl, kwargs of `sweep_topk`) of small integers: q [B, d] and
+    tbl [n_pieces * PIECE, d], bf16 or int8, with the variant's planted
+    structure."""
+    rng = np.random.default_rng(seed)
+    n = n_pieces * PIECE
+    q = rng.integers(-3, 4, (B, d)).astype(np.float32)
+    t = rng.integers(-3, 4, (n, d)).astype(np.float32)
+    bias = -rng.integers(0, 3, n).astype(np.float32)
+    cs = rng.integers(1, 4, n).astype(np.float32) * 0.25
+    rs = rng.integers(1, 4, B).astype(np.float32) * 0.5
+    if variant == "ties":
+        # each piece's last rows repeat in the next piece's first: equal keys
+        # on both sides of every edge; zero rows with a +-0.0 bias
+        for p in range(1, n_pieces):
+            t[p * PIECE:p * PIECE + 8] = t[p * PIECE - 8:p * PIECE]
+            bias[p * PIECE:p * PIECE + 8] = bias[p * PIECE - 8:p * PIECE]
+            cs[p * PIECE:p * PIECE + 8] = cs[p * PIECE - 8:p * PIECE]
+        zero = rng.choice(n, n // 4, replace=False)
+        t[zero] = 0.0
+        bias[zero] = rng.choice(np.float32([0.0, -0.0]), len(zero))
+        q[0] = 0.0  # a row of zero scores: every key is its bias
+    elif variant == "dead":
+        # three live columns a piece: fewer live entries than most kc
+        bias[:] = -np.inf
+        cs[:] = 0.0
+        for p in range(n_pieces):
+            live = p * PIECE + rng.choice(PIECE, 3, replace=False)
+            bias[live] = -rng.integers(0, 3, 3)
+            cs[live] = 0.5
+    dtype = torch.bfloat16 if kind == "bf16" else torch.int8
+    kw = {"bias": torch.from_numpy(bias)}
+    if kind == "int8":
+        kw["col_scale"] = torch.from_numpy(cs)
+        kw["row_scale"] = torch.from_numpy(rs)
+    return (torch.from_numpy(q).to(dtype), torch.from_numpy(t).to(dtype), kw)
+
+
+def whole_slab(q, tbl, kc, kw):
+    """One `select_topk_plain` over the whole [B, n_total] slab."""
+    if q.dtype == torch.int8:
+        return ek.select_topk_plain(int_mm(q, tbl), kc, bf16=True, **kw)
+    return ek.select_topk_plain(mm_bf16(q, tbl), kc, **kw)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("variant", ["random", "ties", "dead"])
+@pytest.mark.parametrize("n_pieces", [1, 2, 3, 7])
+@pytest.mark.parametrize("kc", [1, 10, PIECE])
+def test_pieces_merged_equal_one_selection_of_the_slab(kind, variant,
+                                                       n_pieces, kc):
+    q, tbl, kw = chunk_inputs(5, n_pieces, 32, kind, variant,
+                              seed=n_pieces * 100 + kc)
+    vals, ids = ek.sweep_topk_plain(q, tbl, PIECE, kc, **kw)
+    assert vals.shape == ids.shape == (5, n_pieces * kc)
+    assert vals.dtype == (torch.bfloat16 if kind == "int8" else torch.float32)
+    merged = ek.merge_chunks(vals, ids, kc)
+    assert topk_same(merged, whole_slab(q, tbl, kc, kw))
+    # each piece's columns are its own selection, ids offset by its start
+    for p in range(n_pieces):
+        cols = slice(p * PIECE, (p + 1) * PIECE)
+        pk = {name: (v[cols] if name != "row_scale" else v)
+              for name, v in kw.items()}
+        want = whole_slab(q, tbl[cols], kc, pk)
+        got = tuple(t[:, p * kc:(p + 1) * kc] for t in (vals, ids))
+        assert topk_same(got, (want[0], want[1] + p * PIECE))
+
+
+def test_the_wrapper_on_cpu_tensors_is_the_plain_version():
+    """CPU tensors: `sweep_topk` runs the plain version into `out` (a
+    chunk's columns of a wider buffer, with an id offset) and counts no
+    launch on either route."""
+    q, tbl, kw = chunk_inputs(4, 3, 16, "int8", "ties", seed=3)
+    bufs = ek._chunk_buffers(4, 5, 10, torch.bfloat16, torch.device("cpu"))
+    for t in bufs:
+        t.fill_(7)
+    view = tuple(t[:, 10:40] for t in bufs)
+    before = (ek.sweep_topk.launches, ek.sweep_topk.two_step)
+    ek.sweep_topk(q, tbl, PIECE, 10, offset=1000, out=view, **kw)
+    assert (ek.sweep_topk.launches, ek.sweep_topk.two_step) == before
+    want = ek.sweep_topk_plain(q, tbl, PIECE, 10, offset=1000, **kw)
+    assert topk_same(view, want)
+    assert (bufs[1][:, :10] == 7).all() and (bufs[1][:, 40:] == 7).all()
+
+
+def test_route_by_shape_is_the_docstring_s():
+    """"kernel" for d_pad <= 128, kc <= 256 and a piece that is a multiple
+    of 256, else "two_step": a function of (d_pad, kc, piece) alone, and
+    the docstrings name the bounds."""
+    for d_pad in (16, 64, 112, 128, 144, 256, 768):
+        for kc in (1, 26, 97, 256, 257, 1000):
+            for piece in (128, 256, 384, 512, 131_072):
+                want = "kernel" if (d_pad <= 128 and kc <= 256
+                                    and piece % 256 == 0) else "two_step"
+                assert ek.sweep_route(d_pad, kc, piece) == want
+    assert (ek.SWEEP_MAX_D, ek.SWEEP_MAX_KC, ek.SWEEP_PIECE) == (128, 256, 256)
+    doc = " ".join(ek.sweep_topk.__doc__.split())
+    assert "d_pad > 128, kc > 256 or a piece that is not a multiple of 256" in doc
+    doc = " ".join(ek.sweep_route.__doc__.split())
+    assert ("d_pad <= SWEEP_MAX_D, kc <= SWEEP_MAX_KC and a piece that is a "
+            "multiple of SWEEP_PIECE") in doc
+
+
+def _bad_calls():
+    q, tbl, kw = chunk_inputs(4, 2, 32, "bf16", "random", seed=1)
+    qi, ti, kwi = chunk_inputs(4, 2, 32, "int8", "random", seed=1)
+    b = kw["bias"]
+    yield "f32 inputs", (q.float(), tbl.float(), PIECE, 10), kw
+    yield "mixed kinds", (q, ti, PIECE, 10), kw
+    yield "piece 0", (q, tbl, 0, 10), kw
+    yield "piece not dividing the table", (q, tbl[:384], PIECE, 10), \
+        {"bias": b[:384]}
+    yield "piece past the table", (q, tbl, 1024, 10), kw
+    yield "kc past the piece", (q, tbl, PIECE, PIECE + 1), kw
+    yield "kc 0", (q, tbl, PIECE, 0), kw
+    yield "d_pad not a multiple of 16", (q[:, :24].contiguous(),
+                                         tbl[:, :24].contiguous(), PIECE, 10), kw
+    yield "no bias", (q, tbl, PIECE, 10), {"bias": None}
+    yield "bias of another length", (q, tbl, PIECE, 10), {"bias": b[:256]}
+    yield "bf16 with scales", (q, tbl, PIECE, 10), {**kw, **{
+        k: v for k, v in kwi.items() if k != "bias"}}
+    yield "int8 without scales", (qi, ti, PIECE, 10), {"bias": kwi["bias"]}
+    yield "row scale of another length", (qi, ti, PIECE, 10), {
+        **kwi, "row_scale": kwi["row_scale"][:3]}
+    yield "non-contiguous queries", (q.t().contiguous().t(), tbl, PIECE, 10), kw
+    yield "an out of another width", (q, tbl, PIECE, 10), {
+        **kw, "out": ek._chunk_buffers(4, 2, 9, torch.float32,
+                                       torch.device("cpu"))}
+    yield "an out of another type", (q, tbl, PIECE, 10), {
+        **kw, "out": ek._chunk_buffers(4, 2, 10, torch.bfloat16,
+                                       torch.device("cpu"))}
+
+
+@pytest.mark.parametrize("name,args,kw", list(_bad_calls()),
+                         ids=[c[0] for c in _bad_calls()])
+def test_the_wrapper_refuses_what_the_kernel_cannot_take(name, args, kw):
+    with pytest.raises((ValueError, TypeError)):
+        ek.sweep_topk(*args, **kw)
+
+
+# ---- the lanes through the wrapper, against the JAX package -----------------
+
+N_CHUNKS, CHUNK, D_PAD, D = 3, 512, 128, 40
+
+
+@pytest.fixture
+def counted(monkeypatch):
+    """Counts the plain version's calls: the lanes go through `sweep_topk`."""
+    calls = []
+    plain = ek.sweep_topk_plain
+
+    def counting(*a, **kw):
+        calls.append(a[3])
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(ek, "sweep_topk_plain", counting)
+    return calls
+
+
+def _table(seed, metric="Cosine", n_dead=40):
+    rng = np.random.default_rng(seed)
+    n = N_CHUNKS * CHUNK
+    v = rng.standard_normal((n, D)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    tbl = np.zeros((n, D_PAD), np.float32)
+    tbl[:, :D] = v
+    bias = np.zeros(n, np.float32)
+    bias[rng.choice(n, n_dead, replace=False)] = -np.inf
+    q = rng.standard_normal((96, D)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return (tbl.reshape(N_CHUNKS, CHUNK, D_PAD), bias.reshape(N_CHUNKS, CHUNK),
+            q)
+
+
+def _unpack(packed):
+    kk = packed.shape[1] // 2
+    return packed[:, :kk], np.ascontiguousarray(packed[:, kk:]).view(
+        np.float32)
+
+
+@pytest.mark.parametrize("rerank_k", [0, 26])
+def test_sweep_bf16_lanes_match_jax(counted, rerank_k):
+    """Raw bf16 (rerank_k 0: the scan's own scores) and bf16 + re-rank."""
+    import jax.numpy as jnp
+
+    tbl, bias, q = _table(5)
+    k = 10
+    qp = np.zeros((q.shape[0], D_PAD), np.float32)
+    qp[:, :D] = q
+    got = ek._sweep(torch.from_numpy(tbl), torch.from_numpy(bias),
+                    torch.from_numpy(qp), k, "bf16", rerank_k=rerank_k,
+                    metric="Cosine").numpy()
+    assert counted == [max(k, rerank_k)]
+    want = np.asarray(_sweep_fn(N_CHUNKS, CHUNK, D_PAD, k, 1.0, "bf16",
+                                rerank_k, "Cosine")(
+        jnp.asarray(tbl), jnp.asarray(bias), jnp.asarray(qp)))
+    (ids_t, s_t), (ids_j, s_j) = _unpack(got), _unpack(want)
+    same = np.mean([set(ids_t[b]) == set(ids_j[b])
+                    for b in range(len(ids_t))])
+    assert same >= 0.999, same
+    np.testing.assert_allclose(np.sort(s_t, 1), np.sort(s_j, 1), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_sweep_i8_matches_jax(counted):
+    """The i8 lane: the port's table, scales and quantised queries (bit-
+    equal to the JAX package's, `tests/test_torch_i8.py`) through both."""
+    import jax.numpy as jnp
+
+    tbl, bias, q = _table(6)
+    k, rerank_k = 10, 64
+    tt, bt = torch.from_numpy(tbl), torch.from_numpy(bias)
+    tbl_i8, scale = ek.quantize_tbl(tt, bt)
+    q16 = q.astype(np.float16)
+    prepared = prepare_queries(torch.from_numpy(q16.astype(np.float32)),
+                               "Cosine", D_PAD, half=True, quantize=True,
+                               reciprocal=True)
+    got = ek._sweep_i8(tbl_i8, scale, bt, tt, *prepared, k, rerank_k,
+                       "Cosine").numpy()
+    assert counted == [rerank_k]
+    want = np.asarray(_sweep_fn_i8(N_CHUNKS, CHUNK, D_PAD, k, 0.99, rerank_k,
+                                   "Cosine", D)(
+        jnp.asarray(tbl_i8.numpy()), jnp.asarray(scale.numpy()),
+        jnp.asarray(bias), jnp.asarray(tbl), jnp.asarray(q16)))
+    (ids_t, s_t), (ids_j, s_j) = _unpack(got), _unpack(want)
+    assert np.array_equal(ids_t, ids_j)
+    np.testing.assert_allclose(s_t, s_j, rtol=1e-5, atol=1e-5)
+
+
+def test_build_step_matches_jax(counted):
+    """One wave of the f32-table build step on integer rows (IP: exact
+    sums in any order, so the pools compare exactly): ids, distance bits
+    and selection mask equal to `_build_step_fn`'s, and the bf16 copy of
+    the table updated in step."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(8)
+    n, W, P, mmax = N_CHUNKS * CHUNK, 64, 24, 8
+    tbl = np.zeros((N_CHUNKS, CHUNK, D_PAD), np.float32)
+    tbl.reshape(-1, D_PAD)[:, :D] = rng.integers(-2, 3, (n, D))
+    bias = np.zeros((N_CHUNKS, CHUNK), np.float32)
+    bias.reshape(-1)[rng.choice(n, 50, replace=False)] = -np.inf
+    slots = rng.choice(n, W, replace=False).astype(np.int64)
+    new_rows = np.zeros((W, D_PAD), np.float32)
+    new_rows[:, :D] = rng.integers(-2, 3, (W, D))
+    new_bias = np.zeros(W, np.float32)
+    cs, rs = slots // CHUNK, slots % CHUNK
+    _, _, want = _build_step_fn(N_CHUNKS, CHUNK, D_PAD, W, P, mmax, "IP",
+                                0.9)(
+        jnp.asarray(tbl), jnp.asarray(bias), jnp.asarray(new_rows),
+        jnp.asarray(new_bias), jnp.asarray(cs.astype(np.int32)),
+        jnp.asarray(rs.astype(np.int32)), jnp.asarray(slots.astype(np.int32)))
+    want = np.asarray(want)
+    tt, bt = torch.from_numpy(tbl.copy()), torch.from_numpy(bias.copy())
+    tbl16 = tt.reshape(-1, D_PAD).to(torch.bfloat16)
+    got = bb._build_step(tt, bt, torch.from_numpy(new_rows),
+                         torch.from_numpy(new_bias), torch.from_numpy(slots),
+                         P, mmax, "IP", tbl16=tbl16).numpy()
+    assert counted == [P + 1]
+    assert np.array_equal(got, want)
+    assert torch.equal(tbl16, tt.reshape(-1, D_PAD).to(torch.bfloat16))
+
+
+def test_ctypes_signature_matches_the_source():
+    """`_SWEEP_ARGTYPES` follows the C entry in `csrc/sweep_topk.cu`:
+    pointers as void*, ints as int, 64-bit ints as long long, in order."""
+    import ctypes
+
+    from tests.test_torch_fused_routes import _extern_c_functions
+
+    funcs = _extern_c_functions()
+    assert funcs["cozo_sweep_topk"] == ek._SWEEP_ARGTYPES
+    assert funcs["cozo_sweep_topk_rows"] == [ctypes.c_int, ctypes.c_int]
+
+
+def test_the_lanes_piece_is_the_chunk_on_the_cpu():
+    """`sweep_piece`: the CPU keeps the chunk (the card picks wider pieces,
+    which give the same merged top kf; `tests/test_torch_cuda.py`)."""
+    cpu = torch.device("cpu")
+    for n_chunks, chunk, B, kc in ((10, 131_072, 16_384, 26), (3, 512, 96, 10),
+                                   (73, 16_384, 4_096, 10)):
+        assert ek.sweep_piece(n_chunks * chunk, chunk, B, 128, kc, False,
+                              cpu) == chunk
