@@ -5,9 +5,11 @@
     python3 chip_graph_vs.py --other .archive/other
     python3 chip_graph_vs.py --kernel pagerank --other .archive/other
     python3 chip_graph_vs.py --kernel slab_topk --other .archive/other
+    python3 chip_graph_vs.py --kernel sweep_topk --other .archive/other \
+        [--counters] [--unchecked-other]
 
 Builds the kernel's source (`cozo_tpu_torch/csrc/graph_labelprop.cu`,
-`graph_pagerank.cu` or `slab_topk.cu`) of both checkouts with this
+`graph_pagerank.cu`, `slab_topk.cu` or `sweep_topk.cu`) of both checkouts with this
 checkout's nvcc flags, runs each build in turns (other, this, this,
 other) and prints a line a shape.
 
@@ -38,6 +40,23 @@ and at a worst case, ascending keys at the bf16 lane's shape.  Each call
 is replayed from a CUDA graph (`chip_smoke.graph_ms`: the device's time);
 each result is held to the plain version, bit for bit, and two runs must
 be identical.
+
+`--kernel sweep_topk` times the chunk step (`sweep_topk.cu`, whose C
+entry point `cozo_sweep_topk` has kept its arguments since it was
+written) at the six shapes `chip_smoke.py` phase 4 times (the bf16 lane
++ re-rank and raw, the i8 lane, the build step, the mesh's shard, rising
+keys) on its synthetic table of the main path's shape, each build at the
+piece `exact_knn.sweep_piece` picks for it (an older build has no
+clusters and no occupancy query: the SMs are its slots).  A design
+choice is weighed as a copy of the source with one change under
+`.archive/NAME`, timed as one more other.  Every result is held to the
+plain version by phase 4's measure (`sweep_values_agree`), the others'
+unless `--unchecked-other` says that they compute something else (a
+diagnostic such as the ring and the products alone); ptxas's registers,
+shared memory, spills and warnings are printed for every build.
+`--counters` also runs a build with `-DCOZO_SWEEP_COUNTERS` once a shape
+and prints its counts (warp-tiles with pass 2, keyings, rejected
+keyings).
 
 `--sector-model` runs no kernel and needs no card: it counts, on the
 host, the distinct 32-byte sectors each window of 32 consecutive gathers
@@ -82,10 +101,18 @@ def build_other(root, out_dir, name):
 
 
 def say_ptxas(what, log):
-    """ptxas's registers, shared memory and spills of each kernel."""
+    """ptxas's registers, shared memory, spills and warnings of each
+    kernel."""
     for line in log.splitlines():
-        if "Used" in line or "spill" in line:
-            cs.say(f"  ptxas {what}: {line.strip()}")
+        if ("Used" in line or "spill" in line or "warning" in line
+                or "Performance Loss" in line):
+            cs.say(f"  ptxas {what}: {line.strip()[:240]}")
+
+
+def ek_sweep_lib():
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    return ek._sweep_lib()
 
 
 def build_others(roots, out_dir, name):
@@ -307,6 +334,128 @@ def compare_topk(libs, shapes, reps):
         torch.cuda.empty_cache()
 
 
+class FirstSweep:
+    """A build of the first design (no clusters, no occupancy query) as
+    `exact_knn.sweep_piece` reads a library: clusters of 1, the SMs as
+    slots."""
+
+    def __init__(self, lib, sms):
+        self.lib, self.sms = lib, sms
+
+    def __getattr__(self, name):  # the build's own C entries
+        return getattr(self.lib, name)
+
+    def cozo_sweep_topk_cluster(self, kind, kc):
+        return 1
+
+    def cozo_sweep_topk_slots(self, kind, d_pad, kc):
+        return self.sms
+
+
+def bind_sweep_any(lib):
+    """`lib`'s C entries bound; a build of the first design behind
+    `FirstSweep`."""
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    if hasattr(lib, "cozo_sweep_topk_slots"):
+        return ek._bind_sweep(lib)
+    lib.cozo_sweep_topk.argtypes = ek._SWEEP_ARGTYPES
+    lib.cozo_sweep_topk.restype = ctypes.c_int
+    lib.cozo_sweep_topk_rows.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.cozo_sweep_topk_rows.restype = ctypes.c_int
+    return FirstSweep(lib, torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count)
+
+
+def sweep_launch(lib, q, tbl, piece, kc, kw, out):
+    """One launch of `lib`'s chunk step on the current stream."""
+    import torch
+
+    from cozo_tpu_torch.ops import _build
+
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    B, d_pad = q.shape
+    err = lib.cozo_sweep_topk(
+        q.data_ptr(), tbl.data_ptr(), int(q.dtype == torch.int8), B,
+        tbl.shape[0], d_pad, piece, kc, kw["bias"].data_ptr(),
+        ptr(kw.get("col_scale")), ptr(kw.get("row_scale")), out[0].data_ptr(),
+        out[1].data_ptr(), out[0].stride(0), 0,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "sweep_topk launch")
+    return out
+
+
+def compare_sweep(libs, counting, reps, dev, checked=True):
+    """Each build at every phase-4 shape, in turns (other, this, this,
+    other), each held to the plain version first (the others only if
+    `checked`)."""
+    import numpy as np
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    st, qs = cs.synthetic_sweep_table(cs.N, dev)
+    for lane, q, tbl, chunk, kc, kw in cs.sweep_main_shapes(st, qs):
+        B, d_pad = q.shape
+        int8 = q.dtype == torch.int8
+        runs, pieces = {}, {}
+        for name, lib in libs.items():
+            piece = ek.sweep_piece(tbl.shape[0], chunk, B, d_pad, kc, int8,
+                                   dev, lib=lib)
+            out = ek._chunk_buffers(B, tbl.shape[0] // piece, kc,
+                                    torch.bfloat16 if int8 else torch.float32,
+                                    dev)
+            runs[name] = (lambda lib=lib, piece=piece, out=out: sweep_launch(
+                lib, q, tbl, piece, kc, kw, out))
+            pieces[name] = piece
+        for name, run in runs.items():
+            if name != "this" and not checked:
+                continue
+            got = run()
+            want = cs.sweep_plain_blocks(q, tbl, pieces[name], kc, kw)
+            torch.cuda.synchronize()
+            ok, share, err = cs.sweep_values_agree(got, want)
+            del want
+            if not ok:
+                raise SystemExit(f"{name} disagrees with plain: {lane} (ids "
+                                 f"equal {share}, max err {err})")
+        if counting is not None:
+            piece = ek.sweep_piece(tbl.shape[0], chunk, B, d_pad, kc, int8,
+                                   dev, lib=counting)
+            out = ek._chunk_buffers(B, tbl.shape[0] // piece, kc,
+                                    torch.bfloat16 if int8 else torch.float32,
+                                    dev)
+            counts = np.zeros(3, np.int64)
+            counting.cozo_sweep_topk_counts(counts.ctypes.data)
+            sweep_launch(counting, q, tbl, piece, kc, kw, out)
+            torch.cuda.synchronize()
+            _build_check = counting.cozo_sweep_topk_counts(counts.ctypes.data)
+            rows_tiles = B * (tbl.shape[0] // 64) / 16
+            cs.say(f"sweep_topk {lane} counters (piece {piece}, rc "
+                   f"{_build_check}): warp-tiles with pass 2 {counts[0]} "
+                   f"({counts[0] / rows_tiles:.4%} of {rows_tiles:.0f}), "
+                   f"keyings {counts[1]} ({counts[1] / B:.1f} a row), "
+                   f"rejected {counts[2]} ({counts[2] / max(counts[1], 1):.2%})")
+            del out
+        for name in libs:
+            if name == "this":
+                continue
+            ms = {name: [], "this": []}
+            for turn in (name, "this", "this", name):
+                ms[turn].append(cs.cuda_ms(runs[turn], reps))
+            other, this = (sum(v) / len(v) for v in (ms[name], ms["this"]))
+            cs.say(f"sweep_topk {lane} [{B} x {tbl.shape[0]}] {q.dtype} kc "
+                   f"{kc}: {name} {other:.3f} ms at piece {pieces[name]} "
+                   f"({[round(x, 3) for x in ms[name]]}), this {this:.3f} ms "
+                   f"at piece {pieces['this']} "
+                   f"({[round(x, 3) for x in ms['this']]}), "
+                   f"{other / this:.3f}x; both agree with plain")
+        del runs, q, tbl, kw
+        torch.cuda.empty_cache()
+
+
 def compare_lanes(libs, cache_key, n_real, ended, dev, reps, where):
     import torch
 
@@ -346,11 +495,15 @@ def main():
                     help="PageRank's gather model on the host instead (no "
                          "card): sectors an edge of each layout")
     ap.add_argument("--kernel", choices=("labelprop", "pagerank",
-                                         "slab_topk"),
+                                         "slab_topk", "sweep_topk"),
                     default="labelprop")
+    ap.add_argument("--counters", action="store_true",
+                    help="sweep_topk: print a counting build's counts a "
+                         "shape")
     ap.add_argument("--unchecked-other", action="store_true",
                     help="the other build computes another function (a "
-                         "stream floor): time it, do not hold it to plain")
+                         "stream floor, PageRank; a diagnostic, sweep_topk): "
+                         "time it, do not hold it to plain")
     ap.add_argument("--reps", type=int, default=None,
                     help="replays timed (default: 100 picks, 20 PageRank "
                          "calls, 5 selections)")
@@ -374,6 +527,29 @@ def main():
     from cozo_tpu_torch.utils.datasets import glove_like
 
     dev = default_device()
+    if args.kernel == "sweep_topk":
+        from concurrent.futures import ThreadPoolExecutor
+
+        defines = [()] + ([("-DCOZO_SWEEP_COUNTERS",)] if args.counters
+                          else [])
+        with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(
+                len(defines) + 1) as ex:
+            # every build at once: this checkout's and the others
+            mine = [ex.submit(_build.build, "sweep_topk", d) for d in defines]
+            libs = {root: bind_sweep_any(lib) for root, lib in build_others(
+                args.other, tmp, "sweep_topk").items()}
+            for f in mine:
+                f.result()
+            libs["this"] = ek_sweep_lib()
+            counting = (bind_sweep_any(_build.load(
+                "sweep_topk", ("-DCOZO_SWEEP_COUNTERS",)))
+                if args.counters else None)
+            for what, (_, log) in sorted(_build.BUILD_INFO.items()):
+                say_ptxas(f"{what} of this checkout", log)
+            compare_sweep(libs, counting, args.reps or 5, dev,
+                          not args.unchecked_other)
+        cs.say(cs.smi_line())
+        return 0
     if args.kernel == "slab_topk":
         import itertools
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Issue rates of the CUDA-core instructions in the fused sweep's epilogue,
-measured on the card.
+and the rate at which table tiles stream from L2 to the SMs, measured on
+the card.
 
-    python3 chip_ubench.py
+    python3 chip_ubench.py [--epilogue-only | --l2-only]
 
 The epilogue of `cozo_tpu_torch/csrc/fused_sweep.cu` spends five
 instructions on every score: `add.f32` (bias), `lop3` (pack the column id),
@@ -12,8 +13,20 @@ and prints, for each instruction alone and for the five together, the
 clocks one SM sub-partition needs per warp instruction, with 1, 2 and 4
 warps resident on each sub-partition (the kernel's two consumer warpgroups
 put 2 there).  Every thread runs 8 independent dependency chains, so the
-figure is the issue rate, not the latency.  It needs CUDA and checks
-nothing.
+figure is the issue rate, not the latency.
+
+The stream (`L2_SOURCE`): `sweep_topk.cu`'s ring without its products or
+selection.  128 blocks (one a 128-query tile of the bf16 lane's 16,384)
+each stream the whole bf16 table of the main path, 1,310,720 x 128 (335.5
+MB, past the 50 MB L2), through a ring of 16 KB tiles (TMA, 128-byte
+swizzle), every block in the kernel's golden-ratio tile order, so that
+the blocks read each tile at about the same time and device memory
+serves it about once; three consumer warps wait for each tile and free
+its slot.  Clusters of 1 (each block loads its own tiles) and of 2 (each
+block loads half of every tile with `.multicast::cluster` into both), at
+4 and 8 stages: the bytes the SMs receive a second (blocks x table /
+time) and those leaving L2 (the same over the cluster).  It needs CUDA
+and checks nothing.
 """
 
 import os
@@ -95,6 +108,163 @@ int main() {
 """
 
 
+L2_SOURCE = r"""
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdio.h>
+#include <stdint.h>
+#define CHECK(x) do { cudaError_t e_ = (x); if (e_ != cudaSuccess) { \
+  printf("CUDA error %s at %d\n", cudaGetErrorString(e_), __LINE__); exit(1); } } while (0)
+constexpr int TN = 64, ROW = 128;
+constexpr uint32_t T_BOX = TN * ROW, TILE = 2 * T_BOX;  // bf16, d_pad 128
+__device__ __forceinline__ void mbar_init(uint32_t b, uint32_t n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(b), "r"(n) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t b, uint32_t n) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" :: "r"(b), "r"(n) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t b, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(b), "r"(parity) : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void arrive_cluster(uint32_t b, uint32_t cta) {
+  asm volatile("{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+               "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}" :: "r"(b), "r"(cta) : "memory");
+}
+__device__ __forceinline__ void load(uint32_t dst, const CUtensorMap* m, uint32_t bar, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%3, %4}], [%2];" :: "r"(dst), "l"((uint64_t)m), "r"(bar), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void load_mc(uint32_t dst, const CUtensorMap* m, uint32_t bar, int c0, int c1,
+                                        uint16_t mask) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+               ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;"
+               :: "r"(dst), "l"((uint64_t)m), "r"(bar), "h"(mask), "r"(c0), "r"(c1) : "memory");
+}
+template <int CL, int STAGES>
+__global__ void __launch_bounds__(128, 1) stream(const __grid_constant__ CUtensorMap map, int n_tiles,
+                                                 int stride, int* sink) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = base + STAGES * TILE, empty = full + 8 * STAGES;
+  uint32_t rank = 0;
+  if (CL > 1) asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) { mbar_init(full + 8 * s, 1); mbar_init(empty + 8 * s, 3 * CL); }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;" ::: "memory");
+  if (warp == 0) {
+    if (lane == 0) {
+      for (int e = 0; e < n_tiles; ++e) {
+        const int s = e % STAGES, round = e / STAGES;
+        if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+        const int row = (int)(((long long)e * stride) % n_tiles) * TN;
+        mbar_expect_tx(full + 8 * s, TILE);
+        for (int c = 0; c < 2; ++c) {
+          const uint32_t dst = base + s * TILE + c * T_BOX;
+          if (CL > 1)
+            load_mc(dst + rank * (T_BOX / CL), &map, full + 8 * s, c * 64, row + rank * (TN / CL),
+                    (uint16_t)((1u << CL) - 1));
+          else
+            load(dst, &map, full + 8 * s, c * 64, row);
+        }
+      }
+      for (int e = n_tiles; e < n_tiles + STAGES; ++e)
+        if (e / STAGES > 0) mbar_wait(empty + 8 * (e % STAGES), (e / STAGES - 1) & 1);
+    }
+    return;
+  }
+  int acc = 0;
+  for (int e = 0; e < n_tiles; ++e) {
+    const int s = e % STAGES;
+    mbar_wait(full + 8 * s, (e / STAGES) & 1);
+    acc += smem_raw[(base - (uint32_t)__cvta_generic_to_shared(smem_raw)) + s * TILE + lane * 4];
+    __syncwarp();
+    if (lane == 0)
+      for (int r = 0; r < CL; ++r) arrive_cluster(empty + 8 * s, r);
+  }
+  if (acc == 12345) sink[0] = acc;
+}
+typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                           const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                           CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+template <int CL, int STAGES>
+void run(void* tbl, long long rows, int blocks, Encode enc, int* sink) {
+  CUtensorMap map;
+  const cuuint64_t gdim[2] = {128, (cuuint64_t)rows}, gstride[1] = {256};
+  const cuuint32_t box[2] = {64, (cuuint32_t)(TN / CL)}, es[2] = {1, 1};
+  if (enc(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, tbl, gdim, gstride, box, es,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) { printf("encode failed\n"); exit(1); }
+  const int n_tiles = (int)(rows / TN);
+  int stride = (int)(0.6180339887 * n_tiles);
+  auto gcd = [](int a, int b) { while (b) { int r = a % b; a = b; b = r; } return a; };
+  while (gcd(stride, n_tiles) != 1) ++stride;
+  const int bytes = STAGES * TILE + 16 * STAGES + 1024;
+  auto k = stream<CL, STAGES>;
+  CHECK(cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks); cfg.blockDim = dim3(128); cfg.dynamicSmemBytes = bytes;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CL; attr.val.clusterDim.y = 1; attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr; cfg.numAttrs = 1;
+  cudaEvent_t a, b;
+  cudaEventCreate(&a); cudaEventCreate(&b);
+  CHECK(cudaLaunchKernelEx(&cfg, k, map, n_tiles, stride, sink));  // warm
+  CHECK(cudaDeviceSynchronize());
+  float best = 1e30f, sum = 0.f;
+  for (int r = 0; r < 5; ++r) {
+    cudaEventRecord(a);
+    CHECK(cudaLaunchKernelEx(&cfg, k, map, n_tiles, stride, sink));
+    cudaEventRecord(b);
+    CHECK(cudaEventSynchronize(b));
+    float ms; cudaEventElapsedTime(&ms, a, b);
+    best = ms < best ? ms : best; sum += ms;
+  }
+  const double table = (double)rows * 256, to_sms = table * blocks;
+  printf("L2 stream: %d blocks, clusters of %d, %d stages of 16 KB: %.3f ms a launch (best %.3f, mean of 5); "
+         "to the SMs %.1f GB = %.2f TB/s; from L2 %.1f GB = %.2f TB/s\n", blocks, CL, STAGES, best, sum / 5,
+         to_sms / 1e9, to_sms / best / 1e9, to_sms / CL / 1e9, to_sms / CL / best / 1e9);
+}
+int main() {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q;
+  CHECK(cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q));
+  Encode enc = (Encode)p;
+  const long long rows = 1310720;
+  void* tbl;
+  int* sink;
+  CHECK(cudaMalloc(&tbl, rows * 256));
+  CHECK(cudaMemset(tbl, 1, rows * 256));
+  CHECK(cudaMalloc(&sink, 4));
+  for (int blocks : {128, 132}) {
+    run<1, 4>(tbl, rows, blocks, enc, sink);
+    run<1, 8>(tbl, rows, blocks, enc, sink);
+    run<2, 4>(tbl, rows, blocks, enc, sink);
+    run<2, 8>(tbl, rows, blocks, enc, sink);
+  }
+  return 0;
+}
+"""
+
+
+def build_run(name, source, nvcc, build_dir):
+    src = os.path.join(build_dir, f"{name}.cu")
+    exe = os.path.join(build_dir, name)
+    with open(src, "w") as f:
+        f.write(source)
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                    "-std=c++17", "-o", exe, src], check=True)
+    subprocess.run([exe], check=True)
+
+
 def main():
     import torch
 
@@ -104,14 +274,11 @@ def main():
     from cozo_tpu_torch.ops import _build
 
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    src = os.path.join(_build.BUILD_DIR, "epilogue_ubench.cu")
-    exe = os.path.join(_build.BUILD_DIR, "epilogue_ubench")
-    with open(src, "w") as f:
-        f.write(SOURCE)
-    subprocess.run([_build.nvcc_path(), "-gencode",
-                    "arch=compute_90a,code=sm_90a", "-O3", "-o", exe, src],
-                   check=True)
-    subprocess.run([exe], check=True)
+    nvcc = _build.nvcc_path()
+    if "--l2-only" not in sys.argv:
+        build_run("epilogue_ubench", SOURCE, nvcc, _build.BUILD_DIR)
+    if "--epilogue-only" not in sys.argv:
+        build_run("l2_stream_ubench", L2_SOURCE, nvcc, _build.BUILD_DIR)
     subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
                     "--format=csv,noheader"], check=False)
     return 0

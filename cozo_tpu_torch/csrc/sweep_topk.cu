@@ -8,9 +8,7 @@
 // (cozo_tpu/ops/exact_knn.py:100-123), `_sweep_fn_i8`'s
 // (cozo_tpu/ops/exact_knn.py:199-213) and `_build_step_fn`'s
 // (cozo_tpu/ops/bulk_build.py:137-147).  On the TPU `approx_max_k` fuses
-// into the dot that feeds it (PartialReduce); the port had split the body
-// into a library product that writes the slab and `slab_topk.cu`, which
-// reads it back.
+// into the dot that feeds it (PartialReduce).
 //
 // Two products:
 //   * bf16:  Q [B, d_pad] bf16 . T [n_total, d_pad]^T bf16 -> f32
@@ -19,78 +17,78 @@
 //            key = bf16(((float(s32) * c[j]) * r[i]) + bias[j]), with
 //            round-to-nearest multiplies and adds, never contracted into an
 //            FMA: the JAX i8 body's order and `slab_topk`'s prologue.
-// For row i and piece p (columns [p P, (p + 1) P) of the table), the kc
-// largest keys come out descending, equal keys by ascending position,
-// +0.0 above -0.0, -inf (dead rows) last: the kc largest of the unique
-// composites (order_key(key) << 32) | ~position (position within the
-// piece), as `exact_knn.select_topk_plain` orders them.  Values in the
-// key's type (f32, or bf16 for int8) and ids = p P + position + id_off
-// (int64) go to columns [p kc, (p + 1) kc) of the caller's merge buffers.
+// For row i and piece p (columns [p P, (p + 1) P) of the table) the kc
+// largest of the unique composites (order_key(key) << 32) | ~position
+// (position within the piece), as `exact_knn.select_topk_plain` orders
+// them; values in the key's type (f32, or bf16 for int8) and ids = p P +
+// position + id_off (int64) go to columns [p kc, (p + 1) kc) of the
+// caller's merge buffers.  The selection is `sweep_select.cuh`.
 //
 // What bounds it: operations.  At the bf16 shape (B = 16,384 queries,
 // n_total = 1,310,720 rows, d_pad = 128) the products are 2 B n_total
-// d_pad = 5.50 TFLOP, 5.56 ms at 989 TFLOP/s (0.556 ms a 131,072-row
-// piece); the bytes, the table once and the outputs, are a few hundred MB.
-// The int8 product runs at twice the rate (2.78 ms).
+// d_pad = 5.50 TFLOP, 5.56 ms at 989 TFLOP/s; the bytes, the table once and
+// the outputs, a few hundred MB.  The int8 product runs at twice the rate
+// (2.78 ms).  Beside that bound, three floors of this design: the ring and
+// the products alone (6.8 ms at the bf16 shape on an H100 at 700 W, from a
+// diagnostic build that selected nothing; PERF.md §6); the table tiles'
+// traffic from L2 to the SMs (B / rows a block / cluster copies of the
+// table: `chip_ubench.py` streams 7.77 TB/s to 128 blocks, 9.25 TB/s with
+// pairs sharing each tile); and the selection's
+// issue slots (pass 1 a bound a row on the bf16 route, about 1.5
+// instructions a score; six on the int8 route).  The selection, not the
+// products, sets the time: what a warp does beside its products holds its
+// three siblings at the next `wgmma` (`.sync.aligned`).
 //
 // Design.  A block owns RB = 64 NCONS query rows (one 64-row tile per
-// consumer warpgroup, held in shared memory for the whole piece) and
-// streams its piece of the table through a ring of 64-row tiles (TMA, the
-// 128-byte swizzle), warp-specialised as `fused_sweep.cu`: one producer
-// thread issues the loads, each consumer warpgroup issues `wgmma` m64n64
-// for its 64 rows against every tile, waits, frees the slot, and selects
-// on the accumulator fragment.  With two consumers one's selection falls
-// beside the other's products; the products of a tile are complete
-// before its selection starts (issue .. wait in straight-line code: an
-// asynchronous product left in flight across a branch is serialised by
-// ptxas).  Blocks are ordered piece-major, so the blocks on the card at
-// one time read the same piece, which L2 holds.
-//
-// The selection: in the fragment a thread holds rows lane/4 and lane/4 + 8
-// of its warp's 16 rows, 16 columns of each per tile, so each row belongs
-// to one quad of one warp, and its state to that warp: a threshold t (a
-// composite) in the quad's registers.  Pass 1 keys every value (before
-// the int8 route's bf16 rounding) and takes each row's maximum; the slot
-// is then free.  Only in a warp where some row's maximum reaches its
-// row's lower bound (t's key as a float: conservative for +-0.0; on the
-// int8 route the bf16 value below t's key) does pass 2 run: a mask of the
-// values at or above the bound, and each of them keyed exactly.
-//   * kc <= 32 (the bf16 lanes' 26 and 10): each row's top kc is a sorted
-//     list in its quad's registers, thread k holding entries 8k ... 8k + 7;
-//     a candidate goes in by a count of the entries above it (summed over
-//     the quad by two shuffles) and a shift of the rest, and the row's new
-//     kc-th entry is t at once.  The eight quads of a warp insert side by
-//     side.  Exact by construction: t never falls, and every value above
-//     it goes in.
-//   * kc > 32: every composite above t is appended to its row's buffer in
-//     shared memory (an atomic gives the slot); when a buffer passes HIGH
-//     (room for one more tile), the warp sorts it (bitonic, any length),
-//     keeps the kc best and raises t to the kc-th.  Exact as
-//     `slab_topk.cu`: t always has kc elements of the piece at or above it.
-// At the piece's end each warp writes its rows' first kc.
-//
-// The seed: keys that rise (or fall) along the piece would beat every
-// running threshold, a tile after a tile.  So the ring takes the tiles in
-// the order e s mod n (n tiles, s coprime to n near 0.618 n: the first
-// few fall all over the piece, and t soon sits near the top of the
-// piece), and the first ceil(kc / 64) of them (1 for the lists) are the
-// seed: their composites fill the buffers and are sorted, the kc best of
-// each row are kept (as its list, or in its buffer) and t is the kc-th.
-// Each tile is read once.
-//
-// Shared memory is the budget: RB rows of BUF candidates of 8 bytes, the
-// query tile and the ring.  A row may take a whole tile's 64 values before
-// it is compacted, so BUF >= kc + 64, and a compaction is cheap only while
-// it frees many slots.  Three configurations, chosen by kind and kc:
-//   * kc <= 32: two consumers, 128 rows, lists; 64-entry buffers for the
-//     seed (64 KB), 32 KB of queries (bf16, d_pad 128), 4 stages of 16 KB;
-//   * int8, kc <= 64 (the i8 lane): two consumers, BUF 192 (HIGH 128): 192
-//     KB, 16 KB of queries, 2 stages of 8 KB;
-//   * the rest (the build's kc 97): one consumer, 64 rows, BUF 320 (HIGH
-//     256), 160 KB, 16 KB, 3 stages.  Its selection does not overlap its
-//     products.
-// A stage holds the tile and its bias (and column scales), so the
-// selection reads them from shared memory.
+// consumer warpgroup) and streams its piece of the table through a ring of
+// 64-row tiles (TMA, 128-byte swizzle), warp-specialised: a producer
+// warpgroup (one thread issues the loads; `setmaxnreg` gives its registers
+// to the consumers) and NCONS consumer warpgroups that issue `wgmma` m64n64
+// for their 64 rows against each tile and select on the accumulator
+// fragment.  Each element below was weighed on the card in turns against
+// the others and against the first design (`chip_graph_vs.py --kernel
+// sweep_topk`, on switches since folded in or removed; PERF.md §6):
+//   * A from registers: each consumer reads its 64 query rows' `wgmma` A
+//     fragments once from the swizzled tile (from shared memory at every
+//     tile it was 1-15% slower).
+//   * Two accumulator sets: tile e + 1's products are issued before tile
+//     e's pass 1 and waited for before its pass 2, so only straight-line
+//     code lies between an issue and its wait (ptxas serialises the
+//     products if branchy code, or any instruction reading the set in
+//     flight, does; waiting before pass 1 was up to 4% slower at the
+//     build step, even elsewhere).  The loop is unrolled by two and its
+//     last two tiles peeled: a piece holds an even number of tiles.
+//   * Clusters of 2 for the bf16 lists (the bf16 lanes' 128-row blocks):
+//     each block's producer loads 32 rows of every tile with
+//     `.multicast::cluster` into both blocks, so a tile leaves L2 once a
+//     pair (21.5 GB a launch at the bf16 shape, not 42.9).  A slot's
+//     "empty" barrier counts the consumer warps of both blocks (arrived
+//     remotely through `mapa`); each producer waits for its slots' last
+//     releases before it exits, so no block leaves while the other still
+//     arrives on its barriers.  A block past the last query tile (a ragged
+//     last pair) loads its share, releases its slots and selects nothing.
+//     The int8 route and the heads' 64-row blocks run alone: there the
+//     pair, which waits for its slower block, lost 1-5%.
+//   * The row state (`sweep_select.cuh`): kc <= 32 a sorted list in the
+//     quads' registers, each candidate in as it comes; kc <= 64 lists of
+//     16 fed through a short tail of appends in shared memory, inserted in
+//     bulk (a warp's stall on the lists, spread over many tiles); kc > 64
+//     a sorted head and a tail of appends, merged by a sort of the tail
+//     and a bitonic merge.  No shared buffer of kc + 64 entries a row.
+// Configurations, by kc (both kinds), and the ring's stages (as many as
+// the shared memory holds, at most MAX_STAGES: bf16 at d_pad 128, then
+// int8 and bf16 at d_pad <= 64):
+//   * kc <= 32: two consumers, 128 rows, lists of 8 a thread a row; 11 / 12;
+//   * kc <= 64 (the i8 lane's 64): two consumers, 128 rows, lists of 16, a
+//     tail of 72 a row (72.5 KB); 7 / 12;
+//   * kc <= 128 (the build's 97): one consumer, 64 rows, head 128 + tail 128
+//     (128 KB); 5 / 10;
+//   * kc <= 256: one consumer, 64 rows, head 256 + tail 64 (160 KB); 3 / 6.
+// A ring stage holds the tile; its bias (and column scales) sit beside the
+// ring, one vector a stage, so the selection reads them from shared memory.
+// The tiles go in the order e s mod n (s coprime to n near 0.618 n): keys
+// that rise along the table meet their top early, and both blocks of a
+// pair walk the same order.
 //
 // Where trouble is likely, and what the code does about it:
 //   1. Positions and ids: 64-bit ids, 32-bit positions within a piece.
@@ -101,8 +99,12 @@
 //      cuBLAS's: its callers compare with a tolerance.
 //   3. Rows past B in the last query tile read zeros (TMA fills out of
 //      bounds) and are never written.
-//   4. A buffer never overflows: at most 64 appends a row a tile, and a
-//      row is compacted as soon as it passes BUF - 64.
+//   4. A tail never overflows: at most 64 appends a row a tile, and a row
+//      is merged as soon as it passes TAIL - 64.
+//   5. A multicast load may land in a block before that block's producer
+//      announced the stage's bytes: the barrier's transaction count goes
+//      below zero for a while, and its phase cannot end before the local
+//      arrival.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -111,75 +113,65 @@
 
 #include <type_traits>
 
+#include "sweep_select.cuh"
+
 namespace {
 
-typedef unsigned long long u64;
-constexpr unsigned FULL = 0xFFFFFFFFu;
+using namespace cozo_sweep;
 
-constexpr int BM = 64;           // query rows a consumer warpgroup (wgmma M)
-constexpr int TN = 64;           // table rows a tile (wgmma N)
-constexpr int ROW = 128;         // bytes of a row per TMA box: the swizzle span
+constexpr int ROW = 128;              // bytes of a row per TMA box: the swizzle span
 constexpr uint32_t T_BOX = TN * ROW;  // 8 KB: a tile's K-chunk
-constexpr int MAX_KC = 256;
-constexpr int PIECE_ALIGN = 256;  // a piece holds whole tiles and the seed's
+constexpr int MAX_STAGES = 12;        // the ring's most (8 were up to 3% slower)
 
-// One configuration of the block (see the design note): NCONS consumer
-// warpgroups of 64 rows, BUF candidates a row, for kc up to MAXKC (a
-// compaction keeps kc of BUF, so MAXKC leaves room for at least 32 more).
-template <int NCONS_, int BUF_, int MAXKC_>
-struct Cfg {
-  static constexpr int NCONS = NCONS_;
-  // kc <= 32: the rows' top-kc in registers, the buffers only for the seed
-  static constexpr bool LISTS = MAXKC_ <= 32;
-  static constexpr int BUF = BUF_;
-  static constexpr int HIGH = BUF_ - TN;  // room for one more tile's appends
-  static constexpr int MAXKC = MAXKC_;  // the largest kc it takes
-  static constexpr int RB = BM * NCONS_;
-  static constexpr int NTHREADS = 128 * (NCONS_ + 1);
-  static_assert(LISTS ? BUF_ >= TN : HIGH >= MAXKC_, "a list or a compaction keeps kc");
-};
-typedef Cfg<2, TN, 32> CfgNarrow;    // kc <= 32 (the bf16 lanes): lists
-typedef Cfg<2, 192, 64> CfgMid;      // int8, kc <= 64 (the i8 lane)
-typedef Cfg<1, 320, MAX_KC> CfgWide;  // the rest (the build's kc 97)
-static_assert(CfgWide::BUF >= 4 * TN, "the seed's tiles fit a buffer");
+// The cluster of a kind's row state: the bf16 lists' 128-row blocks share
+// their 16 KB tiles in pairs; the int8 route's 8 KB tiles and the 64-row
+// blocks of the heads are faster alone (in turns on the card: the pair
+// waits for its slower block's releases).
+constexpr int cluster_of(int kind, int mode) { return kind == 0 && mode <= LIST16 ? 2 : 1; }
+template <int KIND, int MODE>
+using CfgK = CfgOf<MODE, cluster_of(KIND, MODE)>;
 
 constexpr uint32_t SMEM_MAX = 232448;
 
 // Shared-memory map of a configuration for KIND (0 bf16, 1 int8) with KCN
-// K-chunks a row (offsets from a 1,024-byte boundary).  A ring stage holds
-// a tile's K-chunks and its bias (and, for int8, its column scales); the
-// ring has as many stages as fit, at most 4.
+// K-chunks a row (offsets from a 1,024-byte boundary): the query tile, the
+// ring's tiles, the ring's vectors, the selection's rows, the barriers.
 template <class C, int KIND, int KCN>
 struct Smem {
   static constexpr uint32_t Q = 0;
   static constexpr uint32_t Q_BOX = C::RB * ROW;
+  static constexpr uint32_t TILE = KCN * T_BOX;
   static constexpr uint32_t VEC = TN * 4 * (KIND == 1 ? 2 : 1);
-  static constexpr uint32_t STAGE = KCN * T_BOX + VEC;
-  static constexpr uint32_t FIXED = KCN * Q_BOX + C::RB * C::BUF * 8 + C::RB * 4 + 8 + 1024;
-  static constexpr int STAGES = (SMEM_MAX - FIXED) / (STAGE + 16) < 4
-                                    ? (int)((SMEM_MAX - FIXED) / (STAGE + 16))
-                                    : 4;
+  static constexpr uint32_t FIXED = KCN * Q_BOX + C::SEL_BYTES + 8 + 1024 + 16;
+  static constexpr int FIT = (int)((SMEM_MAX - FIXED) / (TILE + VEC + 16));
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
   static constexpr uint32_t RING = Q + KCN * Q_BOX;
-  static constexpr uint32_t BUF = RING + STAGES * STAGE;
-  static constexpr uint32_t CNT = BUF + C::RB * C::BUF * 8;
-  static constexpr uint32_t BAR = CNT + C::RB * 4;
+  static constexpr uint32_t VECS = RING + STAGES * TILE;
+  static constexpr uint32_t SEL = VECS + STAGES * VEC;
+  static constexpr uint32_t BAR = (SEL + C::SEL_BYTES + 15u) & ~15u;
   static constexpr uint32_t BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
   static_assert(STAGES >= 2 && BYTES <= SMEM_MAX, "shared memory of one block");
 };
 
-// ---- PTX wrappers (as in fused_sweep.cu) ----------------------------------
+// ---- PTX wrappers ----------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+
+// Arrives on the barrier at the same offset in block `cta` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}" ::"r"(bar),
+      "r"(cta)
+      : "memory");
 }
 
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
@@ -204,6 +196,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// The box into the same offset of every block in `mask`, each block's
+// barrier at `bar`'s offset completing its bytes.
+__device__ __forceinline__ void tma_load_2d_mc(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                               int c0, int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
                                           uint32_t bar) {
   asm volatile(
@@ -211,6 +214,20 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
           "r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;" ::
+          : "memory");
 }
 
 // K-major tile, 128-byte rows, 128-byte swizzle: 8-row groups 1,024 B apart.
@@ -227,23 +244,28 @@ __device__ __forceinline__ uint64_t mma_desc(uint32_t addr) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
-// d (+)= A[64 x 16] . B[64 x 16]^T, bf16 from shared memory, f32 sums.
-__device__ __forceinline__ void wgmma_step(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+// d (+)= A[64 x 16] . B[64 x 16]^T (bf16, f32 sums) or A[64 x 32] .
+// B[64 x 32]^T (s8, exact s32 sums), A from registers (each thread's
+// fragment, as `mma.sync`'s m16n8k16 / m16n8k32 A holds a warp's 16 rows),
+// B from shared memory.
+__device__ __forceinline__ void wgmma_step(float (&d)[32], const uint32_t (&qa)[4], uint64_t db,
+                                              int acc) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " COZO_REGS32
-      ", %32, %33, p, 1, 1, 0, 0;\n}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}"
       : COZO_R32("+f")
-      : "l"(da), "l"(db), "r"(acc));
+      : "r"(qa[0]), "r"(qa[1]), "r"(qa[2]), "r"(qa[3]), "l"(db), "r"(acc));
 }
 
-// d (+)= A[64 x 32] . B[64 x 32]^T, s8 from shared memory, exact s32 sums.
-__device__ __forceinline__ void wgmma_step(int (&d)[32], uint64_t da, uint64_t db, int acc) {
+__device__ __forceinline__ void wgmma_step(int (&d)[32], const uint32_t (&qa)[4], uint64_t db,
+                                              int acc) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " COZO_REGS32 ", %32, %33, p;\n}"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " COZO_REGS32
+      ", {%32, %33, %34, %35}, %36, p;\n}"
       : COZO_R32("+r")
-      : "l"(da), "l"(db), "r"(acc));
+      : "r"(qa[0]), "r"(qa[1]), "r"(qa[2]), "r"(qa[3]), "l"(db), "r"(acc));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -254,8 +276,9 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving uses of the accumulators across the
@@ -270,404 +293,180 @@ __device__ __forceinline__ void acc_fence(int (&d)[32]) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// ---- keys, composites, sorting --------------------------------------------
-
-__device__ __forceinline__ unsigned order_key(float v) {
-  const unsigned u = __float_as_uint(v);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ unsigned key_bits(unsigned k) {
-  return (k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k;
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// The float a value's key is compared with before it is keyed exactly: no
-// value below it can beat t.  t = 0 (nothing kept): -inf.  bf16 route: t's
-// key.  int8 route (keys are bf16 roundings, compared before rounding): the
-// bf16 value below t's key, in the order where -0.0 is below +0.0.
-template <bool ROUND>
-__device__ __forceinline__ float lower_of(u64 t) {
-  if (t == 0) return __int_as_float(0xff800000);
-  const unsigned b = key_bits((unsigned)(t >> 32));
-  if (!ROUND || b == 0xff800000u) return __uint_as_float(b);
-  if (b == 0u) return __uint_as_float(0x80000000u);               // +0 -> -0
-  return __uint_as_float((b & 0x80000000u) ? b + 0x10000u : b - 0x10000u);
-}
-
-// Sorts buf[0, n) descending by one warp: a bitonic network in its flip
-// form (every comparator puts the larger first), over n rounded up to a
-// power of two; the entries past n are virtual minima that no comparator
-// moves, so any n works in place.  Starts and ends with __syncwarp.
-__device__ __noinline__ void warp_sort(u64* buf, int n, unsigned lane) {
-  int n2 = 1;
-  while (n2 < n) n2 <<= 1;
-  __syncwarp();
-  for (int k = 2; k <= n2; k <<= 1) {
-    const int h = k >> 1;
-    for (int p = (int)lane; p < (n2 >> 1); p += 32) {
-      const int i = ((p & ~(h - 1)) << 1) | (p & (h - 1));  // first half of its block
-      const int l = i ^ (k - 1);                            // its mirror
-      if (l < n) {
-        const u64 a = buf[i], b = buf[l];
-        if (a < b) {
-          buf[i] = b;
-          buf[l] = a;
-        }
-      }
-    }
-    __syncwarp();
-    for (int j = k >> 2; j > 0; j >>= 1) {
-      for (int p = (int)lane; p < (n2 >> 1); p += 32) {
-        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const int l = i | j;
-        if (l < n) {
-          const u64 a = buf[i], b = buf[l];
-          if (a < b) {
-            buf[i] = b;
-            buf[l] = a;
-          }
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// x[i] for a run-time i, by a tree of selects (an indexed register array
-// would go to local memory).
-__device__ __forceinline__ float pick32(const float (&x)[32], int i) {
-  float a[16], b[8], c[4], d[2];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) a[k] = (i & 1) ? x[2 * k + 1] : x[2 * k];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) b[k] = (i & 2) ? a[2 * k + 1] : a[2 * k];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) c[k] = (i & 4) ? b[2 * k + 1] : b[2 * k];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) d[k] = (i & 8) ? c[2 * k + 1] : c[2 * k];
-  return (i & 16) ? d[1] : d[0];
-}
-
-// The ring's e-th tile: e stride mod n, stride coprime to n near 0.618 n,
-// so that the first tiles fall all over the piece.
-__device__ __forceinline__ int tile_of(int e, int n, int stride) {
-  return (int)(((long long)e * stride) % n);
-}
-
-// e[j] for a run-time j < 8 (selects: no local memory).
-__device__ __forceinline__ u64 sel8(const u64 (&e)[8], int j) {
-  u64 v = e[0];
-#pragma unroll
-  for (int k = 1; k < 8; ++k) v = j == k ? e[k] : v;
-  return v;
-}
-
 __device__ __forceinline__ uint32_t aligned_smem_base(const unsigned char* smem) {
   return ((uint32_t)__cvta_generic_to_shared(smem) + 1023u) & ~1023u;
 }
 
-// What the kernel reads and writes beside the two matrices.
-struct Args {
-  const float* bias;       // [n_total]
-  const float* col_scale;  // [n_total] (int8)
-  const float* row_scale;  // [B] (int8)
-  void* out_v;             // f32 (bf16 route) or bf16 (int8 route)
-  long long* out_i;
-  long long ldo, id_off;
-  int B, piece, kc, n_qt, stride;
-};
-
-// Entry o of the outputs from composite cv: the key's value (f32, or
-// bf16 for int8) and the id.
-template <int KIND>
-__device__ __forceinline__ void write_entry(const Args& a, long long o, u64 cv,
-                                            long long col_base) {
-  const unsigned bits = key_bits((unsigned)(cv >> 32));
-  if (KIND == 0)
-    static_cast<unsigned*>(a.out_v)[o] = bits;
-  else
-    static_cast<unsigned short*>(a.out_v)[o] = (unsigned short)(bits >> 16);
-  a.out_i[o] = (long long)(~(unsigned)(cv & 0xFFFFFFFFull)) + col_base + a.id_off;
-}
-
-// KIND 0: bf16, 1: int8.  KCN: 128-byte K-chunks a row (1 or 2).
+// KIND 0: bf16, 1: int8.  KCN: 128-byte K-chunks a row (1 or 2).  The grid
+// is pieces x n_qt_c blocks (n_qt query tiles rounded up to the cluster),
+// piece-major, so a cluster's blocks share a piece.
 template <int KIND, int KCN, class C>
 __global__ void __launch_bounds__(C::NTHREADS, 1)
 sweep_topk_kernel(const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_t, const Args a) {
   typedef Smem<C, KIND, KCN> S;
   typedef typename std::conditional<KIND == 0, float, int>::type Acc;
-  constexpr bool ROUND = KIND == 1;
   constexpr int ELEMS = ROW / (KIND == 0 ? 2 : 1);  // elements a 128-byte box row
+  constexpr int SHARE = TN / C::CLUSTER;            // tile rows each block loads
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t base = aligned_smem_base(smem_raw);
   unsigned char* gbase = smem_raw + (base - raw);
-  u64* bufs = reinterpret_cast<u64*>(gbase + S::BUF);
-  int* cnt_s = reinterpret_cast<int*>(gbase + S::CNT);
   const uint32_t q_full = base + S::BAR, full = q_full + 8, empty = full + 8 * S::STAGES;
 
   const int tid = threadIdx.x;
   const int wg = __shfl_sync(FULL, tid >> 7, 0);  // uniform over the warp
-  const int piece_idx = (int)(blockIdx.x / (unsigned)a.n_qt);
-  const int qt = (int)(blockIdx.x % (unsigned)a.n_qt);
-  const long long col_base = (long long)piece_idx * a.piece;
+  const int piece_idx = (int)(blockIdx.x / (unsigned)a.n_qt_c);
+  const int qt = (int)(blockIdx.x % (unsigned)a.n_qt_c);
+  const bool idle = qt >= a.n_qt;  // past the last query tile: loads and releases only
   const int n_tiles = a.piece / TN;
-  // the ring's order: each tile once, spread over the piece from the
-  // start (`tile_of`); the first n_seed tiles are the seed
-  const int n_seed = C::LISTS ? 1 : (a.kc + TN - 1) / TN;
-  const int entries = n_tiles;
+  const uint32_t rank = C::CLUSTER > 1 ? cluster_rank() : 0u;
 
   if (tid == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < S::STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 4 * C::NCONS);
+      mbar_init(empty + 8 * s, 4 * C::NCONS * C::CLUSTER);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int r = tid; r < C::RB; r += C::NTHREADS) cnt_s[r] = 0;
-  __syncthreads();
+  if constexpr (C::CLUSTER > 1)
+    cluster_sync();  // no block's loads or arrivals reach a barrier not yet made
+  else
+    __syncthreads();
 
   if (wg == C::NCONS) {
-    // ===== producer: the query tile once, then the ring of table tiles =====
+    // ===== producer: the query tile once, then its share of every table tile
+    if constexpr (C::NCONS > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (tid == 128 * C::NCONS) {
-      mbar_expect_tx(q_full, KCN * S::Q_BOX);
-      for (int c = 0; c < KCN; ++c)
-        tma_load_2d(base + S::Q + c * S::Q_BOX, &map_q, q_full, c * ELEMS, qt * C::RB);
-      for (int e = 0; e < entries; ++e) {
+      if (!idle) {
+        mbar_expect_tx(q_full, KCN * S::Q_BOX);
+        for (int c = 0; c < KCN; ++c)
+          tma_load_2d(base + S::Q + c * S::Q_BOX, &map_q, q_full, c * ELEMS, qt * C::RB);
+      }
+      const long long col_base = (long long)piece_idx * a.piece;
+      for (int e = 0, tile = 0; e < n_tiles; ++e, tile = next_tile(tile, a.stride, n_tiles)) {
         const int stage = e % S::STAGES;
         const uint32_t round = (uint32_t)(e / S::STAGES);
         if (round > 0) mbar_wait(empty + 8 * stage, (round - 1) & 1);
-        const int tile = tile_of(e, n_tiles, a.stride);
         const long long col = col_base + (long long)tile * TN;
-        const uint32_t dst = base + S::RING + stage * S::STAGE;
-        mbar_expect_tx(full + 8 * stage, S::STAGE);
-        for (int c = 0; c < KCN; ++c)
-          tma_load_2d(dst + c * T_BOX, &map_t, full + 8 * stage, c * ELEMS, (int)col);
-        bulk_load(dst + KCN * T_BOX, a.bias + col, TN * 4, full + 8 * stage);
-        if (KIND == 1)
-          bulk_load(dst + KCN * T_BOX + TN * 4, a.col_scale + col, TN * 4, full + 8 * stage);
+        const uint32_t dst = base + S::RING + stage * S::TILE, bar = full + 8 * stage;
+        mbar_expect_tx(bar, S::TILE + S::VEC);
+        for (int c = 0; c < KCN; ++c) {
+          if constexpr (C::CLUSTER > 1)
+            tma_load_2d_mc(dst + c * T_BOX + rank * (SHARE * ROW), &map_t, bar, c * ELEMS,
+                           (int)(col + rank * SHARE), (uint16_t)((1u << C::CLUSTER) - 1));
+          else
+            tma_load_2d(dst + c * T_BOX, &map_t, bar, c * ELEMS, (int)col);
+        }
+        const uint32_t vec = base + S::VECS + stage * S::VEC;
+        bulk_load(vec, a.bias + col, TN * 4, bar);
+        if (KIND == 1) bulk_load(vec + TN * 4, a.col_scale + col, TN * 4, bar);
+      }
+      // every slot's last release, the other blocks' included: no arrival
+      // reaches this block's barriers after it has left
+      for (int e = n_tiles; e < n_tiles + S::STAGES; ++e) {
+        const uint32_t round = (uint32_t)(e / S::STAGES);
+        if (round > 0) mbar_wait(empty + 8 * (e % S::STAGES), (round - 1) & 1);
       }
     }
     return;
   }
 
   // ===== consumers =====
+  if constexpr (C::NCONS > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
   const int lane = tid & 31;
-  const int low = 2 * (lane & 3);
-  const int wrow0 = wg * BM + ((tid & 127) >> 5) * 16;  // the warp's first row in the block
-  int row[2];
-  float rs[2];
-  u64 t[2];
-  float lo[2];
+  // frees stage s in every block of the cluster (lane 0, after the warp's reads)
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    row[h] = wrow0 + (lane >> 2) + 8 * h;
-    const long long g = (long long)qt * C::RB + row[h];
-    rs[h] = (KIND == 1 && g < a.B) ? a.row_scale[g] : 1.f;
-    t[h] = 0;
-    lo[h] = lower_of<ROUND>(0);
+      for (int r = 0; r < C::CLUSTER; ++r) mbar_arrive_cluster(empty + 8 * stage, (uint32_t)r);
+    }
+  };
+  if (idle) {
+    for (int e = 0; e < n_tiles; ++e) {
+      mbar_wait(full + 8 * (e % S::STAGES), (uint32_t)(e / S::STAGES) & 1);
+      release(e % S::STAGES);
+    }
+    return;
   }
-  // LISTS: each of the thread's two rows' top kc (sorted, 0 where empty),
-  // spread over its quad: thread k of the quad holds entries 8k ... 8k + 7
-  u64 E[2][8];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) E[h][j] = 0;
-  const int qbase = lane & ~3, qk = lane & 3;
-  const int tk = (a.kc - 1) >> 3, tj = (a.kc - 1) & 7;  // where the kc-th sits
 
-  mbar_wait(q_full, 0);
-  for (int e = 0; e < entries; ++e) {
+  Select<C, KIND> sel;
+  sel.init(tid, qt, a, gbase + S::SEL);
+  // the warpgroup's query rows as wgmma A fragments, read once from the
+  // swizzled tile: k-step ks of chunk c, register j holds row lane / 4
+  // (+ 8 for odd j) of the warp's 16, the 4 bytes at 16-byte unit 2 ks +
+  // j / 2 (XOR the row's place in its 8-row group) + 4 (lane % 4)
+  uint32_t qa[4 * KCN][4];
+
+  // tile e's products into d, once its stage has landed
+  auto issue = [&](Acc(&d)[32], int e) {
     const int stage = e % S::STAGES;
-    const int tile = tile_of(e, n_tiles, a.stride);
     mbar_wait(full + 8 * stage, (uint32_t)(e / S::STAGES) & 1);
-    Acc d[32];
-    const uint32_t t_addr = base + S::RING + stage * S::STAGE;
-    const uint32_t q_addr = base + S::Q + wg * BM * ROW;
+    const uint32_t t_addr = base + S::RING + stage * S::TILE;
+    acc_fence(d);
     wgmma_fence();
 #pragma unroll
     for (int c = 0; c < KCN; ++c) {
-      const uint64_t da = mma_desc(q_addr + c * S::Q_BOX), db = mma_desc(t_addr + c * T_BOX);
+      const uint64_t db = mma_desc(t_addr + c * T_BOX);
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) wgmma_step(d, da + 2 * ks, db + 2 * ks, c + ks > 0);
+      for (int ks = 0; ks < 4; ++ks) wgmma_step(d, qa[4 * c + ks], db + 2 * ks, c + ks > 0);
     }
     wgmma_commit();
-    wgmma_wait0();
-    acc_fence(d);
+  };
+  auto vec_of = [&](int e) {
+    return reinterpret_cast<const float*>(gbase + S::VECS + (e % S::STAGES) * S::VEC);
+  };
+  // Tile e, whose products d are finished; `next` issues tile e + 1's into
+  // the other set.  Only pass 1 and the vote, straight-line code that never
+  // reads the set in flight, lie between that issue and its wait (ptxas
+  // serialises the products otherwise); pass 2 runs after the wait.
+  int tile = 0;  // tile e's place in the piece
+  auto step = [&](Acc(&d)[32], int e, auto&& next) {
+    next();
+    float x[32], mx[2];
+    sel.pass1(d, vec_of(e), x, mx);
+    const bool need = sel.need(mx, tile);
+    wgmma_wait<0>();
+    // the bf16 route's pass 2 reads the bias again: the slot is freed after it
+    if (KIND == 1) release(e % S::STAGES);
+    if (need) sel.select(d, x, tile, vec_of(e));
+    if (KIND == 0) release(e % S::STAGES);
+    tile = next_tile(tile, a.stride, n_tiles);
+  };
 
-    // ---- pass 1: every value's key before rounding; each row's max
-    const float* vec = reinterpret_cast<const float*>(gbase + S::RING + stage * S::STAGE +
-                                                      KCN * T_BOX) + low;
-    float x[32];
-    float mx[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)};
+  mbar_wait(q_full, 0);
+  {
+    const int r = wg * BM + ((tid & 127) >> 5) * 16 + (lane >> 2);  // the thread's first row
 #pragma unroll
-    for (int j = 0; j < TN / 8; ++j) {
-      const float2 b = *reinterpret_cast<const float2*>(vec + 8 * j);
-      float2 c2 = make_float2(1.f, 1.f);
-      if constexpr (KIND == 1) c2 = *reinterpret_cast<const float2*>(vec + TN + 8 * j);
+    for (int c = 0; c < KCN; ++c)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const int i = 4 * j + 2 * h + e2;
-          if constexpr (KIND == 0) {
-            x[i] = __fadd_rn(d[i], e2 ? b.y : b.x);
-          } else {
-            // |s| < 2^22: s + 1.5 2^23 is exact in f32, and so is the difference
-            const float f = __fsub_rn(__int_as_float(d[i] + 0x4B400000), 12582912.f);
-            x[i] = __fadd_rn(__fmul_rn(__fmul_rn(f, e2 ? c2.y : c2.x), rs[h]), e2 ? b.y : b.x);
-          }
-          mx[h] = fmaxf(mx[h], x[i]);
+        for (int j = 0; j < 4; ++j) {
+          const int rr = r + 8 * (j & 1);
+          const uint32_t off = S::Q + c * S::Q_BOX + rr * ROW +
+                               ((((2 * ks + (j >> 1)) ^ (rr & 7)) << 4) | (4 * (lane & 3)));
+          qa[4 * c + ks][j] = *reinterpret_cast<const uint32_t*>(gbase + off);
         }
-    }
-    // the tile's products and vectors are read: the producer may refill the slot
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * stage);
-
-    // ---- pass 2, where a row of the warp may hold a composite above its t:
-    // the values at or above their row's lower bound, as a mask, then the
-    // exact composite of each (few: a loop over the mask's bits)
-    const bool seed = e < n_seed;
-    if (!(seed && !C::LISTS) && !__any_sync(FULL, mx[0] >= lo[0] || mx[1] >= lo[1])) continue;
-    const int col0 = tile * TN;  // the tile's first column in the piece
-    unsigned m = 0;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) m |= (x[i] >= lo[(i >> 1) & 1] ? 1u : 0u) << i;
-    if (C::LISTS && !seed) {
-      // each quad's candidates of row h, one a quad at a time, into the
-      // row's list: the quad counts the entries above it and shifts the
-      // rest down by one
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const unsigned hm = h ? 0xCCCCCCCCu : 0x33333333u;  // bits of row h
-        while (true) {
-          const unsigned any = __ballot_sync(FULL, (m & hm) != 0);
-          if (!any) break;
-          const unsigned q4 = (any >> qbase) & 0xFu;
-          const bool active = q4 != 0;
-          const int src = qbase + (active ? __ffs((int)q4) - 1 : 0);
-          const int mine = __ffs((int)(m & hm)) - 1;
-          const float xmine = pick32(x, mine & 31);
-          const int i = __shfl_sync(FULL, mine, src);
-          const float xv = __shfl_sync(FULL, xmine, src);
-          if (active && lane == src) m &= ~(1u << i);  // its own lowest of row h
-          const float key = ROUND ? bf16_round(xv) : xv;
-          const unsigned pos = (unsigned)(col0 + 8 * (i >> 2) + 2 * (src & 3) + (i & 1));
-          const u64 cv = ((u64)order_key(key) << 32) | (u64)(~pos);
-          int c = 0;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) c += E[h][j] > cv;
-          c += __shfl_xor_sync(FULL, c, 1);
-          c += __shfl_xor_sync(FULL, c, 2);
-          const u64 prev = __shfl_up_sync(FULL, E[h][7], 1);
-          if (active && c < a.kc) {
-            u64 nv[8];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const int g = 8 * qk + j;
-              nv[j] = g > c ? (j ? E[h][j - 1] : prev) : (g == c ? cv : E[h][j]);
-            }
-#pragma unroll
-            for (int j = 0; j < 8; ++j) E[h][j] = nv[j];
-          }
-          const u64 nt = __shfl_sync(FULL, sel8(E[h], tj), qbase + tk);
-          if (active) {
-            t[h] = nt;
-            lo[h] = lower_of<ROUND>(nt);
-          }
-        }
-      }
-      continue;
-    }
-    {
-      // into the row buffers: every composite above the row's t
-      while (m) {
-        const int i = __ffs((int)m) - 1;
-        m &= m - 1;
-        const int h = (i >> 1) & 1;
-        const float xv = pick32(x, i);
-        const float key = ROUND ? bf16_round(xv) : xv;
-        const unsigned pos = (unsigned)(col0 + 8 * (i >> 2) + low + (i & 1));
-        const u64 cv = ((u64)order_key(key) << 32) | (u64)(~pos);
-        if (cv > (h ? t[1] : t[0])) {
-          const int r = h ? row[1] : row[0];
-          const int slot = atomicAdd(cnt_s + r, 1);
-          bufs[(size_t)r * C::BUF + slot] = cv;
-        }
-      }
-      if (e < n_seed - 1) continue;  // the seed's tiles: no compaction yet
-      __syncwarp();
-      if constexpr (C::LISTS) {
-        // the seed tile's composites: each row's kc best become its list
-        for (int r = wrow0; r < wrow0 + 16; ++r)
-          warp_sort(bufs + (size_t)r * C::BUF, cnt_s[r], (unsigned)lane);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const u64* buf = bufs + (size_t)row[h] * C::BUF;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) E[h][j] = 8 * qk + j < a.kc ? buf[8 * qk + j] : 0;
-          t[h] = buf[a.kc - 1];
-          lo[h] = lower_of<ROUND>(t[h]);
-        }
-        continue;
-      }
-      // rows past HIGH (after the seed: every row): keep the kc best, raise t
-      // to the kc-th
-      const bool lead = (lane & 3) == 0;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        // bit 4q: quad q's row h, wrow0 + q + 8 h
-        unsigned need = __ballot_sync(FULL, lead && (e == n_seed - 1 || cnt_s[row[h]] > C::HIGH));
-        while (need) {
-          const int r = wrow0 + ((__ffs((int)need) - 1) >> 2) + 8 * h;
-          need &= need - 1;
-          u64* buf = bufs + (size_t)r * C::BUF;
-          warp_sort(buf, cnt_s[r], (unsigned)lane);
-          const u64 nt = buf[a.kc - 1];
-          if (r == row[h]) {
-            t[h] = nt;
-            lo[h] = lower_of<ROUND>(nt);
-          }
-          __syncwarp();
-          if (lane == 0) cnt_s[r] = a.kc;
-          __syncwarp();
-        }
-      }
-    }
   }
-
-  // ---- the piece's end: the first kc of each row, written out
-  if constexpr (C::LISTS) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long g = (long long)qt * C::RB + row[h];
-      if (g >= a.B) continue;
-      const long long o = g * a.ldo + (long long)piece_idx * a.kc;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int i = 8 * qk + j;
-        if (i < a.kc) write_entry<KIND>(a, o + i, E[h][j], col_base);
-      }
-    }
-  } else {
-    for (int r = 0; r < 16; ++r) {
-      const long long g = (long long)qt * C::RB + wrow0 + r;
-      if (g >= a.B) break;  // rows past B: the rest of the warp's are too
-      const long long o = g * a.ldo + (long long)piece_idx * a.kc;
-      u64* buf = bufs + (size_t)(wrow0 + r) * C::BUF;
-      warp_sort(buf, cnt_s[wrow0 + r], (unsigned)lane);
-      for (int i = lane; i < a.kc; i += 32) write_entry<KIND>(a, o + i, buf[i], col_base);
-      __syncwarp();
-    }
+  Acc d0[32], d1[32];
+  issue(d0, 0);
+  wgmma_wait<0>();
+  acc_fence(d0);
+  int e = 0;
+  for (; e < n_tiles - 2; e += 2) {
+    step(d0, e, [&] { issue(d1, e + 1); });
+    acc_fence(d1);
+    step(d1, e + 1, [&] { issue(d0, e + 2); });
+    acc_fence(d0);
   }
+  step(d0, e, [&] { issue(d1, e + 1); });
+  acc_fence(d1);
+  step(d1, e + 1, [] {});
+  sel.finish(a, piece_idx);
 }
 
 // ---- host side -----------------------------------------------------------
@@ -715,52 +514,86 @@ int make_map(CUtensorMap* map, const void* ptr, long long rows, int d_pad, int k
   return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 
+// The launch configuration of `kernel` with `blocks` blocks (a multiple of
+// the cluster), its shared memory allowed first.
+template <class C, class K>
+cudaError_t launch_config(K kernel, uint32_t bytes, unsigned blocks, cudaStream_t stream,
+                          cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(blocks);
+  cfg->blockDim = dim3(C::NTHREADS);
+  cfg->dynamicSmemBytes = bytes;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C::CLUSTER;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
 template <int KIND, int KCN, class C>
 int launch(const void* q, const void* tbl, long long n_total, int d_pad, Args a,
            cudaStream_t stream) {
   typedef Smem<C, KIND, KCN> S;
   a.n_qt = (a.B + C::RB - 1) / C::RB;
-  const long long blocks = (n_total / a.piece) * (long long)a.n_qt;
+  a.n_qt_c = (a.n_qt + C::CLUSTER - 1) / C::CLUSTER * C::CLUSTER;
+  const long long blocks = (n_total / a.piece) * (long long)a.n_qt_c;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   CUtensorMap map_q, map_t;
   int err = make_map(&map_q, q, a.B, d_pad, KIND, C::RB);
-  if (!err) err = make_map(&map_t, tbl, n_total, d_pad, KIND, TN);
-  if (!err)
-    err = (int)cudaFuncSetAttribute(sweep_topk_kernel<KIND, KCN, C>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::BYTES);
+  if (!err) err = make_map(&map_t, tbl, n_total, d_pad, KIND, TN / C::CLUSTER);
   if (err) return err;
-  sweep_topk_kernel<KIND, KCN, C><<<(unsigned)blocks, C::NTHREADS, S::BYTES, stream>>>(map_q, map_t,
-                                                                                      a);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  auto kernel = sweep_topk_kernel<KIND, KCN, C>;
+  err = (int)launch_config<C>(kernel, S::BYTES, (unsigned)blocks, stream, &cfg, &attr);
+  if (err) return err;
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, map_q, map_t, a);
+  return err ? err : (int)cudaGetLastError();
 }
 
-// The block configuration of a kind at kc: 0 narrow, 1 mid (int8), 2 wide.
-int config_of(int kind, int kc) {
-  if (kc <= CfgNarrow::MAXKC) return 0;
-  return kind == 1 && kc <= CfgMid::MAXKC ? 1 : 2;
+// The blocks of the configuration that the card holds at once (clusters x
+// their size), or minus a cudaError_t.
+template <int KIND, int KCN, class C>
+int slots() {
+  typedef Smem<C, KIND, KCN> S;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  auto kernel = sweep_topk_kernel<KIND, KCN, C>;
+  cudaError_t e = launch_config<C>(kernel, S::BYTES, 1024u * C::CLUSTER, nullptr, &cfg, &attr);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return e == cudaSuccess ? n * C::CLUSTER : -(int)e;
 }
 
+// One function of a (kind, K-chunks) pair, dispatched on kc's row state.
 template <int KIND, int KCN>
 int launch_kc(const void* q, const void* tbl, long long n_total, int d_pad, const Args& a,
               cudaStream_t s) {
-  const int c = config_of(KIND, a.kc);
-  if (c == 0) return launch<KIND, KCN, CfgNarrow>(q, tbl, n_total, d_pad, a, s);
-  if constexpr (KIND == 1) {  // the mid configuration is int8's alone
-    if (c == 1) return launch<KIND, KCN, CfgMid>(q, tbl, n_total, d_pad, a, s);
+  switch (mode_of(a.kc)) {
+    case LIST8: return launch<KIND, KCN, CfgK<KIND, LIST8>>(q, tbl, n_total, d_pad, a, s);
+    case LIST16: return launch<KIND, KCN, CfgK<KIND, LIST16>>(q, tbl, n_total, d_pad, a, s);
+    case HEAD128: return launch<KIND, KCN, CfgK<KIND, HEAD128>>(q, tbl, n_total, d_pad, a, s);
+    default: return launch<KIND, KCN, CfgK<KIND, HEAD256>>(q, tbl, n_total, d_pad, a, s);
   }
-  return launch<KIND, KCN, CfgWide>(q, tbl, n_total, d_pad, a, s);
+}
+
+template <int KIND, int KCN>
+int slots_kc(int kc) {
+  switch (mode_of(kc)) {
+    case LIST8: return slots<KIND, KCN, CfgK<KIND, LIST8>>();
+    case LIST16: return slots<KIND, KCN, CfgK<KIND, LIST16>>();
+    case HEAD128: return slots<KIND, KCN, CfgK<KIND, HEAD128>>();
+    default: return slots<KIND, KCN, CfgK<KIND, HEAD256>>();
+  }
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
-
-int gcd(int a, int b) {
-  while (b) {
-    const int r = a % b;
-    a = b;
-    b = r;
-  }
-  return a;
-}
 
 }  // namespace
 
@@ -798,10 +631,8 @@ int cozo_sweep_topk(const void* q, const void* tbl, int kind, int B, long long n
   a.B = B;
   a.piece = piece;
   a.kc = kc;
-  a.n_qt = 0;
-  const int n_tiles = piece / TN;
-  a.stride = (int)(0.6180339887 * n_tiles);
-  while (gcd(a.stride, n_tiles) != 1) ++a.stride;
+  a.n_qt = a.n_qt_c = 0;
+  a.stride = stride_of(piece / TN);
   cudaStream_t s = (cudaStream_t)stream;
   if (kind == 1) return launch_kc<1, 1>(q, tbl, n_total, d_pad, a, s);
   return d_pad <= 64 ? launch_kc<0, 1>(q, tbl, n_total, d_pad, a, s)
@@ -810,8 +641,33 @@ int cozo_sweep_topk(const void* q, const void* tbl, int kind, int B, long long n
 
 // The query rows a block owns for this kind at this kc (the launch's tile).
 int cozo_sweep_topk_rows(int kind, int kc) {
-  const int c = config_of(kind, kc);
-  return c == 0 ? CfgNarrow::RB : c == 1 ? CfgMid::RB : CfgWide::RB;
+  (void)kind;
+  return mode_of(kc) <= LIST16 ? CfgOf<LIST8, 1>::RB : CfgOf<HEAD128, 1>::RB;
+}
+
+// The blocks in a cluster for this kind at this kc (the launch rounds the
+// query tiles up to it).
+int cozo_sweep_topk_cluster(int kind, int kc) { return cluster_of(kind, mode_of(kc)); }
+
+// The blocks of the launch for (kind, d_pad, kc) that the card holds at
+// once, or minus a cudaError_t.
+int cozo_sweep_topk_slots(int kind, int d_pad, int kc) {
+  if (kind == 1) return slots_kc<1, 1>(kc);
+  return d_pad <= 64 ? slots_kc<0, 1>(kc) : slots_kc<0, 2>(kc);
+}
+
+// The three counters of a build with COZO_SWEEP_COUNTERS (`sweep_select.
+// cuh`) into out (three int64), then zeroed; -1 in a build without them.
+int cozo_sweep_topk_counts(void* out) {
+#ifdef COZO_SWEEP_COUNTERS
+  cudaError_t e = cudaMemcpyFromSymbol(out, sweep_counts, sizeof(unsigned long long) * 3);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[3] = {0, 0, 0};
+  return (int)cudaMemcpyToSymbol(sweep_counts, zero, sizeof(zero));
+#else
+  (void)out;
+  return -1;
+#endif
 }
 
 const char* cozo_cuda_error_string(int err) {

@@ -46,11 +46,15 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str, defines: Tuple[str, ...] = ()) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha1(f.read() + " ".join((*NVCC_FLAGS, *defines)).encode()
-                         ).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{h[:12]}.so")
+    """The library's path: the hash of the source, the headers beside it
+    (`csrc/*.cuh`) and the flags in its name."""
+    h = hashlib.sha1()
+    for src in [name + ".cu"] + sorted(
+            f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join((*NVCC_FLAGS, *defines)).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(name: str, defines: Tuple[str, ...] = ()) -> str:

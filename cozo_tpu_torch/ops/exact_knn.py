@@ -36,6 +36,7 @@ of the JAX package's upload, zero-pad, int8 quantisation).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import Optional, Tuple
@@ -276,6 +277,12 @@ def _bind_sweep(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.cozo_sweep_topk.restype = ctypes.c_int
         lib.cozo_sweep_topk_rows.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.cozo_sweep_topk_rows.restype = ctypes.c_int
+        lib.cozo_sweep_topk_cluster.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.cozo_sweep_topk_cluster.restype = ctypes.c_int
+        lib.cozo_sweep_topk_slots.argtypes = [ctypes.c_int] * 3
+        lib.cozo_sweep_topk_slots.restype = ctypes.c_int
+        lib.cozo_sweep_topk_counts.argtypes = [ctypes.c_void_p]
+        lib.cozo_sweep_topk_counts.restype = ctypes.c_int
     return lib
 
 
@@ -283,22 +290,43 @@ def _sweep_lib() -> ctypes.CDLL:
     return _bind_sweep(_build.load("sweep_topk"))
 
 
+@functools.lru_cache(maxsize=None)
+def _sweep_block_shape(lib, device_index: int, kind: int, d_pad: int,
+                       kc: int) -> Tuple[int, int, int]:
+    """`lib`'s query rows a block, blocks a cluster and slots (the blocks
+    the card holds at once) for one launch configuration."""
+    with torch.cuda.device(device_index):
+        slots = lib.cozo_sweep_topk_slots(kind, d_pad, kc)
+    if slots <= 0:
+        raise RuntimeError(f"sweep_piece: the occupancy query failed ({slots})")
+    return (lib.cozo_sweep_topk_rows(kind, kc),
+            lib.cozo_sweep_topk_cluster(kind, kc), slots)
+
+
 def sweep_piece(n_total: int, chunk: int, B: int, d_pad: int, kc: int,
-                int8: bool, device) -> int:
+                int8: bool, device, lib=None) -> int:
     """The piece width the lanes hand `sweep_topk` for a table of n_total
     rows in chunks of `chunk`: the top kf of the whole table is the top kf
     of any pieces' top kf, so the piece is free.  On the CPU, and on the
     card's two-step route (whose slab is a piece wide), the chunk.  On the
     kernel's route, where fewer and wider pieces mean fewer selections
     and a tighter threshold, the widest piece (n_total / d for d dividing
-    n_total / SWEEP_PIECE, at least `chunk` / 8 rows) whose blocks (one a
-    piece and tile of the kernel's query rows) fill the card's SMs to
-    SWEEP_FILL of their waves, or the one that fills them best."""
+    n_total / SWEEP_PIECE, at least `chunk` / 8 rows) whose blocks fill
+    the card's slots to SWEEP_FILL of their waves, or the one that fills
+    them best.  A launch has a block a piece and tile of the kernel's
+    query rows, the tiles rounded up to its cluster (the blocks that share
+    each table tile); its slots are the blocks the card holds at once:
+    whole clusters on the SMs, as the occupancy query counts them (asked
+    once a configuration).  `lib`: the kernel's library (default: this
+    checkout's build)."""
     if device.type != "cuda" or sweep_route(d_pad, kc, chunk) != "kernel":
         return chunk
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    rows = _sweep_lib().cozo_sweep_topk_rows(int(int8), kc)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    rows, cluster, slots = _sweep_block_shape(
+        lib or _sweep_lib(), index, int(int8), d_pad, kc)
     n_qt = -(-B // rows)
+    n_qt = -(-n_qt // cluster) * cluster
     units = n_total // SWEEP_PIECE
     best, best_fill = chunk, -1.0
     for d in range(1, units + 1):
@@ -307,7 +335,7 @@ def sweep_piece(n_total: int, chunk: int, B: int, d_pad: int, kc: int,
         if units % d:
             continue
         blocks = n_qt * d
-        fill = blocks / (sms * -(-blocks // sms))
+        fill = blocks / (slots * -(-blocks // slots))
         if fill >= SWEEP_FILL:
             return n_total // d
         if fill > best_fill:

@@ -1,0 +1,264 @@
+"""What the host tests of the chunk step's selection half
+(`tests/test_torch_sweep_select_host*.py`, one file a row state, so that
+`--dist loadfile` spreads the builds over workers) share: the stand-in
+headers, the harness, the build, the cases and the check of one case.
+
+The selection (`cozo_tpu_torch/csrc/sweep_select.cuh`, every step that
+`sweep_topk.cu` takes on an accumulator fragment: pass 1, pass 2, the lists
+in registers, the heads and tails in shared memory and their merges, the
+end write) has no PTX.  It is compiled with g++ against
+`tests/test_torch_beam_host.py`'s stand-in `cuda_runtime.h` (the threads
+of a block as fibers on the calling thread) and the few names it adds, and
+run by `HARNESS` below: a block of the configuration's consumer
+warpgroups (no producer, no `wgmma`, no TMA) walks the piece's tiles in the
+kernel's order (`tile_of`), each thread building its accumulator fragment
+in `wgmma` m64n64's register layout from a product matrix computed on the
+host (f32 for the bf16 route, s32 for int8, of small integer inputs: every
+f32 sum exact), the tile's bias and column scales in shared memory as the
+kernel's ring holds them.
+
+The cases: kc 1, 10, 26, 32 (lists of 8), 33, 64 (lists of 16), 65, 97,
+128 (head 128 and tail 128), 256 (head 256 and tail 64); both key kinds;
+"random" (2% dead columns), "ties" (integer keys: equal keys in every tile,
+and rows repeated across tiles), "zeros" (+-0.0: zero rows with a +-0.0
+bias, the first query zero), "dead" (3 live columns a piece: fewer than
+kc), "rising" (keys that rise along the piece: every tile of the order
+beats the threshold); two pieces of 512 columns, 70 or 130 query rows (a
+ragged last tile of rows), an id offset.
+
+Tolerance: none.  Values and ids must be bit-equal to
+`select_topk_plain` a piece.  What this cannot show: the products, the
+ring, the clusters (the card's: `tests/test_torch_cuda.py`,
+`chip_smoke.py`), races that only real warps hit, any time.  Skips where
+there is no g++.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import topk_same
+from cozo_tpu_torch.ops import _build
+from cozo_tpu_torch.ops import exact_knn as ek
+from tests._torch_slab_topk_host import BF16, EXTRA
+from tests.test_torch_beam_host import SHIM
+
+# the CUDA names the selection uses beyond the slab_topk tests' stand-ins
+SELECT_EXTRA = r'''
+struct float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
+inline float __int_as_float(int u) { float f; memcpy(&f, &u, 4); return f; }
+inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+'''
+
+# A block of the configuration's consumer warpgroups over each piece and
+# query tile: the kernel's consumer loop without the products.
+HARNESS = r'''
+#include <cuda_runtime.h>
+#include <type_traits>
+#include "sweep_select.cuh"
+using namespace cozo_sweep;
+
+template <int KIND, class C>
+__global__ void walk(const void* prod, long long n_total, Args a) {
+  typedef typename std::conditional<KIND == 0, float, int>::type Acc;
+  unsigned char* smem = SHIM_SMEM;
+  float* vec = reinterpret_cast<float*>(smem + C::SEL_BYTES);  // the stage's vectors
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int piece_idx = blockIdx.x / a.n_qt, qt = blockIdx.x % a.n_qt;
+  const int n_tiles = a.piece / TN;
+  const int wrow = (tid >> 7) * BM + ((tid & 127) >> 5) * 16;
+  Select<C, KIND> sel;
+  sel.init(tid, qt, a, smem);
+  for (int e = 0, tile = 0; e < n_tiles; ++e, tile = next_tile(tile, a.stride, n_tiles)) {
+    if (tile != tile_of(e, n_tiles, a.stride)) abort();  // the two forms of the order
+    const long long col = (long long)piece_idx * a.piece + (long long)tile * TN;
+    __syncthreads();
+    if (tid < TN) {
+      vec[tid] = a.bias[col + tid];
+      if (KIND == 1) vec[TN + tid] = a.col_scale[col + tid];
+    }
+    __syncthreads();
+    Acc d[32];  // m64n64's fragment: row lane/4 (+ 8), columns 8 j + 2 (lane & 3) (+ 1)
+    for (int i = 0; i < 32; ++i) {
+      const int r = wrow + (lane >> 2) + 8 * ((i >> 1) & 1);
+      const long long c = col + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      d[i] = static_cast<const Acc*>(prod)[((long long)qt * C::RB + r) * n_total + c];
+    }
+    float x[32], mx[2];
+    sel.pass1(d, vec, x, mx);
+    if (sel.need(mx, tile)) sel.select(d, x, tile, vec);
+  }
+  sel.finish(a, piece_idx);
+}
+
+template <int KIND>
+int run(const void* prod, long long n_total, Args a) {
+  typedef CfgOf<SEL_MODE, 1> C;
+  a.n_qt = a.n_qt_c = (a.B + C::RB - 1) / C::RB;
+  a.stride = stride_of(a.piece / TN);
+  const unsigned blocks = (unsigned)((n_total / a.piece) * a.n_qt);
+  shim::launch(dim3(blocks), C::NCONS * 128, C::SEL_BYTES + 512, &walk<KIND, C>)(prod, n_total, a);
+  return 0;
+}
+
+extern "C" {
+// The selection of every piece and query tile of prod [n_qt RB, n_total]
+// (f32 for kind 0, s32 for kind 1), into out_v / out_i as the kernel
+// writes them.  Returns 1 if kc is not this build's row state.
+int run_select(int kind, const void* prod, long long n_total, int B, int piece, int kc,
+                 const float* bias, const float* col_scale, const float* row_scale,
+                 void* out_v, void* out_i, long long ldo, long long id_off) {
+  if (mode_of(kc) != SEL_MODE) return 1;
+  Args a;
+  a.bias = bias;
+  a.col_scale = col_scale;
+  a.row_scale = row_scale;
+  a.out_v = out_v;
+  a.out_i = static_cast<long long*>(out_i);
+  a.ldo = ldo;
+  a.id_off = id_off;
+  a.B = B;
+  a.piece = piece;
+  a.kc = kc;
+  return kind == 0 ? run<0>(prod, n_total, a) : run<1>(prod, n_total, a);
+}
+int block_rows(int kc) { return mode_of(kc) <= LIST16 ? CfgOf<LIST8, 1>::RB : CfgOf<HEAD128, 1>::RB; }
+}
+'''
+
+MODES = {"lists of 8": 0, "lists of 16": 1, "head 128": 2, "head 256": 3}
+KCS = {0: (1, 10, 26, 32), 1: (33, 64), 2: (65, 97, 128), 3: (256,)}
+KINDS = ("bf16", "int8")
+VARIANTS = ("random", "ties", "zeros", "dead", "rising")
+PIECE, N_PIECES, D, ID_OFF = 512, 2, 16, 1000
+COMPILE_TIMEOUT_S = 600
+
+
+def cases(mode):
+    """(kind, kc, variant, B) of a row state: every kc, kind and variant,
+    B 70 and 130 in turn."""
+    out = []
+    for kc in KCS[mode]:
+        for kind in KINDS:
+            for variant in VARIANTS:
+                out.append((kind, kc, variant, (70, 130)[len(out) % 2]))
+    return out
+
+
+def case_ids(mode):
+    return [f"{k}-kc{kc}-{v}-B{B}" for k, kc, v, B in cases(mode)]
+
+
+def build_lib(tmp_path_factory, mode, defines=()):
+    """The harness of row state `mode` compiled with g++ (with the extra -D
+    flags `defines`) into a fresh directory; skips where there is no g++
+    with C++20."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the selection for the host")
+    work = tmp_path_factory.mktemp("sweep_select_host")
+    (work / "cuda_runtime.h").write_text(SHIM + EXTRA + SELECT_EXTRA)
+    (work / "cuda_bf16.h").write_text(BF16)
+    (work / "harness.cpp").write_text(HARNESS)
+    proc = subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+         f"-DSEL_MODE={mode}", *defines, f"-I{work}", f"-I{_build.CSRC}", "-o",
+         str(work / "harness.so"), str(work / "harness.cpp")],
+        capture_output=True, text=True, timeout=COMPILE_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lib = ctypes.CDLL(str(work / "harness.so"))
+    lib.run_select.argtypes = ([ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_longlong] + [ctypes.c_int] * 3
+                                 + [ctypes.c_void_p] * 5
+                                 + [ctypes.c_longlong] * 2)
+    lib.run_select.restype = ctypes.c_int
+    lib.block_rows.argtypes = [ctypes.c_int]
+    lib.block_rows.restype = ctypes.c_int
+    return lib
+
+
+def inputs(kind, B, variant, seed):
+    """(product matrix [B, n] f32 or int32 of small integers, bias,
+    col_scale, row_scale) of a case."""
+    rng = np.random.default_rng(seed)
+    n = PIECE * N_PIECES
+    q = rng.integers(-3, 4, (B, D))
+    t = rng.integers(-3, 4, (n, D))
+    bias = -rng.integers(0, 9, n).astype(np.float32) * 0.25
+    bias[rng.random(n) < 0.02] = -np.inf
+    cs = rng.integers(1, 4, n).astype(np.float32) * 0.25
+    rs = rng.integers(1, 4, B).astype(np.float32) * 0.5
+    if variant == "ties":
+        bias[np.isfinite(bias)] = 0.0
+        t[64:128] = t[:64]  # a tile repeated: equal keys at other positions
+    elif variant == "zeros":
+        zero = rng.choice(n, n // 4, replace=False)
+        t[zero] = 0
+        bias[zero] = rng.choice(np.float32([0.0, -0.0]), len(zero))
+        q[0] = 0
+    elif variant == "dead":
+        bias[:] = -np.inf
+        for p in range(N_PIECES):
+            bias[p * PIECE + rng.choice(PIECE, 3, replace=False)] = 0.0
+    elif variant == "rising":
+        t[:] = rng.integers(-1, 2, (n, D))
+        bias = (np.arange(n) % PIECE).astype(np.float32) * 0.25
+    if kind == "int8":
+        cs[~np.isfinite(bias)] = 0.0
+    prod = q @ t.T
+    return (torch.from_numpy(prod.astype(np.float32 if kind == "bf16"
+                                         else np.int32)),
+            torch.from_numpy(bias), torch.from_numpy(cs),
+            torch.from_numpy(rs))
+
+
+def run_source(lib, kind, prod, kc, bias, cs, rs):
+    """The harness's (values, ids) [B, N_PIECES kc]."""
+    B, n = prod.shape
+    rows = lib.block_rows(kc)
+    padded = torch.zeros((-(-B // rows) * rows, n), dtype=prod.dtype)
+    padded[:B] = prod
+    vals = torch.full((B, N_PIECES * kc), 7.0,
+                      dtype=torch.float32 if kind == "bf16" else torch.bfloat16)
+    ids = torch.full((B, N_PIECES * kc), -5, dtype=torch.int64)
+    int8 = kind == "int8"
+    err = lib.run_select(int(int8), padded.data_ptr(), n, B, PIECE, kc,
+                           bias.data_ptr(), cs.data_ptr() if int8 else None,
+                           rs.data_ptr() if int8 else None, vals.data_ptr(),
+                           ids.data_ptr(), N_PIECES * kc, ID_OFF)
+    assert err == 0
+    return vals, ids
+
+
+def plain(kind, prod, kc, bias, cs, rs):
+    """`select_topk_plain` a piece, ids offset as the kernel's."""
+    vals, ids = [], []
+    for p in range(N_PIECES):
+        cols = slice(p * PIECE, (p + 1) * PIECE)
+        if kind == "int8":
+            v, i = ek.select_topk_plain(prod[:, cols], kc, col_scale=cs[cols],
+                                        row_scale=rs, bias=bias[cols],
+                                        bf16=True, offset=ID_OFF + p * PIECE)
+        else:
+            v, i = ek.select_topk_plain(prod[:, cols], kc, bias=bias[cols],
+                                        offset=ID_OFF + p * PIECE)
+        vals.append(v)
+        ids.append(i)
+    return torch.cat(vals, 1), torch.cat(ids, 1)
+
+
+def check_case(lib, mode, i):
+    """Case i of the row state: values and ids bit-equal to the plain
+    version."""
+    kind, kc, variant, B = cases(mode)[i]
+    prod, bias, cs, rs = inputs(kind, B, variant, i)
+    got = run_source(lib, kind, prod, kc, bias, cs, rs)
+    want = plain(kind, prod, kc, bias, cs, rs)
+    assert topk_same(got, want), (
+        f"{int((got[1] != want[1]).sum())} ids differ of {want[1].numel()}")

@@ -784,6 +784,25 @@ def test_the_lanes_piece_divides_the_table(cuda, n_chunks, chunk, B, kc, int8):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kc", [1, 32, 33, 64, 65, 128, 129, 256])
+@pytest.mark.parametrize("int8", [False, True])
+def test_sweep_topk_block_shape_and_slots(cuda, kc, int8):
+    """The kernel's query rows a block (128 with the lists, kc <= 64; 64
+    past), its cluster (1 or 2 blocks) and the blocks the card holds at
+    once: whole clusters, at least one a cluster's worth, at most the
+    SMs."""
+    lib = ek._sweep_lib()
+    assert lib.cozo_sweep_topk_rows(int(int8), kc) == (128 if kc <= 64
+                                                       else 64)
+    cluster = lib.cozo_sweep_topk_cluster(int(int8), kc)
+    assert cluster in (1, 2)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for d_pad in (16, 128):
+        slots = lib.cozo_sweep_topk_slots(int(int8), d_pad, kc)
+        assert cluster <= slots <= sms and slots % cluster == 0
+
+
+@pytest.mark.cuda
 def test_sweep_topk_refuses_tensors_off_the_card(cuda):
     q, tbl, kw = sweep_inputs("bf16", 4, 256, 1, 64, "random", 2, cuda)
     with pytest.raises(ValueError):

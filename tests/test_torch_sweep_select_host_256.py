@@ -1,0 +1,25 @@
+"""The selection half of the chunk step (`cozo_tpu_torch/csrc/
+sweep_select.cuh`) on the CPU, row state "head 256": kc 256: a sorted head of 256 and a tail of 64 appends, merged
+after every tile that appends.  Held against `select_topk_plain` bit for bit;
+how, and what the cases are, in `tests/_torch_sweep_select_host.py`,
+which the four row states' files share.
+"""
+
+import pytest
+
+from tests import _torch_sweep_select_host as host
+
+MODE = host.MODES["head 256"]
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return host.build_lib(tmp_path_factory, MODE)
+
+
+@pytest.mark.parametrize("i", range(len(host.cases(MODE))),
+                         ids=host.case_ids(MODE))
+def test_sweep_select_on_the_host(lib, i):
+    """Every kc of the row state, both kinds, every variant: values and ids
+    bit-equal to the plain version."""
+    host.check_case(lib, MODE, i)

@@ -314,6 +314,9 @@ def test_ctypes_signature_matches_the_source():
     funcs = _extern_c_functions()
     assert funcs["cozo_sweep_topk"] == ek._SWEEP_ARGTYPES
     assert funcs["cozo_sweep_topk_rows"] == [ctypes.c_int, ctypes.c_int]
+    assert funcs["cozo_sweep_topk_cluster"] == [ctypes.c_int, ctypes.c_int]
+    assert funcs["cozo_sweep_topk_slots"] == [ctypes.c_int] * 3
+    assert funcs["cozo_sweep_topk_counts"] == [ctypes.c_void_p]
 
 
 def test_the_lanes_piece_is_the_chunk_on_the_cpu():
