@@ -218,6 +218,11 @@ EARLIER_LANE_MS = {"f32": "163.1-165.9", "fused+rerank": "14.5-16.1",
                    "quant": "0.073-0.078 s scan + pull, 0.205-0.312 s host "
                             "re-rank"}
 QUANT_N, QUANT_D, QUANT_NQ, QUANT_GT = 2_097_152, 768, 4096, 1024
+# phase 3b's i8 lane re-ranks 128 candidates, not phase 3's 64: at d = 768
+# the lane's bf16 keys (scores near 0.91, a bf16 step of 2^-8) tie in runs
+# past 64 at a piece's 64th key, and the selection keeps a tie's lowest
+# positions, so 64 cut true neighbours (the phase prints both)
+WIDE_I8_RERANK = 128
 I8_BUILD_N = 262_144
 
 
@@ -1030,8 +1035,10 @@ def phase_topk_vs_plain(dev):
 
 TOPK_LAUNCHES = {}  # path -> slab_topk launches on it, each counted from 0
 SWEEP_LAUNCHES = {}  # path -> sweep_topk launches on it, each counted from 0
-# what the calls made since `topk_zero` must launch, by kernel
-EXPECTED = {"slab_topk": 0, "sweep_topk": 0}
+TWO_STEP_CALLS = {}  # path -> sweep_topk calls on its two-step route
+# what the calls made since `topk_zero` must launch, by kernel, and the
+# calls of sweep_topk that must take its two-step route
+EXPECTED = {"slab_topk": 0, "sweep_topk": 0, "two_step": 0}
 
 
 def _merges(n_chunks, kc, kf):
@@ -1040,10 +1047,10 @@ def _merges(n_chunks, kc, kf):
 
 
 def _chunk_step(q, n_chunks, chunk, d_pad, kf, int8):
-    """(sweep_topk, slab_topk) launches of one call of a lane's chunk step
-    (`sweep_topk` on the piece `sweep_piece` picks, then `merge_chunks`):
-    one kernel, or on the two-step route a selection a piece; and the
-    merge."""
+    """(sweep_topk, two-step calls, slab_topk) launches of one call of a
+    lane's chunk step (`sweep_topk` on the piece `sweep_piece` picks, then
+    `merge_chunks`): one kernel, or one call of the two-step route and a
+    selection a piece; and the merge."""
     from cozo_tpu_torch.ops import exact_knn as ek
 
     n_total = n_chunks * chunk
@@ -1052,8 +1059,8 @@ def _chunk_step(q, n_chunks, chunk, d_pad, kf, int8):
     kc = min(kf, piece)
     merge = _merges(n_total // piece, kc, kf)
     if ek.sweep_route(d_pad, kc, piece) == "kernel":
-        return 1, merge
-    return 0, n_total // piece + merge
+        return 1, 0, merge
+    return 0, 1, n_total // piece + merge
 
 
 def install_launch_ledger():
@@ -1074,7 +1081,7 @@ def install_launch_ledger():
         n_chunks, chunk, d_pad = a["tbl"].shape
         kf = max(a["k"], a["rerank_k"])
         if a["compute_dtype"] != "bf16":  # f32: a selection a chunk
-            return 0, n_chunks + _merges(n_chunks, min(kf, chunk), kf)
+            return 0, 0, n_chunks + _merges(n_chunks, min(kf, chunk), kf)
         return _chunk_step(a["qs"], n_chunks, chunk, d_pad, kf, False)
 
     def sweep_i8(a):
@@ -1084,18 +1091,18 @@ def install_launch_ledger():
 
     def build_step(a):  # and the pool's selection
         n_chunks, chunk, d_pad = a["tbl"].shape
-        sw, sl = _chunk_step(a["new_rows"], n_chunks, chunk, d_pad,
-                             a["P"] + 1, False)
-        return sw, sl + 1
+        sw, ts, sl = _chunk_step(a["new_rows"], n_chunks, chunk, d_pad,
+                                 a["P"] + 1, False)
+        return sw, ts, sl + 1
 
     def build_step_i8(a):
         n_chunks = a["tbl_i8"].shape[0]
-        return 0, n_chunks + _merges(n_chunks, a["P"] + 1, a["P"] + 1) + 1
+        return 0, 0, n_chunks + _merges(n_chunks, a["P"] + 1, a["P"] + 1) + 1
 
     def qsweep(a):
         n_chunks, chunk, _ = a["tbl_i8"].shape
         kc = min(a["kf"], chunk)
-        return 0, n_chunks + _merges(n_chunks, kc, a["kf"])
+        return 0, 0, n_chunks + _merges(n_chunks, kc, a["kf"])
 
     def wrap(mod, name, count, device_arg):
         fn = getattr(mod, name)
@@ -1107,8 +1114,9 @@ def install_launch_ledger():
             a = sig.bind(*args, **kw)
             a.apply_defaults()
             if a.arguments[device_arg].device.type == "cuda":
-                sw, sl = count(a.arguments) if count else (0, 1)
+                sw, ts, sl = count(a.arguments) if count else (0, 0, 1)
                 EXPECTED["sweep_topk"] += sw
+                EXPECTED["two_step"] += ts
                 EXPECTED["slab_topk"] += sl
             return fn(*args, **kw)
 
@@ -1128,28 +1136,34 @@ def topk_zero():
 
     ek.select_topk.launches = 0
     ek.sweep_topk.launches = ek.sweep_topk.two_step = 0
-    EXPECTED.update(slab_topk=0, sweep_topk=0)
+    EXPECTED.update(slab_topk=0, sweep_topk=0, two_step=0)
 
 
-def topk_read(path, phase, sweep):
+def topk_read(path, phase, sweep, two_step=False):
     """slab_topk's and sweep_topk's launches since `topk_zero`, kept as
-    `path`'s.  The phase fails unless each equals what the path's calls
-    imply (`install_launch_ledger`), sweep_topk launched where the path
-    runs a bf16 or i8 sweep or an f32-table build (`sweep` true) and never
-    elsewhere, slab_topk launched on the other paths (their selections and
-    merges), and no chunk step took the two-step route.  Returns
-    slab_topk's count."""
+    `path`'s, and sweep_topk's calls on its two-step route.  The phase
+    fails unless each equals what the path's calls imply
+    (`install_launch_ledger`), sweep_topk launched where the path runs a
+    bf16 or i8 sweep or an f32-table build at the kernel's shapes (`sweep`
+    true) and never elsewhere, slab_topk launched on the other paths
+    (their selections and merges), and the two-step route taken where the
+    path's rows are wider than the kernel's (`two_step` true: phase 3b's
+    lanes) and nowhere else.  Returns slab_topk's count."""
     from cozo_tpu_torch.ops import exact_knn as ek
 
     n = TOPK_LAUNCHES[path] = ek.select_topk.launches
     m = SWEEP_LAUNCHES[path] = ek.sweep_topk.launches
-    want = (EXPECTED["slab_topk"], EXPECTED["sweep_topk"])
-    if ((n, m) != want or (m >= 1) != sweep or not (sweep or n >= 1)
-            or ek.sweep_topk.two_step):
+    t = ek.sweep_topk.two_step
+    if two_step:
+        TWO_STEP_CALLS[path] = t
+    want = (EXPECTED["slab_topk"], EXPECTED["sweep_topk"],
+            EXPECTED["two_step"])
+    if ((n, m, t) != want or (m >= 1) != sweep or not (sweep or n >= 1)
+            or (t >= 1) != two_step):
         raise SystemExit(
-            f"{phase} failed on {path}: slab_topk launched {n} times and "
-            f"sweep_topk {m} (two-step {ek.sweep_topk.two_step}), where the "
-            f"calls imply {want[0]} and {want[1]}")
+            f"{phase} failed on {path}: slab_topk launched {n} times, "
+            f"sweep_topk {m} and its two-step route {t}, where the calls "
+            f"imply {want[0]}, {want[1]} and {want[2]}")
     return n
 
 
@@ -1163,6 +1177,11 @@ SWEEP_DS = (16, 64, 128)
 SWEEP_VARIANTS = ("random", "ties", "dead", "ascending")
 SWEEP_EDGE_KCS = (32, 33, 64, 65, 96, 97, 256)  # each row state's edges
 SWEEP_EDGE_BS = (1, 17, 129, 257)
+# the wide rows the lanes hand the two-step route (phase 3b's d = 768): one
+# 131,072-row piece, B = 257 (query tiles of 128 and 64 rows, a ragged last)
+SWEEP_WIDE_CASES = tuple((kind, 257, 131_072, 1, 768, kc, variant)
+                         for kind in SWEEP_KINDS
+                         for kc, variant in ((26, "random"), (64, "ties")))
 SWEEP_TOL = 1e-5  # bf16 route: |value - plain| <= SWEEP_TOL * max(1, |plain|)
 SWEEP_ID_SHARE = 0.999  # bf16 route: ids equal on at least this share
 
@@ -1172,7 +1191,7 @@ def sweep_cases():
     piece width at every kc up to it, both kinds, B, the number of pieces
     (1-3), d_pad and the variant in turn; then every variant of each kind
     at [17 x 2 pieces of 4,096], d_pad 128, kc 26 and 97; then
-    `sweep_edge_cases`."""
+    `sweep_edge_cases`; then SWEEP_WIDE_CASES, on the two-step route."""
     cases = []
     for W in SWEEP_WIDTHS:
         for kc in SWEEP_KCS:
@@ -1187,7 +1206,7 @@ def sweep_cases():
         for variant in SWEEP_VARIANTS:
             for kc in (26, 97):
                 cases.append((kind, 17, 4096, 2, 128, kc, variant))
-    return cases + sweep_edge_cases()
+    return cases + sweep_edge_cases() + list(SWEEP_WIDE_CASES)
 
 
 def sweep_edge_cases():
@@ -1318,8 +1337,9 @@ def sweep_values_agree(got, want):
 def phase_sweep_vs_plain(dev):
     """Phase 2 for `sweep_topk`: every case of `sweep_cases` against
     `sweep_topk_plain` on the card (int8 bit-equal; bf16 by
-    `sweep_agreement`), two runs bit-identical.  Launches here are not
-    counted on any path."""
+    `sweep_agreement`), two runs bit-identical, each call on the route
+    `sweep_route` names (the wide cases: the two-step route).  Launches
+    here are not counted on any path."""
     import torch
 
     from cozo_tpu_torch.ops import exact_knn as ek
@@ -1329,12 +1349,15 @@ def phase_sweep_vs_plain(dev):
     worst = {"bf16": (1.0, 0.0), "int8": (1.0, 0.0)}
     for i, (kind, B, W, n_p, d_pad, kc, variant) in enumerate(cases):
         q, tbl, kw = sweep_inputs(kind, B, W, n_p, d_pad, variant, i, dev)
-        before = ek.sweep_topk.launches
+        before = (ek.sweep_topk.launches, ek.sweep_topk.two_step)
         got = ek.sweep_topk(q, tbl, W, kc, **kw)
         again = ek.sweep_topk(q, tbl, W, kc, **kw)
         want = ek.sweep_topk_plain(q, tbl, W, kc, **kw)
         torch.cuda.synchronize()
-        launched = ek.sweep_topk.launches - before == 2
+        wide = ek.sweep_route(d_pad, kc, W) == "two_step"
+        launched = (ek.sweep_topk.launches - before[0],
+                    ek.sweep_topk.two_step - before[1]) == (
+            (0, 2) if wide else (2, 0))
         ok, share, err = sweep_agreement(got, want,
                                          sweep_slab_keys(q, tbl, kw))
         twice = topk_same(got, again)
@@ -1351,7 +1374,9 @@ def phase_sweep_vs_plain(dev):
     say(f"phase 2 sweep_topk vs plain: {len(cases)} cases (B {SWEEP_BS}, "
         f"pieces of {SWEEP_WIDTHS} x 1-3, d_pad {SWEEP_DS}, kc {SWEEP_KCS}, "
         f"{list(SWEEP_VARIANTS)}; the edges: kc {SWEEP_EDGE_KCS}, B "
-        f"{SWEEP_EDGE_BS}) in {time.time() - t0:.1f}s: int8 values "
+        f"{SWEEP_EDGE_BS}; {len(SWEEP_WIDE_CASES)} on the two-step route at "
+        f"d_pad 768, B 257, a 131,072-row piece, kc 26 and 64) in "
+        f"{time.time() - t0:.1f}s: int8 values "
         f"and ids bit-equal; bf16 values within {SWEEP_TOL} x max(1, |v|) "
         f"(max err {worst['bf16'][1]:.3g}), ids equal on >= "
         f"{worst['bf16'][0]:.5f} of entries (bar {SWEEP_ID_SHARE}), every "
@@ -3316,8 +3341,186 @@ def time_minhash(first, launches, reps):
                       "sm_clock_mhz": clock, "bound_pipe": pipe}}
 
 
+def wide_index(data, norms, device=None):
+    """What `SweepTable.refresh` and `SweepTable.search` read of an index
+    (`n`, `dim`, `vectors`, `alive`, `norms`, `distance`, `version`,
+    `sweep_pending`, `device`: None is the card) for cosine rows all
+    alive: the sweep lanes read no graph, so phase 3b serves its draw
+    through them unbuilt."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(n=len(data), dim=data.shape[1], vectors=data,
+                           alive=np.ones(len(data), bool), norms=norms,
+                           distance="Cosine", version=0, sweep_pending=set(),
+                           device=device)
+
+
+def piece_kw(kw, cols):
+    """`sweep_topk`'s keyword arguments cut to the table rows `cols`."""
+    return {k: v if k == "row_scale" else v[cols] for k, v in kw.items()}
+
+
+def two_step_split(q, tbl, piece, kc, kw, reps):
+    """(product ms, selection ms) of one call of `sweep_topk`'s two-step
+    route, each the median over `reps` rounds after a warm one of its sum
+    over the pieces: CUDA events around each piece's product (`mm_bf16` or
+    `int_mm`) and its `select_topk`, as `exact_knn.sweep_two_step` runs
+    them; the last round's answer must equal `sweep_topk`'s."""
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+    from cozo_tpu_torch.utils.device import int_mm, mm_bf16
+
+    int8 = q.dtype == torch.int8
+    n_pieces = tbl.shape[0] // piece
+    out = ek._chunk_buffers(q.shape[0], n_pieces, kc, torch.bfloat16 if int8
+                            else torch.float32, q.device)
+    rounds = []
+    for _ in range(reps + 1):
+        marks = []
+        for p in range(n_pieces):
+            cols = slice(p * piece, (p + 1) * piece)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            slab = (int_mm if int8 else mm_bf16)(q, tbl[cols])
+            ev[1].record()
+            ek.select_topk(slab, kc, bf16=int8, offset=p * piece,
+                           out=ek._cols(out, p, kc), **piece_kw(kw, cols))
+            ev[2].record()
+            marks.append(ev)
+            del slab
+        torch.cuda.synchronize()
+        rounds.append((sum(a.elapsed_time(b) for a, b, _ in marks),
+                       sum(b.elapsed_time(c) for _, b, c in marks)))
+    if not topk_same(out, ek.sweep_topk(q, tbl, piece, kc, **kw)):
+        raise SystemExit("phase 3b failed: the split two-step route differs "
+                         "from sweep_topk's")
+    return (float(np.median([r[0] for r in rounds[1:]])),
+            float(np.median([r[1] for r in rounds[1:]])))
+
+
+def key_ties(q, tbl, piece, kc, kw):
+    """(median, max) over rows and pieces of the keys equal to the piece's
+    kc-th key, on the two-step route's slabs (the selection keeps a tie's
+    lowest positions)."""
+    import torch
+
+    counts = []
+    for p in range(tbl.shape[0] // piece):
+        cols = slice(p * piece, (p + 1) * piece)
+        key = sweep_slab_keys(q, tbl[cols], piece_kw(kw, cols)).float()
+        kth = torch.topk(key, kc, dim=1).values[:, -1:]
+        counts.append((key == kth).sum(1))
+        del key
+    c = torch.stack(counts).float()
+    return float(c.median()), int(c.max())
+
+
+def phase_wide_lanes(data, norms, qs, gt):
+    """Phase 3b's draw under the f32 budget, through the code
+    `HnswIndex.search` runs for a batch of B >= 64 there (`sweep_search` ->
+    `SweepTable.search` -> `sweep_topk`, which takes its two-step route at
+    d_pad 768): the bf16+rerank and i8+rerank lanes (the latter at
+    WIDE_I8_RERANK re-ranked; its recall at phase 3's 64 printed beside,
+    with the ties of bf16 keys that cut it), each held to its bar against
+    `brute_force_knn` on the first QUANT_GT queries, its launches gated at
+    what the calls imply, a batch timed on the host clock and its chunk
+    step split into product and selection ms."""
+    import torch
+
+    from cozo_tpu_torch import sweep_search
+    from cozo_tpu_torch.models.hnsw_index import f32_table_budget
+    from cozo_tpu_torch.ops import exact_knn as ek
+    from cozo_tpu_torch.utils.device import prepare_queries, to_device
+
+    index = wide_index(data, norms)
+    d_pad = -(-QUANT_D // 128) * 128
+    if QUANT_N * d_pad * 4 > f32_table_budget():
+        raise SystemExit("phase 3b failed: the draw is past the f32 budget, "
+                         "so HnswIndex.search would not take the sweep")
+    t0 = time.time()
+    sweep_search(index, qs[:64], K)  # the table's refresh, from the host
+    torch.cuda.synchronize()
+    say(f"phase 3b sweep table {QUANT_N} x {d_pad} f32 on the device "
+        f"(refresh {time.time() - t0:.1f}s)")
+    st = index._sweep_table
+    out = {}
+    for tag, cd, rk in (("bf16+rerank", "bf16", None),
+                        ("i8+rerank", "i8", WIDE_I8_RERANK)):
+        topk_zero()
+        sweep_search(index, qs, K, compute_dtype=cd, rerank_k=rk)  # warm
+        ms = []
+        for _ in range(OTHER_LANE_REPS):
+            t0 = time.time()
+            ids, dists = sweep_search(index, qs, K, compute_dtype=cd,
+                                      rerank_k=rk)
+            ms.append(1e3 * (time.time() - t0))
+        path = f"wide {tag} (phase 3b)"
+        slab = topk_read(path, "phase 3b", sweep=False, two_step=True)
+        r = recall(ids[:QUANT_GT], gt)
+        ok = (ids.shape == (QUANT_NQ, K) and np.isfinite(dists).all()
+              and r >= BARS[tag])
+        # the chunk step as the lane hands it to sweep_topk
+        prep = prepare_queries(to_device(np.ascontiguousarray(qs), st.device),
+                               "Cosine", d_pad, half=True,
+                               quantize=cd == "i8", reciprocal=True)
+        kf = max(rk or 0, K + 16)  # as `SweepTable.search` widens it
+        if cd == "i8":
+            q, tbl = prep[1], st.tbl_i8.reshape(-1, d_pad)
+            kw = {"bias": st.bias.reshape(-1), "col_scale":
+                  st.scale_i8.reshape(-1), "row_scale": prep[2]}
+        else:
+            q, tbl = prep.to(torch.bfloat16), st.tbl_bf16
+            kw = {"bias": st.bias.reshape(-1)}
+        piece = ek.sweep_piece(tbl.shape[0], st.chunk, QUANT_NQ, d_pad,
+                               min(kf, st.chunk), cd == "i8", q.device)
+        route = ek.sweep_route(d_pad, min(kf, piece), piece)
+        product_ms, select_ms = two_step_split(q, tbl, piece, min(kf, piece),
+                                               kw, OTHER_LANE_REPS)
+        # the least time of the chunk step's products (operations bound)
+        bound_ms = 2.0 * QUANT_NQ * QUANT_N * d_pad / (
+            PEAK_INT8 if cd == "i8" else PEAK_BF16) * 1e3
+        if cd == "i8":  # the overfetch phase 3 gives the lane, 64
+            ids64, _ = sweep_search(index, qs, K, compute_dtype=cd,
+                                    rerank_k=64)
+            r64 = recall(ids64[:QUANT_GT], gt)
+            ties = key_ties(q, tbl, piece, 64, kw)
+            say(f"phase 3b lane {tag} with phase 3's 64 re-ranked: recall@10 "
+                f"{r64:.5f} (bar {BARS[tag]}); bf16 keys equal to a piece's "
+                f"64th key: median {ties[0]:.0f}, max {ties[1]} (ROADMAP.md "
+                f"section 3: the lane re-ranks {rk} here)")
+        del prep, q, tbl, kw
+        out[tag] = {"ms_a_batch": float(np.median(ms)), "per_rep_ms": ms,
+                    "recall@10": r, "rerank_k": kf, "product_ms": product_ms,
+                    "selection_ms": select_ms, "bound_ms": bound_ms,
+                    "route": route,
+                    "pieces": QUANT_N // piece, "kc": min(kf, piece),
+                    "slab_topk": slab, "two_step_calls": TWO_STEP_CALLS[path]}
+        if cd == "i8":
+            out[tag].update(recall_at_64=r64, key_ties_at_64=ties)
+        say(f"phase 3b lane {tag} at d_pad {d_pad} ({kf} re-ranked, "
+            f"sweep_topk's {route} route, {QUANT_N // piece} pieces, kc "
+            f"{min(kf, piece)}): "
+            f"B={QUANT_NQ} median {np.median(ms):.1f} ms a batch ({ms}), the "
+            f"chunk step's product {product_ms:.2f} ms + selection "
+            f"{select_ms:.2f} ms ({100 * bound_ms / (product_ms + select_ms):.1f}"
+            f"% of the products' bound {bound_ms:.2f} ms); slab_topk {slab} "
+            f"launches, two-step calls "
+            f"{TWO_STEP_CALLS[path]}; recall@10 {r:.5f} on {QUANT_GT} queries "
+            f"against brute_force_knn (bar {BARS[tag]}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase 3b failed: lane {tag} at d_pad {d_pad}")
+    del index, st
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_quant_wide():
-    """Phase 3b: the quant lane at its own width."""
+    """Phase 3b: a 768-wide draw through the quant lane (past the f32
+    budget, as `HnswIndex.search` serves it there), then under the budget
+    through the bf16+rerank and i8+rerank lanes (`phase_wide_lanes`).
+    Returns the `wide` numbers."""
     import torch
 
     from cozo_tpu_torch.ops.quant_knn import QuantSweepTable, quant_search
@@ -3334,6 +3537,7 @@ def phase_quant_wide():
     table = QuantSweepTable().load(data, "Cosine")
     torch.cuda.synchronize()
     load_s = time.time() - t0
+    table_gb = table.tbl.numel() / 1e9
     topk_zero()
     quant_search(data, table, qs, K)  # warm
     qps = []
@@ -3343,6 +3547,7 @@ def phase_quant_wide():
         qps.append(QUANT_NQ / (time.time() - t0))
     topk_read("quant (phase 3b)", "phase 3b", sweep=False)
     scan_s, rerank_s = quant_search.last_timing
+    del table
     norms = np.concatenate([
         np.einsum("nd,nd->n", blk, blk) for blk in np.array_split(data, 16)])
     gt = np.concatenate([
@@ -3353,13 +3558,16 @@ def phase_quant_wide():
     ok = (ids.shape == (QUANT_NQ, K) and np.isfinite(dists).all()
           and (np.diff(dists, axis=1) >= -1e-6).all() and r >= BARS["quant"])
     say(f"phase 3b quant lane {QUANT_N} x {QUANT_D} cosine (int8 table "
-        f"{table.tbl.numel() / 1e9:.2f} GB on the device, load {load_s:.1f}s): "
+        f"{table_gb:.2f} GB on the device, load {load_s:.1f}s): "
         f"B={QUANT_NQ} median {np.median(qps):.1f} QPS min {min(qps):.1f} "
         f"(last rep: device scan + pull {scan_s:.3f}s, host re-rank "
         f"{rerank_s:.3f}s) recall@10 {r:.5f} on {QUANT_GT} queries against "
         f"brute_force_knn (bar {BARS['quant']}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("phase 3b failed: quant lane")
+    return {"quant": {"qps_median": float(np.median(qps)), "recall@10": r,
+                      "scan_s": scan_s, "rerank_s": rerank_s},
+            **phase_wide_lanes(data, norms, qs, gt)}
 
 
 def phase_i8_build(data, qs):
@@ -3929,13 +4137,15 @@ def time_sweep(st, qs, reps):
 
 def finish_topk_entry(kernels):
     """slab_topk's and sweep_topk's entries gain the launches counted on
-    each path."""
+    each path, sweep_topk's also its calls on the two-step route."""
     for entry in kernels:
         by = {"slab_topk": TOPK_LAUNCHES, "sweep_topk": SWEEP_LAUNCHES}.get(
             entry["name"])
         if by is not None:
             entry["launches_by_path"].update(by)
             entry["launches"] = sum(entry["launches_by_path"].values())
+        if entry["name"] == "sweep_topk":
+            entry["two_step_calls_by_path"] = dict(TWO_STEP_CALLS)
 
 
 def phase_beam_quick(n):
@@ -4036,13 +4246,163 @@ def sse_first_event(url, db, rel):
     return (events[0] if events else None), keys
 
 
+def listen_counters():
+    """(ListenOverflows, ListenDrops) of this network namespace's TCP
+    stack, from /proc/net/netstat (read only): connection requests the
+    kernel dropped because a listen queue was full, and all it dropped;
+    None where the kernel does not expose them."""
+    try:
+        with open("/proc/net/netstat") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return None
+    for head, vals in zip(lines[::2], lines[1::2]):
+        if head.startswith("TcpExt:"):
+            kv = dict(zip(head.split()[1:], map(int, vals.split()[1:])))
+            if "ListenOverflows" in kv and "ListenDrops" in kv:
+                return kv["ListenOverflows"], kv["ListenDrops"]
+    return None
+
+
+SLOW_CONNECT_MS = 100  # a loopback handshake the kernel queues takes < 1 ms
+
+
+def text_query(port, script):
+    """One `/text-query` on a new connection, as urllib sends it: (status,
+    parsed body, connect ms, request ms from the connect's start)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        t0 = time.perf_counter()
+        conn.connect()
+        t1 = time.perf_counter()
+        conn.request("POST", "/text-query", json.dumps({"script": script}),
+                     {"content-type": "application/json"})
+        resp = conn.getresponse()
+        status, res = resp.status, json.loads(resp.read())
+        t2 = time.perf_counter()
+    finally:
+        conn.close()
+    return status, res, (t1 - t0) * 1e3, (t2 - t0) * 1e3
+
+
+def server_burst(port, scripts, want):
+    """HOSTS_THREADS client threads each send its small join HOSTS_REQS
+    times as `/text-query`, a new connection a request: the request ms
+    p50 / p99 / max, requests/s, whether every answer's rows equal the
+    Db's own (`want`), the connects slower than SLOW_CONNECT_MS (a dropped
+    handshake is retried after 1 s), the listen queue's overflows and
+    drops during the burst (None where the kernel does not count them),
+    and the garbage collector's passes during it (each stops every
+    thread).  The burst starts on a collected heap: a full pass over the
+    Db's heap, after what ran before it left its garbage (the reference
+    answers, PageRank's rows), would stop every request of the burst at
+    once; its time is `collect_before_ms`."""
+    import gc
+
+    def client(t):
+        lat, slow, same = [], 0, True
+        for _ in range(HOSTS_REQS):
+            status, res, connect_ms, ms = text_query(port, scripts[t])
+            lat.append(ms)
+            slow += connect_ms > SLOW_CONNECT_MS
+            same = same and status == 200 and res.get("ok") is True \
+                and sorted(res["rows"]) == want[t]
+        return lat, slow, same
+
+    passes, began = [], []
+
+    def on_gc(phase, info):  # the collector's passes, each holding the GIL
+        if phase == "start":
+            began.append(time.perf_counter())
+        else:
+            passes.append((time.perf_counter() - began.pop()) * 1e3)
+
+    t0 = time.perf_counter()
+    gc.collect()  # what ran before the burst leaves its garbage here
+    collect_ms = (time.perf_counter() - t0) * 1e3
+    before = listen_counters()
+    gc.callbacks.append(on_gc)
+    t0 = time.time()
+    try:
+        with ThreadPoolExecutor(HOSTS_THREADS) as ex:
+            results = list(ex.map(client, range(HOSTS_THREADS)))
+    finally:
+        gc.callbacks.remove(on_gc)
+    wall = time.time() - t0
+    after = listen_counters()
+    lat = np.concatenate([r[0] for r in results])
+    counted = before is not None and after is not None
+    return {"requests": int(len(lat)),
+            "request_ms_p50": float(np.percentile(lat, 50)),
+            "request_ms_p99": float(np.percentile(lat, 99)),
+            "request_ms_max": float(lat.max()),
+            "requests_per_s": len(lat) / wall,
+            "slow_connects": int(sum(r[1] for r in results)),
+            "collect_before_ms": collect_ms,
+            "gc_passes": len(passes),
+            "gc_longest_ms": max(passes, default=0.0),
+            "listen_overflows": after[0] - before[0] if counted else None,
+            "listen_drops": after[1] - before[1] if counted else None,
+            "small_join_rows_equal": all(r[2] for r in results) and all(
+                len(w) == DB_SMALL * K for w in want)}
+
+
+def burst_line(what, b):
+    counters = ("ListenOverflows / ListenDrops not counted by this kernel"
+                if b["listen_overflows"] is None else
+                f"ListenOverflows {b['listen_overflows']} ListenDrops "
+                f"{b['listen_drops']}")
+    return (f"{what}: request ms p50 {b['request_ms_p50']:.3f} p99 "
+            f"{b['request_ms_p99']:.3f} max {b['request_ms_max']:.3f}, "
+            f"{b['requests_per_s']:.1f} requests/s, connects over "
+            f"{SLOW_CONNECT_MS} ms {b['slow_connects']}, {counters}, "
+            f"{b['gc_passes']} garbage collections (the longest "
+            f"{b['gc_longest_ms']:.1f} ms; the heap's before the burst "
+            f"{b['collect_before_ms']:.1f} ms); rows "
+            f"equal to the Db's own answers {b['small_join_rows_equal']}")
+
+
+def backlog_turns(db, scripts, want):
+    """(a)'s burst on the same Db through socketserver's backlog of 5 (a
+    plain `ThreadingHTTPServer`, the port's server class before
+    `CozoHTTPServer`) and through `serve`'s, in turns 5, 128, 128, 5: each
+    turn's p50 / p99 / max ms and listen overflows and drops."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from cozo_tpu_torch.hosts import server as hs
+
+    turns = []
+    for cls in (ThreadingHTTPServer, hs.CozoHTTPServer, hs.CozoHTTPServer,
+                ThreadingHTTPServer):
+        srv = cls(("127.0.0.1", 0), hs.make_handler(hs.ServerState(db)))
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        try:
+            b = server_burst(srv.server_address[1], scripts, want)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        b["backlog"] = srv.request_queue_size
+        say(burst_line(f"phase 11 (a) in turns, listen backlog "
+                       f"{b['backlog']}", b))
+        if not b["small_join_rows_equal"]:
+            raise SystemExit("phase 11 failed: the server's small joins")
+        turns.append(b)
+    return turns
+
+
 def phase_server(db):
     """Phase 11 (a): phase 5's Db served in process through
     `cozo_tpu_torch.hosts.server.serve`: 8 client threads each send the
     small join of its own 16 stored queries 20 times as `/text-query`
-    (each answer's rows equal to the Db's own answer), one PageRank over
-    the level-0 graph (ranks bit-equal to the direct call's: the kernel
-    is deterministic), and an SSE change stream that carries a `:put`.
+    (each answer's rows equal to the Db's own answer; no connection
+    request dropped by a full listen queue where the kernel counts them),
+    one PageRank over the level-0 graph (ranks bit-equal to the direct
+    call's: the kernel is deterministic), an SSE change stream that
+    carries a `:put`, and the burst again in turns through socketserver's
+    listen backlog of 5 and `serve`'s (`backlog_turns`).
     Returns the `hosts` numbers of (a) and the path's launches."""
     import threading
 
@@ -4059,34 +4419,14 @@ def phase_server(db):
                 for s in scripts]
         direct = json.loads(db.run_script_json(GRAPH_PR))["rows"]
         zero_all_counts()  # counts of the HTTP requests only
-
-        def client(t):
-            lat, same = [], True
-            for _ in range(HOSTS_REQS):
-                t0 = time.perf_counter()
-                status, res = http(url, "/text-query", {"script": scripts[t]})
-                lat.append((time.perf_counter() - t0) * 1e3)
-                same = same and status == 200 and res.get("ok") is True \
-                    and sorted(res["rows"]) == want[t]
-            return lat, same
-
-        t0 = time.time()
-        with ThreadPoolExecutor(HOSTS_THREADS) as ex:
-            results = list(ex.map(client, range(HOSTS_THREADS)))
-        wall = time.time() - t0
-        lat = np.concatenate([r[0] for r in results])
-        same = all(r[1] for r in results) and all(
-            len(w) == DB_SMALL * K for w in want)
-        out.update(requests=int(len(lat)), request_ms_p50=float(
-            np.percentile(lat, 50)), request_ms_p99=float(
-            np.percentile(lat, 99)), requests_per_s=len(lat) / wall,
-            small_join_rows_equal=bool(same))
-        say(f"phase 11 (a) server: {HOSTS_THREADS} clients x {HOSTS_REQS} "
-            f"small joins (B={DB_SMALL}) over HTTP: request ms p50 "
-            f"{out['request_ms_p50']:.3f} p99 {out['request_ms_p99']:.3f}, "
-            f"{out['requests_per_s']:.1f} requests/s; rows equal to the Db's "
-            f"own answers {same} {'ok' if same else 'FAIL'}")
-        if not same:
+        out.update(server_burst(srv.server_address[1], scripts, want))
+        ok = out["small_join_rows_equal"] and out["listen_overflows"] in (
+            0, None)
+        say(burst_line(f"phase 11 (a) server (listen backlog "
+                       f"{srv.request_queue_size}): {HOSTS_THREADS} clients "
+                       f"x {HOSTS_REQS} small joins (B={DB_SMALL}) over HTTP",
+                       out) + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
             raise SystemExit("phase 11 failed: the server's small joins")
 
         t0 = time.perf_counter()
@@ -4094,10 +4434,15 @@ def phase_server(db):
         out["pagerank_request_ms"] = (time.perf_counter() - t0) * 1e3
         out["launches"] = all_counts()
         # small joins and PageRank: no sweep, no selection on this path
-        if (out["launches"]["slab_topk"], out["launches"]["sweep_topk"]) != (
-                EXPECTED["slab_topk"], EXPECTED["sweep_topk"]):
+        from cozo_tpu_torch.ops import exact_knn as ek
+
+        if (out["launches"]["slab_topk"], out["launches"]["sweep_topk"],
+                ek.sweep_topk.two_step) != (
+                EXPECTED["slab_topk"], EXPECTED["sweep_topk"],
+                EXPECTED["two_step"]):
             raise SystemExit(f"phase 11 failed: the selection kernels "
-                             f"launched {out['launches']} where the calls "
+                             f"launched {out['launches']} (two-step "
+                             f"{ek.sweep_topk.two_step}) where the calls "
                              f"imply {EXPECTED}")
         same = status == 200 and res.get("ok") is True \
             and res["rows"] == direct and len(direct) > 0
@@ -4130,13 +4475,15 @@ def phase_server(db):
         f"graph_pagerank >= 1: {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("phase 11 failed: the server path's kernel launches")
+    out["backlog_turns"] = backlog_turns(db, scripts, want)
     return out
 
 
 def trace_small_join(db, extra=None):
     """The Chrome trace of `utils.profiling.device_trace` around two small
     joins (B = 16) after a warm one, and `extra()` where given: (events,
-    kernel names).  A session can miss its first kernels."""
+    kernel names).  The profiler drops a session's first device records,
+    more the older the process: `device_trace`'s primer takes the drop."""
     import shutil
     import tempfile
 
@@ -4180,23 +4527,25 @@ def phase_trace(db):
 
 
 def trace_after_server(db):
-    """Phase 11 (d) once more, after (a)'s 8 client threads, with one ATen
-    kernel (a sum on the card) in the same session.  Two full runs on busy
-    hosts recorded no device activity at this point, for a reason not
-    known (`PERF.md` §7), while (d) before the server passed: reported,
-    not gated, until the cause is.  The ATen kernel tells a profiler that
-    sees nothing of the card from one that misses the port's kernel."""
+    """Phase 11 (d) once more, after (a)'s server and its client threads,
+    with one ATen kernel (a sum on the card) in the same session: the
+    trace must name both the beam kernel and the sum's `reduce_kernel`
+    (a trace without the sum has seen nothing of the card; one without
+    the beam kernel has missed the port's)."""
     import torch
 
-    aten = "the ATen sum"
     events, kernels = trace_small_join(db, lambda: torch.ones(
         1 << 20, device="cuda").sum())
     beam = any("beam_search_kernel" in k for k in kernels)
+    aten = any("reduce_kernel" in k for k in kernels)
     say(f"phase 11 (d) after the server: {len(events)} events, kernels "
-        f"{kernels}; the beam kernel among them {beam}, {aten} "
-        f"{'among them' if len(kernels) > int(beam) else 'missing too'}"
-        f"{'' if beam else ' (OPEN: PERF.md section 7; not gated)'}")
+        f"{kernels}; the beam kernel among them {beam}, the ATen sum "
+        f"{aten} {'ok' if beam and aten else 'FAIL'}")
+    if not (beam and aten):
+        raise SystemExit("phase 11 failed: the trace after the server names "
+                         "no beam kernel or no ATen sum")
     return {"trace_after_server_names_beam_kernel": beam,
+            "trace_after_server_names_aten_sum": aten,
             "trace_after_server_kernels": len(kernels)}
 
 
@@ -4692,8 +5041,7 @@ def main():
         db_graph_launches, db_timings = phase_graph_db(db, dev, args.reps)
         graph_launches = {"db graph (phase 6)": db_graph_launches}
         lap("phase 6 and its timings")
-        # (d) gates before the server; after its 8 client threads the
-        # profiler has recorded nothing of the card on busy hosts
+        # (d) before the server and after it, each gated
         hosts = phase_trace(db)
         hosts.update(phase_server(db))
         hosts.update(trace_after_server(db))
@@ -4721,7 +5069,9 @@ def main():
         lap("phase 10 (the engines)")
         phase_i8_build(data, qs)
         del data
-        phase_quant_wide()
+        wide = phase_quant_wide()
+        wide["card"] = smi_line()
+        say("wide " + json.dumps(wide))
         lap("phases 3b and 3c")
         (graph_kernels, graph_launches["scale (phase 7)"],
          mesh["graph"]) = phase_graph_scale(dev, args.reps, db_timings)

@@ -22,7 +22,8 @@ Auth: `x-cozo-auth` header checked against the token passed at startup
     python -m cozo_tpu_torch.hosts.server --device cpu  # on the host
 
 Reads run concurrently (a `ThreadingHTTPServer`), under the locks the Db
-and its indexes keep; there is no lock around the Db."""
+and its indexes keep; there is no lock around the Db.  The listen backlog
+is `LISTEN_BACKLOG` (`CozoHTTPServer`), not socketserver's 5."""
 
 from __future__ import annotations
 
@@ -36,6 +37,23 @@ from typing import Dict, Optional
 from ..runtime.db import Db, MultiTransaction
 from ..fixed_rule import SimpleFixedRule
 from ..utils.errors import CozoError
+
+
+# Connection requests the kernel queues while the accept loop is busy.
+# socketserver's default, 5, overflows under a burst of more clients than
+# that, each opening a connection a request (urllib, curl): the kernel
+# drops the handshake and the client retries it after 1 s, a tail of whole
+# seconds around requests of milliseconds (`chip_smoke.py` phase 11 (a)
+# runs both in turns).  128 holds a burst of that many clients; Linux caps
+# it at net.core.somaxconn.
+LISTEN_BACKLOG = 128
+
+
+class CozoHTTPServer(ThreadingHTTPServer):
+    """The server `serve` returns: a `ThreadingHTTPServer` that listens
+    with a backlog of `LISTEN_BACKLOG`."""
+
+    request_queue_size = LISTEN_BACKLOG
 
 
 class ServerState:
@@ -249,10 +267,9 @@ def make_handler(state: ServerState):
 
 def serve(
     db: Db, host: str = "127.0.0.1", port: int = 9070, auth_token: Optional[str] = None
-) -> ThreadingHTTPServer:
+) -> CozoHTTPServer:
     state = ServerState(db, auth_token)
-    server = ThreadingHTTPServer((host, port), make_handler(state))
-    return server
+    return CozoHTTPServer((host, port), make_handler(state))
 
 
 def server_main(argv=None) -> None:

@@ -25,7 +25,8 @@ from chip_smoke import (BEAM_CASES, GRAPH_LP_LABELS, GRAPH_LP_WIDTHS,
                         lp_inputs, minhash_inputs, minhash_tensors,
                         pagerank_agreement, pr_inputs, sssp_inputs,
                         sweep_agreement, sweep_cases, sweep_inputs,
-                        sweep_slab_keys, topk_cases, topk_inputs, topk_same)
+                        sweep_slab_keys, topk_cases, topk_inputs, topk_same,
+                        wide_index)
 from chip_smoke import PHASE2_SHAPES as SHAPES
 from chip_smoke import (agreement_ok, beam_args, beam_case, beam_ok,
                         compare_beam, compare_fused, random_case)
@@ -699,7 +700,7 @@ def test_slab_topk_refuses_tensors_off_the_card(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cd", ["f32", "bf16", "i8", "fused"])
-def test_every_sweep_lane_selects_through_slab_topk(cuda, cd):
+def test_bf16_and_i8_lanes_launch_sweep_topk_the_others_slab_topk(cuda, cd):
     """A lane's search launches its selection kernel (the f32 lane
     `slab_topk` once per chunk and the merge, the fused lane once over its
     packed array; the bf16 and i8 lanes `sweep_topk` once for all the
@@ -723,6 +724,32 @@ def test_every_sweep_lane_selects_through_slab_topk(cuda, cd):
             else:
                 assert after[0] > before[0] and after[1] == before[1]
     assert np.mean(got["cpu"] == got["cuda"]) > 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", ["bf16", "i8"])
+def test_wide_sweep_lanes_take_the_two_step_route(cuda, cd):
+    """At d = 768 (d_pad past the kernel's 128) `sweep_search`'s bf16 and
+    i8 lanes, as `HnswIndex.search` serves a batch of B >= 64 there, call
+    `sweep_topk` once on its two-step route (counted in
+    `sweep_topk.two_step`; the kernel not launched) and give the CPU's
+    answers."""
+    rng = np.random.default_rng(8)
+    data = rng.standard_normal((5000, 768)).astype(np.float32)
+    qs = rng.standard_normal((64, 768)).astype(np.float32)
+    norms = np.einsum("nd,nd->n", data, data)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        before = (ek.sweep_topk.launches, ek.sweep_topk.two_step)
+        got[dev] = sweep_search(wide_index(data, norms, dev), qs, 10,
+                                compute_dtype=cd,
+                                rerank_k=64 if cd == "i8" else None)
+        if dev == "cuda":
+            assert (ek.sweep_topk.launches, ek.sweep_topk.two_step) == (
+                before[0], before[1] + 1)
+    assert np.mean(got["cpu"][0] == got["cuda"][0]) > 0.99
+    np.testing.assert_allclose(np.sort(got["cuda"][1], 1),
+                               np.sort(got["cpu"][1], 1), atol=1e-5)
 
 
 SWEEP_CASES = [c for c in sweep_cases() if c[2] <= 4096]

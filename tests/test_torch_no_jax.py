@@ -181,7 +181,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     for script in ("chip_smoke.py", "chip_profile.py", "chip_ubench.py",
-                   "chip_graph_vs.py"):
+                   "chip_graph_vs.py", "chip_trace_witness.py"):
         yield os.path.join(_ROOT, script)
 
 

@@ -6,12 +6,17 @@ import glob
 import json
 import os
 import re
+import threading
+import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from cozo_tpu.utils import profiling as jax_profiling
 from cozo_tpu_torch import Db
+from cozo_tpu_torch.hosts.server import serve
 from cozo_tpu_torch.utils import profiling
 
 
@@ -56,5 +61,110 @@ def test_device_trace_writes_its_trace_when_the_body_raises(tmp_path):
             torch.ones(3).sum()
             raise ValueError("inside")
     except ValueError:
+        pass
+    assert len(os.listdir(tmp_path)) == 1
+
+
+def _post(url, script):
+    req = urllib.request.Request(url + "/text-query",
+                                 data=json.dumps({"script": script}).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def _sse_once(url, db, rel):
+    """Open /changes/{rel}, put rows until it carries an event, leave."""
+    got = []
+
+    def listen():
+        with urllib.request.urlopen(url + f"/changes/{rel}",
+                                    timeout=30) as resp:
+            for raw in resp:
+                if raw.startswith(b"data: "):
+                    got.append(raw)
+                    return
+
+    t = threading.Thread(target=listen, daemon=True)
+    t.start()
+    for k in range(40):
+        if got:
+            break
+        time.sleep(0.1)
+        db.run_script(f"?[k] <- [[{k}]] :put {rel} {{k}}")
+    t.join(timeout=15)
+    return got
+
+
+def test_device_trace_after_a_server_holds_the_ops_inside(tmp_path):
+    """The order of `chip_smoke.py` phase 11: a port server on the Db
+    serves 8 client threads and an SSE stream, is shut down, and only then
+    does `device_trace` run: its trace holds the ops run inside it."""
+    db = Db("mem", device="cpu")
+    db.run_script(":create sse_rel {k: Int}")
+    srv = serve(db, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with ThreadPoolExecutor(8) as ex:
+            rows = list(ex.map(lambda t: _post(url, f"?[x] <- [[{t}]]"),
+                               range(8)))
+        assert [r["rows"] for r in rows] == [[[t]] for t in range(8)]
+        assert _sse_once(url, db, "sse_rel")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    a = torch.from_numpy(np.ones((64, 64), np.float32))
+    with profiling.device_trace(str(tmp_path)):
+        (a @ a).sum().item()
+        db.run_script("?[x] <- [[1]]")
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert "aten::mm" in names and "aten::sum" in names, sorted(names)[:50]
+
+
+def test_device_trace_primes_the_card_first(tmp_path, monkeypatch):
+    """Where the process has used the card, the session launches its
+    primer (PRIMER_LAUNCHES adds under `device_trace primer`, then a wait)
+    before the code inside: the profiler drops a session's first device
+    records.  A trace that then holds no kernel, as here, where the card's
+    tensors are the host's, is written and `device_trace` raises."""
+    zeros = torch.zeros
+    waits = []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: waits.append(1))
+    monkeypatch.setattr(torch, "zeros", lambda *a, device=None, **k: zeros(
+        *a, **k))
+    a = torch.from_numpy(np.ones((8, 8), np.float32))
+    try:
+        with profiling.device_trace(str(tmp_path)):
+            (a @ a).sum()
+    except RuntimeError as e:
+        assert "no kernel" in str(e)
+    else:
+        raise AssertionError("a trace without a kernel passed as the card's")
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        ops = sorted((e["ts"], e["name"]) for e in json.load(f)["traceEvents"]
+                     if e.get("cat") in ("cpu_op", "user_annotation"))
+    names = [n for _, n in ops]
+    assert names.count("aten::add_") == profiling.PRIMER_LAUNCHES, names[:20]
+    assert "device_trace primer" in names and waits
+    last_add = max(t for t, n in ops if n == "aten::add_")
+    assert all(t > last_add for t, n in ops if n == "aten::mm")
+
+
+def test_device_trace_leaves_the_codes_error_alone(tmp_path, monkeypatch):
+    """The code inside raised: its error goes out, not the blind trace's."""
+    zeros = torch.zeros
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch, "zeros", lambda *a, device=None, **k: zeros(
+        *a, **k))
+    try:
+        with profiling.device_trace(str(tmp_path)):
+            raise KeyError("inside")
+    except KeyError:
         pass
     assert len(os.listdir(tmp_path)) == 1
