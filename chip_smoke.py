@@ -67,15 +67,21 @@ Phases, each reported on its own line; any failure exits non-zero:
      same CSR, ShortestPathDijkstra from 4 stored starts to 64 stored
      goals held to a host BFS; each cold and warm; prints a `graph` line;
   11. (a and d run after phase 6, on phase 5's Db; b, c, e and f after
-     phase 8) the hosts: (a) the Db served in process by
-     `hosts/server.serve`: 8 client threads x 20 small joins (B = 16, the
-     beam kernel) as `/text-query`, each answer's rows equal to the Db's
-     own, request ms p50 / p99; PageRank over HTTP bit-equal to the direct
-     call's; the requests' launches counted apart from the direct calls
-     (the beam kernel once a small join, PageRank at least once); an SSE
-     `/changes/{rel}` stream carrying a `:put`; (d)
+     phase 8) the hosts: (a) the Db served in process, in turns through
+     a server with the heap unfrozen over the index's list maps and
+     through `hosts/server.serve`: PageRank over HTTP (a large answer)
+     bit-equal to the direct call's, the heap by owner right after it,
+     then 8 client threads x 20 small joins (B = 16, the beam kernel) as
+     `/text-query` with no collection before them, each answer's rows
+     equal to the Db's own, request ms p50 / p99 / max and the collector's
+     passes, then one timed full pass (through `serve`, no pass may reach
+     GC_PASS_BAR_MS); the served turn's requests' launches counted apart
+     from the direct calls (the beam kernel once a small join, PageRank at
+     least once); an SSE `/changes/{rel}` stream carrying a `:put`; a
+     write over HTTP after serving started; (d)
      `utils/profiling.device_trace` around a small join writes a Chrome
-     trace that names the beam kernel; (b) `python -m
+     trace that names the beam kernel and holds the primer's kernels
+     (`device_trace` refuses one without); (b) `python -m
      cozo_tpu_torch.hosts.server` with no `--device` answers `GET /` and
      a text query on the card, and `python -m cozo_tpu_torch.hosts.repl`
      prints for a script (create, put, an index, a `~` search, `%backup`)
@@ -191,6 +197,7 @@ counted) and times `slab_topk` as phase 4 does, and prints none either.
 """
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -4291,15 +4298,13 @@ def server_burst(port, scripts, want):
     """HOSTS_THREADS client threads each send its small join HOSTS_REQS
     times as `/text-query`, a new connection a request: the request ms
     p50 / p99 / max, requests/s, whether every answer's rows equal the
-    Db's own (`want`), the connects slower than SLOW_CONNECT_MS (a dropped
-    handshake is retried after 1 s), the listen queue's overflows and
-    drops during the burst (None where the kernel does not count them),
-    and the garbage collector's passes during it (each stops every
-    thread).  The burst starts on a collected heap: a full pass over the
-    Db's heap, after what ran before it left its garbage (the reference
-    answers, PageRank's rows), would stop every request of the burst at
-    once; its time is `collect_before_ms`."""
-    import gc
+    Db's own (`want`, a list of row tuples a join), the connects slower
+    than SLOW_CONNECT_MS (a dropped handshake is retried after 1 s), the
+    listen queue's overflows and drops during the burst (None where the
+    kernel does not count them), and the garbage collector's passes during
+    it, each of which stops every thread: their count, the full ones' and
+    the longest.  Nothing collects before it: the burst meets the
+    collector as a user's server does."""
 
     def client(t):
         lat, slow, same = [], 0, True
@@ -4308,28 +4313,14 @@ def server_burst(port, scripts, want):
             lat.append(ms)
             slow += connect_ms > SLOW_CONNECT_MS
             same = same and status == 200 and res.get("ok") is True \
-                and sorted(res["rows"]) == want[t]
+                and sorted(map(tuple, res["rows"])) == want[t]
         return lat, slow, same
 
-    passes, began = [], []
-
-    def on_gc(phase, info):  # the collector's passes, each holding the GIL
-        if phase == "start":
-            began.append(time.perf_counter())
-        else:
-            passes.append((time.perf_counter() - began.pop()) * 1e3)
-
-    t0 = time.perf_counter()
-    gc.collect()  # what ran before the burst leaves its garbage here
-    collect_ms = (time.perf_counter() - t0) * 1e3
     before = listen_counters()
-    gc.callbacks.append(on_gc)
     t0 = time.time()
-    try:
+    with collector_passes() as passes:
         with ThreadPoolExecutor(HOSTS_THREADS) as ex:
             results = list(ex.map(client, range(HOSTS_THREADS)))
-    finally:
-        gc.callbacks.remove(on_gc)
     wall = time.time() - t0
     after = listen_counters()
     lat = np.concatenate([r[0] for r in results])
@@ -4340,13 +4331,39 @@ def server_burst(port, scripts, want):
             "request_ms_max": float(lat.max()),
             "requests_per_s": len(lat) / wall,
             "slow_connects": int(sum(r[1] for r in results)),
-            "collect_before_ms": collect_ms,
-            "gc_passes": len(passes),
-            "gc_longest_ms": max(passes, default=0.0),
+            **pass_numbers(passes, "gc"),
             "listen_overflows": after[0] - before[0] if counted else None,
             "listen_drops": after[1] - before[1] if counted else None,
             "small_join_rows_equal": all(r[2] for r in results) and all(
                 len(w) == DB_SMALL * K for w in want)}
+
+
+@contextlib.contextmanager
+def collector_passes():
+    """The collector's passes while the body runs, each holding the GIL and
+    so stopping every thread: a list of (ms, generation)."""
+    import gc
+
+    passes, began = [], []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            began.append(time.perf_counter())
+        else:
+            passes.append(((time.perf_counter() - began.pop()) * 1e3,
+                           info["generation"]))
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield passes
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
+def pass_numbers(passes, key):
+    return {f"{key}_passes": len(passes),
+            f"{key}_full_passes": sum(g == 2 for _, g in passes),
+            f"{key}_longest_ms": max((ms for ms, _ in passes), default=0.0)}
 
 
 def burst_line(what, b):
@@ -4358,9 +4375,8 @@ def burst_line(what, b):
             f"{b['request_ms_p99']:.3f} max {b['request_ms_max']:.3f}, "
             f"{b['requests_per_s']:.1f} requests/s, connects over "
             f"{SLOW_CONNECT_MS} ms {b['slow_connects']}, {counters}, "
-            f"{b['gc_passes']} garbage collections (the longest "
-            f"{b['gc_longest_ms']:.1f} ms; the heap's before the burst "
-            f"{b['collect_before_ms']:.1f} ms); rows "
+            f"{b['gc_passes']} garbage collections, {b['gc_full_passes']} "
+            f"of them full, the longest {b['gc_longest_ms']:.1f} ms; rows "
             f"equal to the Db's own answers {b['small_join_rows_equal']}")
 
 
@@ -4393,97 +4409,316 @@ def backlog_turns(db, scripts, want):
     return turns
 
 
-def phase_server(db):
-    """Phase 11 (a): phase 5's Db served in process through
-    `cozo_tpu_torch.hosts.server.serve`: 8 client threads each send the
-    small join of its own 16 stored queries 20 times as `/text-query`
-    (each answer's rows equal to the Db's own answer; no connection
-    request dropped by a full listen queue where the kernel counts them),
-    one PageRank over the level-0 graph (ranks bit-equal to the direct
-    call's: the kernel is deterministic), an SSE change stream that
-    carries a `:put`, and the burst again in turns through socketserver's
-    listen backlog of 5 and `serve`'s (`backlog_turns`).
-    Returns the `hosts` numbers of (a) and the path's launches."""
+# (a)'s gate: through `serve`, no collector pass inside the burst, nor the
+# next full pass after it (brought forward by `gc.collect()`: it walks what
+# the collector's own next full pass would), may take this long.  A small
+# join over HTTP takes 30-60 ms at p50 and under 100 ms at p99 on a quiet
+# heap (PERF.md §5); a pass past 100 ms at least doubles the requests it
+# stops, where a full pass over the heap the server found took 0.5-0.9 s.
+GC_PASS_BAR_MS = 100.0
+# rows of the write over HTTP after serving starts: a quarter of a
+# million, each with a string and a float
+LATER_WRITE_ROWS = 262_144
+
+
+def rank_arrays(text):
+    """PageRank's JSON answer (rows [node, rank]) as two arrays, read
+    without a Python object a row that the collector tracks (strings it
+    does not track), so that neither holding nor reading the answer moves
+    the server's collector: a client of a real server reads it elsewhere.
+    The ranks are the JSON's shortest round-trip floats, parsed exactly;
+    None where the answer is not ok."""
+    head, _, rest = text.partition('"rows": [')
+    if not rest or '"ok": true' not in rest:
+        return None
+    rows = rest[:rest.index("]]") + 1] if rest[0] == "[" else ""
+    flat = np.array(rows.replace("[", "").replace("]", "").split(",")
+                    if rows else [], np.float64)
+    return flat[0::2].astype(np.int64), flat[1::2]
+
+
+def pagerank_over_http(url):
+    """(status, answer text, ms) of PageRank over `url`'s `/text-query`."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + "/text-query", data=json.dumps({"script": GRAPH_PR}).encode(),
+        method="POST", headers={"content-type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, text = resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        status, text = e.code, e.read().decode()
+    return status, text, (time.perf_counter() - t0) * 1e3
+
+
+def heap_census(db):
+    """What CPython's cyclic collector tracks, by owner: the objects
+    reachable from the Db; from the smoke's own frames and globals (its
+    reference answers, what earlier phases left alive); the rest (the
+    interpreter's, torch's and the other modules' heap).  The first owner
+    to reach an object has it; modules, classes, functions, code and
+    frames are not followed.  Also the objects a full pass would walk now
+    (the collector's three generations), with their commonest types, and
+    those frozen out of it."""
+    import gc
+    import types
+    from collections import Counter
+
+    stop = (types.ModuleType, type, types.FunctionType, types.CodeType,
+            types.BuiltinFunctionType, types.FrameType)
+    claimed = set()
+
+    def reach(roots):
+        kinds, todo = Counter(), [r for r in roots if gc.is_tracked(r)]
+        while todo:
+            o = todo.pop()
+            if id(o) in claimed or isinstance(o, stop):
+                continue
+            claimed.add(id(o))
+            kinds[type(o).__name__] += 1
+            todo.extend(r for r in gc.get_referents(o)
+                        if gc.is_tracked(r) and id(r) not in claimed)
+        return kinds
+
+    t0 = time.perf_counter()
+    frames, f = [globals()], sys._getframe(1)
+    while f is not None:
+        frames.append(f.f_locals)
+        f = f.f_back
+    owners = {"db": reach([db]), "smoke": reach(frames)}
+    walked = gc.get_objects()
+    frozen = gc.get_freeze_count()
+    kinds = Counter(type(o).__name__ for o in walked)
+    out = {"tracked": len(walked) + frozen, "walked": len(walked),
+           "frozen": frozen,
+           **{o: sum(k.values()) for o, k in owners.items()},
+           **{o + "_types": dict(k.most_common(3))
+              for o, k in owners.items()},
+           "walked_types": dict(kinds.most_common(4))}
+    del walked, frames
+    out["rest"] = out["tracked"] - out["db"] - out["smoke"]
+    out["census_s"] = time.perf_counter() - t0
+    return out
+
+
+def full_pass_ms():
+    """One full collection, timed (it stops every thread)."""
+    import gc
+
+    t0 = time.perf_counter()
+    gc.collect()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def list_maps(db):
+    """The main index's slot -> item map with a list of key values a row in
+    a pair, as `HnswCache` kept it before `put_item` (two tracked objects
+    a row); returns the Db's own map, to be put back."""
+    cache = db.algo_cache["hnsw::item::ix"]
+    own = cache.slot_to_item
+    with cache.lock:
+        cache.slot_to_item = {s: (list(kv), f) for s, (kv, f) in own.items()}
+    return own
+
+
+def gc_turn(db, scripts, want, direct, repaired, census=False, extra=None):
+    """One turn of (a) on `db`: a server made by `serve` (`repaired`: the
+    heap frozen, the index maps' tuples untracked) or as the port made it
+    before (a `CozoHTTPServer` alone, over list maps: `list_maps`); PageRank
+    over HTTP, a large answer (its ranks bit-equal to `direct`), then
+    (`census`) the heap by owner, the burst, one timed full pass, and
+    `extra(url)` where given; through `serve`, a pass of GC_PASS_BAR_MS in
+    the burst or in that full pass fails the run.  Returns the turn's
+    numbers."""
+    import gc
     import threading
 
-    from cozo_tpu_torch.hosts.server import serve
+    from cozo_tpu_torch.hosts import server as hs
 
-    scripts = [JOIN.format(rel=f"q16_{t}") for t in range(HOSTS_THREADS)]
-    srv = serve(db, "127.0.0.1", 0)
+    cache = db.algo_cache["hnsw::item::ix"]
+    own = None if repaired else list_maps(db)
+    srv = (hs.serve(db, "127.0.0.1", 0) if repaired else hs.CozoHTTPServer(
+        ("127.0.0.1", 0), hs.make_handler(hs.ServerState(db))))
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     url = f"http://127.0.0.1:{srv.server_address[1]}"
-    out = {}
+    what = ("serve (frozen heap, tuple maps)" if repaired
+            else "the server unfrozen over list maps")
+    out = {"server": what}
     try:
-        # the Db's own answers first, outside the counted window
-        want = [sorted(json.loads(db.run_script_json(s))["rows"])
-                for s in scripts]
-        direct = json.loads(db.run_script_json(GRAPH_PR))["rows"]
-        zero_all_counts()  # counts of the HTTP requests only
+        with collector_passes() as passes:
+            status, text, out["pagerank_request_ms"] = pagerank_over_http(
+                url)
+        out.update(pass_numbers(passes, "answer_gc"))
+        got = rank_arrays(text) if status == 200 else None
+        del text
+        out["pagerank_bit_equal"] = bool(
+            got is not None and len(direct[0]) > 0 and all(
+                np.array_equal(g, d) for g, d in zip(got, direct)))
+        del got
+        if census:
+            out["census"] = heap_census(db)
         out.update(server_burst(srv.server_address[1], scripts, want))
-        ok = out["small_join_rows_equal"] and out["listen_overflows"] in (
-            0, None)
-        say(burst_line(f"phase 11 (a) server (listen backlog "
-                       f"{srv.request_queue_size}): {HOSTS_THREADS} clients "
-                       f"x {HOSTS_REQS} small joins (B={DB_SMALL}) over HTTP",
-                       out) + f" {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit("phase 11 failed: the server's small joins")
-
-        t0 = time.perf_counter()
-        status, res = http(url, "/text-query", {"script": GRAPH_PR})
-        out["pagerank_request_ms"] = (time.perf_counter() - t0) * 1e3
-        out["launches"] = all_counts()
-        # small joins and PageRank: no sweep, no selection on this path
-        from cozo_tpu_torch.ops import exact_knn as ek
-
-        if (out["launches"]["slab_topk"], out["launches"]["sweep_topk"],
-                ek.sweep_topk.two_step) != (
-                EXPECTED["slab_topk"], EXPECTED["sweep_topk"],
-                EXPECTED["two_step"]):
-            raise SystemExit(f"phase 11 failed: the selection kernels "
-                             f"launched {out['launches']} (two-step "
-                             f"{ek.sweep_topk.two_step}) where the calls "
-                             f"imply {EXPECTED}")
-        same = status == 200 and res.get("ok") is True \
-            and res["rows"] == direct and len(direct) > 0
-        out["pagerank_bit_equal"] = bool(same)
-        say(f"phase 11 (a) PageRank over HTTP: {len(direct)} rows in "
-            f"{out['pagerank_request_ms']:.1f} ms, ranks bit-equal to the "
-            f"direct call's {same} {'ok' if same else 'FAIL'}")
-        if not same:
-            raise SystemExit("phase 11 failed: PageRank over HTTP")
-
-        db.run_script(f":create {HOSTS_SSE_REL} {{k: Int}}")
-        event, keys = sse_first_event(url, db, HOSTS_SSE_REL)
-        ok = (event is not None and event["op"] == "Put"
-              and event["relation"] == HOSTS_SSE_REL
-              and len(event["new"]) == 1 and event["new"][0][0] in keys)
-        out["sse_event"] = bool(ok)
-        say(f"phase 11 (a) SSE /changes/{HOSTS_SSE_REL}: first event "
-            f"{event} after {len(keys)} :put {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit("phase 11 failed: the SSE change stream")
+        out["walked_after_burst"] = len(gc.get_objects())
+        out["full_pass_ms"] = full_pass_ms()
+        turn_line(what, direct, out)
+        if extra is not None:
+            extra(url, out)
     finally:
         srv.shutdown()
         srv.server_close()
+        if own is not None:
+            with cache.lock:
+                cache.slot_to_item = own
+    if not (out["pagerank_bit_equal"] and out["small_join_rows_equal"]):
+        raise SystemExit(f"phase 11 failed: {what}'s answers")
+    longest = max(out["gc_longest_ms"], out["full_pass_ms"])
+    if repaired and not longest < GC_PASS_BAR_MS:
+        raise SystemExit(f"phase 11 failed: a collector pass of "
+                         f"{longest:.1f} ms in or right after the burst "
+                         f"through {what} (bar {GC_PASS_BAR_MS} ms)")
+    return out
+
+
+def turn_line(what, direct, out):
+    c = out.get("census")
+    say(burst_line(f"phase 11 (a) turn, {what}: PageRank over HTTP "
+                   f"{len(direct[0])} rows in "
+                   f"{out['pagerank_request_ms']:.1f} ms (ranks bit-equal "
+                   f"{out['pagerank_bit_equal']}; {out['answer_gc_passes']} "
+                   f"garbage collections while it was built, "
+                   f"{out['answer_gc_full_passes']} of them full, the "
+                   f"longest {out['answer_gc_longest_ms']:.1f} ms), then "
+                   f"the burst", out)
+        + f"; a full pass after it walked {out['walked_after_burst']} "
+        f"objects in {out['full_pass_ms']:.1f} ms"
+        + ("" if c is None else
+           f"; the heap right after the answer: {c['tracked']} tracked "
+           f"objects ({c['walked']} walked by a full pass, {c['frozen']} "
+           f"frozen): the Db {c['db']} {c['db_types']}, the smoke "
+           f"{c['smoke']} {c['smoke_types']}, the interpreter's, torch's "
+           f"and the modules' {c['rest']}; walked {c['walked_types']} "
+           f"(counted in {c['census_s']:.1f} s)"))
+
+
+def sse_check(db, url, out):
+    """(a)'s SSE `/changes/{HOSTS_SSE_REL}` stream carries a `:put`."""
+    db.run_script(f":create {HOSTS_SSE_REL} {{k: Int}}")
+    event, keys = sse_first_event(url, db, HOSTS_SSE_REL)
+    ok = (event is not None and event["op"] == "Put"
+          and event["relation"] == HOSTS_SSE_REL
+          and len(event["new"]) == 1 and event["new"][0][0] in keys)
+    out["sse_event"] = bool(ok)
+    say(f"phase 11 (a) SSE /changes/{HOSTS_SSE_REL}: first event "
+        f"{event} after {len(keys)} :put {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 11 failed: the SSE change stream")
+
+
+def later_write(url, out):
+    """After serving starts: LATER_WRITE_ROWS rows imported over HTTP into
+    a new relation, then the objects a full pass walks and its ms."""
+    import gc
+
+    rows = [[i, f"row {i}", i / 7] for i in range(LATER_WRITE_ROWS)]
+    status, res = http(url, "/text-query", {
+        "script": ":create hosts_later {k: Int => s: String, x: Float}"})
+    ok = status == 200 and res.get("ok") is True
+    status, res = http(url, "/import", {"hosts_later": {
+        "headers": ["k", "s", "x"], "rows": rows}}, method="PUT")
+    del rows
+    ok = ok and status == 200 and res.get("ok") is True
+    out["later_write_walked"] = len(gc.get_objects())
+    out["later_write_full_pass_ms"] = full_pass_ms()
+    say(f"phase 11 (a) a write after serving started: {LATER_WRITE_ROWS} "
+        f"rows imported over HTTP {ok}; a full pass after it walked "
+        f"{out['later_write_walked']} objects in "
+        f"{out['later_write_full_pass_ms']:.1f} ms "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 11 failed: the import over HTTP")
+
+
+def phase_server(db):
+    """Phase 11 (a): phase 5's Db served in process, in turns: first as
+    the port served it before (no frozen heap, the index maps a list a
+    row), then through `cozo_tpu_torch.hosts.server.serve` (the gated
+    turn, its requests' launches counted), then both again (the collector
+    unfrozen between).  Each turn: PageRank over the level-0 graph over
+    HTTP (ranks bit-equal to the direct call's: the kernel is
+    deterministic), a large answer; then 8 client threads each send the
+    small join of its own 16 stored queries 20 times as `/text-query`
+    (each answer's rows equal to the Db's own answer; no connection
+    request dropped by a full listen queue where the kernel counts them),
+    with no collection before it; then one timed full pass.  The first
+    two turns count the heap by owner after the answer; the served turns
+    fail where a collector pass inside the burst, or that full pass,
+    reaches GC_PASS_BAR_MS.
+    The first served turn carries an SSE change stream, the second a
+    large write over HTTP; the burst then runs in turns through
+    socketserver's listen backlog of 5 and `serve`'s (`backlog_turns`).
+    The reference answers are held as arrays and row tuples, so that the
+    passes measured are the server's.  Returns the `hosts` numbers of (a)
+    and the path's launches."""
+    import gc
+
+    from cozo_tpu_torch.hosts.server import LISTEN_BACKLOG
+
+    scripts = [JOIN.format(rel=f"q16_{t}") for t in range(HOSTS_THREADS)]
+    # the Db's own answers first, outside the counted window
+    want = [sorted(map(tuple, json.loads(db.run_script_json(s))["rows"]))
+            for s in scripts]
+    direct = rank_arrays(db.run_script_json(GRAPH_PR))
+    turns = [gc_turn(db, scripts, want, direct, False, census=True)]
+    zero_all_counts()  # counts of the served turn's HTTP requests only
+    out = gc_turn(db, scripts, want, direct, True, census=True,
+                  extra=lambda url, o: sse_check(db, url, o))
+    out["launches"] = all_counts()
+    turns.append(dict(out))
+    gc.unfreeze()
+    turns.append(gc_turn(db, scripts, want, direct, False))
+    turns.append(gc_turn(db, scripts, want, direct, True, extra=later_write))
+    out["gc_turns"] = turns
+    ok = out["listen_overflows"] in (0, None)
+    say(f"phase 11 (a) served turn: listen backlog {LISTEN_BACKLOG}, "
+        f"{HOSTS_THREADS} clients x {HOSTS_REQS} small joins (B={DB_SMALL}) "
+        f"over HTTP, no listen overflow {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 11 failed: the server's listen queue")
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    # small joins and PageRank: no sweep, no selection on this path
+    if (out["launches"]["slab_topk"], out["launches"]["sweep_topk"],
+            ek.sweep_topk.two_step) != (
+            EXPECTED["slab_topk"], EXPECTED["sweep_topk"],
+            EXPECTED["two_step"]):
+        raise SystemExit(f"phase 11 failed: the selection kernels "
+                         f"launched {out['launches']} (two-step "
+                         f"{ek.sweep_topk.two_step}) where the calls "
+                         f"imply {EXPECTED}")
     # one beam launch a small join (B = 16 < 64: the device beam search)
     n_req = HOSTS_THREADS * HOSTS_REQS
     ok = (out["launches"]["beam_search"] == n_req
           and out["launches"]["graph_pagerank"] >= 1)
-    say(f"phase 11 (a) kernel launches of the HTTP requests: "
+    say(f"phase 11 (a) kernel launches of the served turn's HTTP requests: "
         f"{out['launches']}; beam_search {n_req} (one a small join), "
         f"graph_pagerank >= 1: {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("phase 11 failed: the server path's kernel launches")
     out["backlog_turns"] = backlog_turns(db, scripts, want)
+    gc.unfreeze()  # serving ends: the rest of the run collects as before
     return out
 
 
 def trace_small_join(db, extra=None):
     """The Chrome trace of `utils.profiling.device_trace` around two small
     joins (B = 16) after a warm one, and `extra()` where given: (events,
-    kernel names).  The profiler drops a session's first device records,
-    more the older the process: `device_trace`'s primer takes the drop."""
+    kernel names).  The profiler can drop a run of a session's first
+    device records: `device_trace`'s primer takes the drop, and
+    `device_trace` raises on a trace that kept none of the primer's
+    kernels."""
     import shutil
     import tempfile
 
@@ -4515,15 +4750,19 @@ def trace_small_join(db, extra=None):
 def phase_trace(db):
     """Phase 11 (d): `utils.profiling.device_trace` around a small join on
     the card: its Chrome trace names the beam kernel."""
+    from cozo_tpu_torch.utils.profiling import primer_kernels
+
     events, kernels = trace_small_join(db)
     ok = any("beam_search_kernel" in k for k in kernels)
+    kept = primer_kernels(events)
     say(f"phase 11 (d) device_trace around a small join: {len(events)} "
-        f"events, {len(kernels)} kernels by name, the beam kernel among "
-        f"them {ok} {'ok' if ok else 'FAIL'}")
+        f"events, {len(kernels)} kernels by name, the primer's kernels "
+        f"kept {kept}, the beam kernel among them {ok} "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("phase 11 failed: the trace names no beam kernel")
     return {"trace_events": len(events), "trace_kernels": len(kernels),
-            "trace_names_beam_kernel": ok}
+            "trace_primer_kept": kept, "trace_names_beam_kernel": ok}
 
 
 def trace_after_server(db):
@@ -4534,17 +4773,22 @@ def trace_after_server(db):
     the beam kernel has missed the port's)."""
     import torch
 
+    from cozo_tpu_torch.utils.profiling import primer_kernels
+
     events, kernels = trace_small_join(db, lambda: torch.ones(
         1 << 20, device="cuda").sum())
     beam = any("beam_search_kernel" in k for k in kernels)
     aten = any("reduce_kernel" in k for k in kernels)
-    say(f"phase 11 (d) after the server: {len(events)} events, kernels "
-        f"{kernels}; the beam kernel among them {beam}, the ATen sum "
-        f"{aten} {'ok' if beam and aten else 'FAIL'}")
+    kept = primer_kernels(events)
+    say(f"phase 11 (d) after the server: {len(events)} events, the "
+        f"primer's kernels kept {kept}, kernels {kernels}; the beam kernel "
+        f"among them {beam}, the ATen sum {aten} "
+        f"{'ok' if beam and aten else 'FAIL'}")
     if not (beam and aten):
         raise SystemExit("phase 11 failed: the trace after the server names "
                          "no beam kernel or no ATen sum")
-    return {"trace_after_server_names_beam_kernel": beam,
+    return {"trace_after_server_primer_kept": kept,
+            "trace_after_server_names_beam_kernel": beam,
             "trace_after_server_names_aten_sum": aten,
             "trace_after_server_kernels": len(kernels)}
 

@@ -3,7 +3,10 @@
 
     python3 chip_trace_witness.py [--load N] [--rounds R] [--case NAME]
     python3 chip_trace_witness.py --drift 200 [--idle] [--prime session]
-                                  [--raw] [--launches N]
+                                  [--raw] [--launches N] [--late S]
+                                  [--late-cuda] [--open schedule]
+    python3 chip_trace_witness.py --spike 16 --sessions 20
+    python3 chip_trace_witness.py --graph --sessions 3 [--no-graph]
     python3 chip_trace_witness.py --device cpu ...  # a rehearsal: no kernels
 
 The first: does the profiler still see the card after an HTTP server's
@@ -40,14 +43,40 @@ error.  A case whose traces name no kernel is "blind".
 The second, `--drift SECONDS`: what a session records as the process
 ages.  One process keeps the card busy with small ATen ops between
 sessions (`--idle`: sleeps) and runs a session every DRIFT_EVERY seconds
+(`--every`)
 around a fill and a sum (`--launches N`: N more fills and sums first),
 alternately at once and after DRIFT_PAD seconds of sleep inside the
 session, each after an empty session where `--prime session`, through
-`device_trace` or (`--raw`) `raw_trace`; one line a session: the
-process's age, the kernels recorded (by name; of the body's fills and
-sums, those recorded and those launched; the others: `device_trace`'s
-primer), its CUDA runtime events, and the sum kernel's start less its
-`aten::sum` op's start.
+`device_trace` or (`--raw`) `raw_trace` (TEARDOWN_CUPTI=1 in the
+environment has kineto tear CUPTI down after each), or
+(`--open schedule`) a session
+opened by a `torch.profiler.schedule` whose warm-up step starts CUPTI
+before the active step opens the window and the primer runs; with
+`--late S` the process sleeps S seconds after its first launch before its
+first session (`--late-cuda`: before its first launch too, CUDA not yet
+initialised).  One line a session: the process's age, the kernels
+recorded (by name; of the body's fills and sums, those recorded and those
+launched; the others: `device_trace`'s primer), the primer's kernels
+found by their launches' correlation ids (`profiling.primer_kernels`) and
+whether `device_trace` refused the trace, how many of the primer's
+launches lost their kernel and whether those were its first, where the
+window opens and the first kept kernel's launch and start fall from it,
+its CUDA runtime events, the sum kernel's start less its `aten::sum`
+op's start, how far CLOCK_REALTIME has moved from CLOCK_MONOTONIC and
+CLOCK_MONOTONIC_RAW since the process started, and the host us of a
+launch after the session (a first line: before any session, and kineto's
+TEARDOWN_CUPTI setting from the environment).
+
+The third, `--spike N --sessions S [--late S]`: S sessions of
+`device_trace`, each right after N spinning processes of the witness's own
+ran for SPIKE_S seconds and stopped; one line a session: its kernels, the
+primer's kept, and whether `device_trace` refused it.
+
+The fourth, `--graph --sessions S [--no-graph]`: S rounds of a
+`device_trace` session and a raw one, each replaying a CUDA graph the
+process captured first (`--no-graph`: none); one line a session: its
+kernels, the primer's kept, whether `device_trace` refused it, and
+kineto's TEARDOWN_CUPTI setting from the environment.
 
 It measures; it gates nothing: exit 0 once every case ran, 1 without
 CUDA.
@@ -84,6 +113,7 @@ CASES = {
     "port+sse+load": ("earlier", "port", "sse", "load"),
 }
 DRIFT_EVERY, DRIFT_PAD = 10.0, 0.5
+SPIKE_S = 3.0
 CLIENTS, REQUESTS = 8, 20
 PR_NODES, PR_EDGES = 5_000, 60_000  # edges past the device threshold, 50,000
 DEVICE = "cuda"  # --device cpu rehearses the flow here (no kernels to see)
@@ -104,20 +134,58 @@ def raw_trace(log_dir):
         prof.export_chrome_trace(os.path.join(log_dir, "raw.json"))
 
 
-def trace(body, keep=False, raw=False):
-    """One `device_trace` session (`raw`: `raw_trace`) around `body()`:
-    events by category and the kernels' names (and the events themselves
-    with `keep`)."""
+@contextlib.contextmanager
+def schedule_trace(log_dir):
+    """`device_trace`'s session opened by a schedule instead: a warm-up
+    step (CUPTI started, nothing kept), then the active step, whose window
+    the primer and the code inside fall in; the same primer, the same
+    Chrome trace."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
+
+    from cozo_tpu_torch.utils.profiling import PRIMER_LAUNCHES, PRIMER_SPAN
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=1),
+                   on_trace_ready=lambda p: p.export_chrome_trace(
+                       os.path.join(log_dir, "schedule.json")))
+    prof.start()
+    try:
+        torch.cuda.synchronize()
+        prof.step()  # the warm-up step ends: the window opens
+        with record_function(PRIMER_SPAN):
+            one = torch.zeros(1, device="cuda")
+            for _ in range(PRIMER_LAUNCHES):
+                one.add_(1)
+            torch.cuda.synchronize()
+        yield
+    finally:
+        prof.step()  # the active step ends: the trace is ready
+        prof.stop()
+
+
+def trace(body, keep=False, raw=False, opened="start"):
+    """One `device_trace` session (`raw`: `raw_trace`; `opened` "schedule":
+    `schedule_trace`) around `body()`: events by category and the kernels'
+    names (and the events themselves with `keep`); `refused`, the
+    RuntimeError `device_trace` raised on the trace it wrote, if any."""
     import torch
 
     from cozo_tpu_torch.utils.profiling import device_trace
 
     tmp = tempfile.mkdtemp(prefix="cozo_witness_")
+    refused = None
     try:
-        with (raw_trace if raw else device_trace)(tmp):
-            body()
-            if DEVICE == "cuda":
-                torch.cuda.synchronize()
+        session = (raw_trace if raw else schedule_trace
+                   if opened == "schedule" else device_trace)
+        try:
+            with session(tmp):
+                body()
+                if DEVICE == "cuda":
+                    torch.cuda.synchronize()
+        except RuntimeError as e:
+            refused = str(e)[:200]
         (name,) = os.listdir(tmp)
         with open(os.path.join(tmp, name)) as f:
             events = json.load(f)["traceEvents"]
@@ -129,7 +197,74 @@ def trace(body, keep=False, raw=False):
     return {"events": len(events), "by_cat": cats,
             "kernels": sorted({e["name"][:60] for e in events
                                if e.get("cat") == "kernel"}),
+            "refused": refused,
             **({"trace_events": events} if keep else {})}
+
+
+def primer_loss(events):
+    """Of the primer's kernel launches (`profiling.primer_kernels`' rule,
+    the runtime's launch calls alone): how many lost their kernel, whether
+    those were its first (and the first few lost, by launch), and, from the
+    window's opening (the profiler's own span), where the first launch and
+    the first kept kernel's launch and start fall (us)."""
+    from cozo_tpu_torch.utils.profiling import LAUNCH_CATS, PRIMER_SPAN
+
+    span = [e for e in events if e.get("name") == PRIMER_SPAN
+            and e.get("cat") == "user_annotation"]
+    window = [e["ts"] for e in events if e.get("cat") == "Trace"]
+    if not span or not window:
+        return {}
+    t0, t1 = span[0]["ts"], span[0]["ts"] + span[0].get("dur", 0)
+    launches = sorted((e["ts"], e["args"]["correlation"]) for e in events
+                      if e.get("cat") in LAUNCH_CATS
+                      and "Launch" in e.get("name", "")
+                      and "correlation" in e.get("args", {})
+                      and e["tid"] == span[0]["tid"] and t0 <= e["ts"] <= t1)
+    kernels = {e["args"]["correlation"]: e["ts"] for e in events
+               if e.get("cat") == "kernel" and "correlation" in e.get("args",
+                                                                     {})}
+    kept = [c in kernels for _, c in launches]
+    lost = kept.count(False)
+    first = kept.index(True) if True in kept else None
+    w = min(window)
+    return {"primer_launches": len(launches), "primer_lost": lost,
+            "lost_first": lost == (first if first is not None else lost),
+            "lost_at": [i for i, k in enumerate(kept) if not k][:4],
+            "first_launch_us": launches[0][0] - w if launches else None,
+            "kept_launch_us": None if first is None
+            else launches[first][0] - w,
+            "kept_kernel_us": None if first is None
+            else kernels[launches[first][1]] - w}
+
+
+def launch_us(n=2000):
+    """Host us a one-element add takes to launch, outside any session: what
+    the profiler's hooks, where they stay attached, add to every launch."""
+    import torch
+
+    if DEVICE != "cuda":
+        return None
+    one = torch.zeros(1, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        one.add_(1)
+    torch.cuda.synchronize()
+    return round((time.perf_counter() - t0) / n * 1e6, 3)
+
+
+def clock_skew_us(origin):
+    """How far CLOCK_REALTIME has moved from CLOCK_MONOTONIC and from
+    CLOCK_MONOTONIC_RAW since `origin` (`clocks()` then), in us."""
+    now = clocks()
+    return [round((now[0] - now[i] - origin[0] + origin[i]) / 1e3, 3)
+            for i in (1, 2)]
+
+
+def clocks():
+    return (time.clock_gettime_ns(time.CLOCK_REALTIME),
+            time.clock_gettime_ns(time.CLOCK_MONOTONIC),
+            time.clock_gettime_ns(time.CLOCK_MONOTONIC_RAW))
 
 
 def cuda_op(n=1 << 16):
@@ -311,17 +446,24 @@ def serve_and_shut(factors, np):
     return out
 
 
-def run_drift(seconds, idle, prime, raw, launches=0):
-    """`--drift`: (age s, padded, kernels, sum kernel start less its op's
-    start in us) of each session."""
+def run_drift(seconds, idle, prime, raw, launches=0, late=0.0,
+              late_cuda=False, opened="start", every=DRIFT_EVERY):
+    """`--drift`: one line a session (the module's docstring)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    t_start = time.time()
+    t_start, origin = time.time(), clocks()
+    if late_cuda:
+        time.sleep(late)
     cuda_op()
+    if not late_cuda:
+        time.sleep(late)
+    print("drift-start " + json.dumps({
+        "launch_us": launch_us(), "TEARDOWN_CUPTI": os.environ.get(
+            "TEARDOWN_CUPTI")}), flush=True)
     n = 0
     while time.time() - t_start < seconds:
-        t_next = time.time() + DRIFT_EVERY
+        t_next = time.time() + every
         while time.time() < t_next:  # the card kept busy between sessions
             if idle:
                 time.sleep(t_next - time.time())
@@ -335,23 +477,93 @@ def run_drift(seconds, idle, prime, raw, launches=0):
         padded = n % 2 == 1
         t = trace(lambda: (time.sleep(DRIFT_PAD) if padded else None,
                            [cuda_op(1 << 10) for _ in range(launches)],
-                           cuda_op(1 << 20)), keep=True, raw=raw)
+                           cuda_op(1 << 20)), keep=True, raw=raw,
+                  opened=opened)
         ev = t.pop("trace_events")
         op = [e["ts"] for e in ev if e.get("name") == "aten::sum"]
         kern = [e["ts"] for e in ev if e.get("cat") == "kernel"
                 and "reduce_kernel" in e["name"]]
         body = sum(e.get("cat") == "kernel" and ("reduce_kernel" in e["name"]
                    or "FillFunctor" in e["name"]) for e in ev)
+        from cozo_tpu_torch.utils.profiling import primer_kernels
+
         print("drift " + json.dumps({
             "age_s": round(time.time() - t_start, 1), "idle": idle,
-            "prime": prime, "raw": raw, "padded": padded,
+            "prime": prime, "raw": raw, "opened": opened, "late": late,
+            "late_cuda": late_cuda, "every": every, "padded": padded,
             "kernels": len(t["kernels"]),
             "body_kernels": body, "launched": 2 * (launches + 1),
             "primer_kernels": t["by_cat"].get("kernel", 0) - body,
+            "primer_kept": primer_kernels(ev), "refused": t["refused"],
+            **primer_loss(ev),
             "cuda_runtime": t["by_cat"].get("cuda_runtime", 0),
             "sum_kernel_less_op_us": kern[0] - op[0] if op and kern
-            else None}), flush=True)
+            else None, "clock_skew_us": clock_skew_us(origin),
+            "launch_us_after": launch_us()}), flush=True)
         n += 1
+
+
+def run_spike(n_load, sessions, late=0.0):
+    """`--spike`: `device_trace` sessions, each right after `n_load`
+    spinning processes ran SPIKE_S seconds and stopped (the first after
+    `late` seconds of sleep)."""
+    from cozo_tpu_torch.utils.profiling import primer_kernels
+
+    t_start = time.time()
+    cuda_op()
+    time.sleep(late)
+    for i in range(sessions):
+        burners = [subprocess.Popen([sys.executable, "-c",
+                                     "while True: pass"])
+                   for _ in range(n_load)]
+        time.sleep(SPIKE_S)
+        for p in burners:
+            p.kill()
+        for p in burners:
+            p.wait()
+        t = trace(lambda: cuda_op(1 << 20), keep=True)
+        ev = t.pop("trace_events")
+        print("spike " + json.dumps({
+            "session": i, "age_s": round(time.time() - t_start, 1),
+            "load_processes": n_load, "kernels": t["by_cat"].get("kernel", 0),
+            "primer_kept": primer_kernels(ev), "refused": t["refused"],
+            "cuda_runtime": t["by_cat"].get("cuda_runtime", 0),
+            "events": t["events"]}), flush=True)
+
+
+def run_graph(sessions, graph=True):
+    """`--graph`: `device_trace` and raw sessions in a process that holds a
+    captured CUDA graph (with `--no-graph`: none), each replaying it."""
+    import torch
+
+    x = torch.ones(1 << 16, device=DEVICE)
+    g = None
+    if graph:
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            (x * 2).sum()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            (x * 2).sum()
+
+    def body():
+        if g is not None:
+            g.replay()
+        (x + 1).sum()
+
+    for i in range(sessions):
+        for raw in (False, True):
+            t = trace(body, keep=True, raw=raw)
+            ev = t.pop("trace_events")
+            from cozo_tpu_torch.utils.profiling import primer_kernels
+
+            print("graph " + json.dumps({
+                "session": i, "graph": graph, "raw": raw,
+                "TEARDOWN_CUPTI": os.environ.get("TEARDOWN_CUPTI"),
+                "kernels": t["by_cat"].get("kernel", 0),
+                "primer_kept": primer_kernels(ev),
+                "refused": (t["refused"] or "")[:80] or None}), flush=True)
 
 
 def main():
@@ -376,6 +588,27 @@ def main():
     ap.add_argument("--raw", action="store_true",
                     help="with --drift: sessions of torch.profiler alone, "
                          "not device_trace")
+    ap.add_argument("--open", choices=("start", "schedule"), default="start",
+                    help="with --drift: device_trace's session, or one "
+                         "opened by a schedule's warm-up step")
+    ap.add_argument("--late", type=float, default=0.0, metavar="SECONDS",
+                    help="with --drift or --spike: sleep this long before "
+                         "the first session, after the first launch")
+    ap.add_argument("--every", type=float, default=DRIFT_EVERY,
+                    metavar="SECONDS", help="with --drift: seconds between "
+                    "sessions")
+    ap.add_argument("--late-cuda", action="store_true",
+                    help="with --late: sleep before the first launch")
+    ap.add_argument("--spike", type=int, default=None, metavar="N",
+                    help="the third witness: sessions right after N "
+                         "spinning processes stop")
+    ap.add_argument("--sessions", type=int, default=20,
+                    help="with --spike or --graph: how many")
+    ap.add_argument("--graph", action="store_true",
+                    help="the fourth witness: sessions in a process that "
+                         "holds a CUDA graph")
+    ap.add_argument("--no-graph", action="store_true",
+                    help="with --graph: the same sessions, no graph")
     args = ap.parse_args()
     import torch
 
@@ -390,7 +623,14 @@ def main():
         return 0
     if args.drift is not None:
         run_drift(args.drift, args.idle, args.prime, args.raw,
-                  args.launches)
+                  args.launches, args.late, args.late_cuda, args.open,
+                  args.every)
+        return 0
+    if args.spike is not None:
+        run_spike(args.spike, args.sessions, args.late)
+        return 0
+    if args.graph:
+        run_graph(args.sessions, not args.no_graph)
         return 0
     name = torch.cuda.get_device_name(0) if DEVICE == "cuda" else "cpu"
     print(f"device: {name} (torch "

@@ -23,10 +23,13 @@ Auth: `x-cozo-auth` header checked against the token passed at startup
 
 Reads run concurrently (a `ThreadingHTTPServer`), under the locks the Db
 and its indexes keep; there is no lock around the Db.  The listen backlog
-is `LISTEN_BACKLOG` (`CozoHTTPServer`), not socketserver's 5."""
+is `LISTEN_BACKLOG` (`CozoHTTPServer`), not socketserver's 5.  `serve`
+leaves the heap it finds out of the cyclic collector's walk
+(`gc.freeze()`)."""
 
 from __future__ import annotations
 
+import gc
 import json
 import queue
 import threading
@@ -268,8 +271,23 @@ def make_handler(state: ServerState):
 def serve(
     db: Db, host: str = "127.0.0.1", port: int = 9070, auth_token: Optional[str] = None
 ) -> CozoHTTPServer:
+    """The server on `db`, bound and listening, after one collection that
+    moves every object the collector tracks into its permanent generation
+    (`gc.freeze()`), which no later pass walks.  CPython runs a full pass,
+    holding the GIL and so stopping every request thread, once the objects
+    that survived into its oldest generation since the last one pass a
+    quarter of those it kept then; a large answer (the rows of a
+    whole-graph rule) passes it, and unfrozen the pass walks the whole
+    heap: the interpreter's and torch's modules and whatever the Db holds.
+    Frozen, that heap is out of every later pass, which walks what was made
+    after it.  Objects are still freed when their last reference goes; a
+    reference cycle among frozen objects stays until the process ends
+    (`gc.unfreeze()` returns them to the collector)."""
     state = ServerState(db, auth_token)
-    return CozoHTTPServer((host, port), make_handler(state))
+    server = CozoHTTPServer((host, port), make_handler(state))
+    gc.collect()
+    gc.freeze()
+    return server
 
 
 def server_main(argv=None) -> None:

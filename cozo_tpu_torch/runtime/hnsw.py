@@ -44,7 +44,7 @@ class HnswCache:
         self.index = index
         self.manifest = manifest
         self.key_to_slot: Dict[tuple, int] = {}
-        self.slot_to_item: Dict[int, Tuple[list, int]] = {}
+        self.slot_to_item: Dict[int, Tuple[tuple, int]] = {}
         # packed mode (hnsw_packed.py): per-slot int64 base key — the dict
         # maps stay empty until a mutation needs them (10M-entry Python
         # dicts cost ~GBs + ~30s; serving only ever maps slots → ids)
@@ -73,13 +73,21 @@ class HnswCache:
         truth — the dicts — which keep tracking post-pack inserts."""
         if self.slot_ids is None:
             return
-        n = self.index.n
-        ids = self.slot_ids
-        for slot in range(n):
-            kv = [int(ids[slot])]
-            self.key_to_slot[self.item_key(kv, 0)] = slot
-            self.slot_to_item[slot] = (kv, 0)
+        for slot, i in enumerate(self.slot_ids[: self.index.n].tolist()):
+            self.put_item(slot, (i,), 0)
         self.slot_ids = None
+
+    def put_item(self, slot: int, key_vals, field_idx: int) -> None:
+        """Map `slot` to (key_vals, field_idx) and back.  The key values
+        are kept as a tuple: CPython stops tracking a tuple of plain values
+        (ints, floats, strings) once a collection finds it so, the pair
+        holding them at the next one, so the maps hold no object a row
+        that the cyclic collector walks, where a list a row put two objects
+        a row (the list and its pair) into every full pass: 2.4M at 1.18M
+        rows."""
+        kv = tuple(key_vals)
+        self.key_to_slot[self.item_key(kv, field_idx)] = slot
+        self.slot_to_item[slot] = (kv, field_idx)
 
     def items_for_slots(self, slots):
         """Vectorized slot → (key_vals, field) mapping; None for unknown."""
@@ -203,16 +211,15 @@ def _rebuild_cache(db, tx, handle, idx_name, meta) -> HnswCache:
             edges.append((layer, fr, to))
     # allocate slots
     fields = manifest["fields"]
-    for ik, ent in nodes.items():
+    for ent in nodes.values():
         base_row = handle.get_row(tx.store_tx_for(handle), ent["key"])
         if base_row is None:
             continue
         vec = base_row[handle.col_index(fields[ent["field"]])]
         if not isinstance(vec, Vector):
             continue
-        slot = index._alloc_slot(vec.a, ent["lvl"])
-        cache.key_to_slot[ik] = slot
-        cache.slot_to_item[slot] = (ent["key"], ent["field"])
+        cache.put_item(index._alloc_slot(vec.a, ent["lvl"]), ent["key"],
+                       ent["field"])
     # adjacency
     for layer, fr, to in edges:
         s1 = cache.key_to_slot.get(fr)
@@ -362,8 +369,7 @@ def create_hnsw_index(db, cfg: A.HnswIndexConfig):
                 cache.slot_ids = ids_arr
             else:
                 for (key_vals, fi), slot in zip(items, slots):
-                    cache.key_to_slot[cache.item_key(key_vals, fi)] = slot
-                    cache.slot_to_item[slot] = (key_vals, fi)
+                    cache.put_item(slot, key_vals, fi)
         from .hnsw_packed import packed_threshold, write_packed_image
 
         if ids_arr is not None and n_got >= packed_threshold():
@@ -413,8 +419,7 @@ def _insert_item(cache: HnswCache, key_vals: list, field_idx: int, vec: Vector) 
         cache.index.remove(old)
         cache.slot_to_item.pop(old, None)
     slot = cache.index.insert(vec.a)
-    cache.key_to_slot[ik] = slot
-    cache.slot_to_item[slot] = (list(key_vals), field_idx)
+    cache.put_item(slot, key_vals, field_idx)
     return slot
 
 

@@ -193,9 +193,7 @@ def rebuild_cache_packed(db, tx, handle, idx_name, meta_cfg, cache) -> bool:
             if ln:
                 row = decode_tuple(raw[pos : pos + ln])
                 pos += ln
-                key_vals, field = row[:-1], int(row[-1])
-                cache.key_to_slot[cache.item_key(key_vals, field)] = slot
-                cache.slot_to_item[slot] = (key_vals, field)
+                cache.put_item(slot, row[:-1], int(row[-1]))
             else:
                 index.alive[slot] = False
 
@@ -271,9 +269,8 @@ def rebuild_cache_packed(db, tx, handle, idx_name, meta_cfg, cache) -> bool:
                 vec = base_row[fcols[fr_field]]
                 if vec is None:
                     continue
-                s1 = index._alloc_slot(np.asarray(vec.a), layer)
-                cache.key_to_slot[fr] = s1
-                cache.slot_to_item[s1] = (list(fr_key), fr_field)
+                cache.put_item(index._alloc_slot(np.asarray(vec.a), layer),
+                               fr_key, fr_field)
             else:
                 index.alive[s1] = True
                 index.levels[s1] = max(int(index.levels[s1]), layer)

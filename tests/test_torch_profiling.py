@@ -12,6 +12,7 @@ import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import pytest
 import torch
 
 from cozo_tpu.utils import profiling as jax_profiling
@@ -168,3 +169,92 @@ def test_device_trace_leaves_the_codes_error_alone(tmp_path, monkeypatch):
     except KeyError:
         pass
     assert len(os.listdir(tmp_path)) == 1
+
+
+# The ops that launch a kernel each on the card, in the trace of a session
+# around `(a @ a).sum()` with the primer first.
+LAUNCHING = ("aten::zero_", "aten::fill_", "aten::add_", "aten::mm",
+             "aten::sum")
+
+
+def _as_the_cards(events, drop):
+    """The CPU trace `events` made to look like a card's: each launching op
+    gets a `cudaLaunchKernel` event inside it and a kernel on the device
+    stream, tied by a correlation id; then the first `drop` kernels, in
+    launch order, are taken out, as the profiler drops a session's first
+    device records."""
+    ops = [e for e in events if e.get("cat") == "cpu_op"
+           and e["name"] in LAUNCHING]
+    ops = sorted((e for e in ops if not any(  # the innermost launch
+        o is not e and o["tid"] == e["tid"]
+        and e["ts"] <= o["ts"] <= e["ts"] + e["dur"] for o in ops)),
+        key=lambda e: e["ts"])
+    kernels = []
+    for c, op in enumerate(ops, 1):
+        events.append({"ph": "X", "cat": "cuda_runtime",
+                       "name": "cudaLaunchKernel", "pid": op["pid"],
+                       "tid": op["tid"], "ts": op["ts"], "dur": 0,
+                       "args": {"correlation": c}})
+        kernels.append({"ph": "X", "cat": "kernel", "name": f"k {op['name']}",
+                        "pid": 0, "tid": 7, "ts": op["ts"] + 5, "dur": 1,
+                        "args": {"correlation": c}})
+    events.extend(kernels[drop:])
+    return len(ops)
+
+
+@pytest.mark.parametrize("drop", [0, 1, 200, profiling.PRIMER_LAUNCHES])
+def test_device_trace_keeps_a_trace_with_some_of_the_primer(
+        tmp_path, monkeypatch, drop):
+    """Kernels dropped from the front of the session, the primer's last one
+    kept: every kernel of the code inside is in the trace, which passes."""
+    launched = _card_stand_in(tmp_path, monkeypatch, drop)
+    with profiling.device_trace(str(tmp_path)):
+        (torch.ones(8, 8) @ torch.ones(8, 8)).sum()
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        events = json.load(f)["traceEvents"]
+    assert launched[0] > profiling.PRIMER_LAUNCHES + 1  # the body's too
+    assert profiling.primer_kernels(events) == profiling.PRIMER_LAUNCHES + 1 \
+        - drop
+    assert sum(e.get("cat") == "kernel" for e in events) == launched[0] - drop
+
+
+@pytest.mark.parametrize("past", [0, 1])
+def test_device_trace_refuses_a_trace_without_the_primer(
+        tmp_path, monkeypatch, past):
+    """Every kernel of the primer dropped (and, past it, the code's first):
+    the trace is written, and `device_trace` raises naming it and the
+    primer's kernels it kept."""
+    _card_stand_in(tmp_path, monkeypatch, profiling.PRIMER_LAUNCHES + 1 + past)
+    with pytest.raises(RuntimeError) as err:
+        with profiling.device_trace(str(tmp_path)):
+            (torch.ones(8, 8) @ torch.ones(8, 8)).sum()
+    (name,) = os.listdir(tmp_path)
+    assert str(tmp_path / name) in str(err.value)
+    assert "holds 0 of the primer's" in str(err.value)
+
+
+def _card_stand_in(tmp_path, monkeypatch, drop):
+    """A card for `device_trace` on the CPU, as in
+    `test_device_trace_primes_the_card_first`, whose exported trace is made
+    a card's and thinned by `drop` kernels before `device_trace` reads it;
+    returns a list that receives the count of launches."""
+    from torch.profiler import profile
+
+    zeros, export, launched = torch.zeros, profile.export_chrome_trace, []
+
+    def thinned(self, path):
+        export(self, path)
+        with open(path) as f:
+            trace = json.load(f)
+        launched.append(_as_the_cards(trace["traceEvents"], drop))
+        with open(path, "w") as f:
+            json.dump(trace, f)
+
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch, "zeros", lambda *a, device=None, **k: zeros(
+        *a, **k))
+    monkeypatch.setattr(profile, "export_chrome_trace", thinned)
+    return launched
+
