@@ -6,7 +6,7 @@
     python3 chip_graph_vs.py --kernel pagerank --other .archive/other
     python3 chip_graph_vs.py --kernel slab_topk --other .archive/other
     python3 chip_graph_vs.py --kernel sweep_topk --other .archive/other \
-        [--counters] [--unchecked-other]
+        [--counters] [--unchecked-other] [--wide]
 
 Builds the kernel's source (`cozo_tpu_torch/csrc/graph_labelprop.cu`,
 `graph_pagerank.cu`, `slab_topk.cu` or `sweep_topk.cu`) of both checkouts with this
@@ -47,9 +47,12 @@ written) at the six shapes `chip_smoke.py` phase 4 times (the bf16 lane
 + re-rank and raw, the i8 lane, the build step, the mesh's shard, rising
 keys) on its synthetic table of the main path's shape, each build at the
 piece `exact_knn.sweep_piece` picks for it (an older build has no
-clusters and no occupancy query: the SMs are its slots).  A design
-choice is weighed as a copy of the source with one change under
-`.archive/NAME`, timed as one more other.  Every result is held to the
+clusters and no occupancy query: the SMs are its slots); with `--wide`,
+at phase 3b's five 768-wide chunk steps (`chip_smoke.sweep_wide_shapes`)
+on a synthetic table of its size (`chip_smoke.synthetic_wide_table`).  A
+design choice is weighed as a copy of the source with one change under
+`.archive/NAME`, timed as one more other; a copy that does not build is
+reported (nvcc's errors) and left out.  Every result is held to the
 plain version by phase 4's measure (`sweep_values_agree`), the others'
 unless `--unchecked-other` says that they compute something else (a
 diagnostic such as the ring and the products alone); ptxas's registers,
@@ -116,12 +119,20 @@ def ek_sweep_lib():
 
 
 def build_others(roots, out_dir, name):
-    """`build_other` of each root, the builds run together."""
+    """`build_other` of each root, the builds run together; a root whose
+    source does not build is reported and left out."""
     from concurrent.futures import ThreadPoolExecutor
 
+    def one(root):
+        try:
+            return build_other(root, out_dir, name)
+        except subprocess.CalledProcessError as e:
+            cs.say(f"{name} of {root} does not build:\n{e.stderr[-4000:]}")
+            return None
+
     with ThreadPoolExecutor(len(roots)) as ex:
-        libs = list(ex.map(lambda r: build_other(r, out_dir, name), roots))
-    return dict(zip(roots, libs))
+        libs = list(ex.map(one, roots))
+    return {r: lib for r, lib in zip(roots, libs) if lib is not None}
 
 
 # the kernels of either PageRank build, for the profiler's breakdown
@@ -387,17 +398,22 @@ def sweep_launch(lib, q, tbl, piece, kc, kw, out):
     return out
 
 
-def compare_sweep(libs, counting, reps, dev, checked=True):
-    """Each build at every phase-4 shape, in turns (other, this, this,
-    other), each held to the plain version first (the others only if
-    `checked`)."""
+def compare_sweep(libs, counting, reps, dev, checked=True, wide=False):
+    """Each build at every phase-4 shape (`wide`: phase 3b's 768-wide
+    ones), in turns (other, this, this, other), each held to the plain
+    version first (the others only if `checked`)."""
     import numpy as np
     import torch
 
     from cozo_tpu_torch.ops import exact_knn as ek
 
-    st, qs = cs.synthetic_sweep_table(cs.N, dev)
-    for lane, q, tbl, chunk, kc, kw in cs.sweep_main_shapes(st, qs):
+    if wide:
+        shapes = cs.sweep_wide_shapes(*cs.synthetic_wide_table(dev))
+        plain_rows = cs.WIDE_PLAIN_ROWS
+    else:
+        shapes = cs.sweep_main_shapes(*cs.synthetic_sweep_table(cs.N, dev))
+        plain_rows = None
+    for lane, q, tbl, chunk, kc, kw in shapes:
         B, d_pad = q.shape
         int8 = q.dtype == torch.int8
         runs, pieces = {}, {}
@@ -410,17 +426,22 @@ def compare_sweep(libs, counting, reps, dev, checked=True):
             runs[name] = (lambda lib=lib, piece=piece, out=out: sweep_launch(
                 lib, q, tbl, piece, kc, kw, out))
             pieces[name] = piece
-        for name, run in runs.items():
+        for name, run in list(runs.items()):
             if name != "this" and not checked:
                 continue
             got = run()
-            want = cs.sweep_plain_blocks(q, tbl, pieces[name], kc, kw)
+            want = cs.sweep_plain_blocks(q, tbl, pieces[name], kc, kw,
+                                         plain_rows)
             torch.cuda.synchronize()
             ok, share, err = cs.sweep_values_agree(got, want)
             del want
-            if not ok:
+            if not ok and name == "this":
                 raise SystemExit(f"{name} disagrees with plain: {lane} (ids "
                                  f"equal {share}, max err {err})")
+            if not ok:  # an other build that is wrong is not timed
+                cs.say(f"sweep_topk {lane}: {name} disagrees with plain (ids "
+                       f"equal {share}, max err {err}); not timed")
+                del runs[name]
         if counting is not None:
             piece = ek.sweep_piece(tbl.shape[0], chunk, B, d_pad, kc, int8,
                                    dev, lib=counting)
@@ -439,7 +460,7 @@ def compare_sweep(libs, counting, reps, dev, checked=True):
                    f"keyings {counts[1]} ({counts[1] / B:.1f} a row), "
                    f"rejected {counts[2]} ({counts[2] / max(counts[1], 1):.2%})")
             del out
-        for name in libs:
+        for name in runs:
             if name == "this":
                 continue
             ms = {name: [], "this": []}
@@ -500,6 +521,9 @@ def main():
     ap.add_argument("--counters", action="store_true",
                     help="sweep_topk: print a counting build's counts a "
                          "shape")
+    ap.add_argument("--wide", action="store_true",
+                    help="sweep_topk: phase 3b's 768-wide shapes instead "
+                         "of the main path's")
     ap.add_argument("--unchecked-other", action="store_true",
                     help="the other build computes another function (a "
                          "stream floor, PageRank; a diagnostic, sweep_topk): "
@@ -547,7 +571,7 @@ def main():
             for what, (_, log) in sorted(_build.BUILD_INFO.items()):
                 say_ptxas(f"{what} of this checkout", log)
             compare_sweep(libs, counting, args.reps or 5, dev,
-                          not args.unchecked_other)
+                          not args.unchecked_other, args.wide)
         cs.say(cs.smi_line())
         return 0
     if args.kernel == "slab_topk":

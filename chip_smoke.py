@@ -74,11 +74,12 @@ Phases, each reported on its own line; any failure exits non-zero:
      then 8 client threads x 20 small joins (B = 16, the beam kernel) as
      `/text-query` with no collection before them, each answer's rows
      equal to the Db's own, request ms p50 / p99 / max and the collector's
-     passes, then one timed full pass (through `serve`, no pass may reach
-     GC_PASS_BAR_MS); the served turn's requests' launches counted apart
-     from the direct calls (the beam kernel once a small join, PageRank at
-     least once); an SSE `/changes/{rel}` stream carrying a `:put`; a
-     write over HTTP after serving started; (d)
+     passes, then one timed full pass (through `serve`, no pass while the
+     answer is built, in the burst or after it may reach GC_PASS_BAR_MS);
+     the served turn's requests' launches counted apart from the direct
+     calls (the beam kernel once a small join, PageRank at least once);
+     an SSE `/changes/{rel}` stream carrying a `:put`; a write over HTTP
+     after serving started; (d)
      `utils/profiling.device_trace` around a small join writes a Chrome
      trace that names the beam kernel and holds the primer's kernels
      (`device_trace` refuses one without); (b) `python -m
@@ -114,7 +115,12 @@ Phases, each reported on its own line; any failure exits non-zero:
   3b. the quant lane at its own width: a 768-wide cosine table of
      2,097,152 rows (cut from the JAX package's 10M-row configuration),
      `QuantSweepTable.load` + `quant_search`, recall against
-     `brute_force_knn`;
+     `brute_force_knn`; then that draw under the f32 budget through the
+     bf16+rerank and i8+rerank lanes, on `sweep_topk`'s wide form (4
+     launches each, no two-step call, recall bars), each chunk step timed
+     on the kernel in turns with the two-step route, and phase 4's
+     timings of the chunk step at those rows (bf16 kc 26 and 10, int8 kc
+     64 and 128, the build's kc 97);
   9. (run after phase 4 times the main path's kernels) the device mesh
      (`cozo_tpu_torch/parallel/mesh.py`): a `ShardedSweep` over phase 3's
      index on [cuda:0] and on [cuda:0, cuda:0] at B = 16,384, k = 10
@@ -151,9 +157,9 @@ Phases, each reported on its own line; any failure exits non-zero:
      of 32,768 docs, the serving image, 200 single queries and the
      1,000-query batched join, each planted-duplicate recall >= 0.95, no
      serving-image fallback); the stored signatures of every doc held to
-     the host `minhash_segments`; then `::fts create` on 50,000 of the
-     docs and 10 single-term searches, each equal to a scan; prints an
-     `lsh` line;
+     the host `minhash_segments` (a chunk a worker process); then `::fts
+     create` on 50,000 of the docs and 10 single-term searches, each equal
+     to a scan; prints an `lsh` line;
   4. time each kernel at its shape (the main-path shape for the routes the
      main path takes; `slab_topk` at each slab the main path hands it,
      from phase 3's index: the bf16 / f32 lanes' [16,384 x 131,072] f32
@@ -193,7 +199,10 @@ and prints none either; `--hosts-only` runs phases 1 and 11 but (a), with
 rows and queries) and (d) on (f)'s Db, and prints none either;
 `--topk-only` runs phases 1 and 2 (`slab_topk`), builds an index of `--n`
 rows (262,144 unless given), runs each sweep lane once (launches
-counted) and times `slab_topk` as phase 4 does, and prints none either.
+counted) and times `slab_topk` as phase 4 does, and prints none either;
+`--sweep-only` runs phases 1 and 2 (`sweep_topk`) and times `sweep_topk`
+as phase 4 does on a synthetic table of `--n` rows and at phase 3b's
+768-wide shapes on a synthetic table of its size, and prints none either.
 """
 
 import argparse
@@ -1042,9 +1051,8 @@ def phase_topk_vs_plain(dev):
 
 TOPK_LAUNCHES = {}  # path -> slab_topk launches on it, each counted from 0
 SWEEP_LAUNCHES = {}  # path -> sweep_topk launches on it, each counted from 0
-TWO_STEP_CALLS = {}  # path -> sweep_topk calls on its two-step route
 # what the calls made since `topk_zero` must launch, by kernel, and the
-# calls of sweep_topk that must take its two-step route
+# calls of sweep_topk that would take its two-step route (none may)
 EXPECTED = {"slab_topk": 0, "sweep_topk": 0, "two_step": 0}
 
 
@@ -1146,27 +1154,22 @@ def topk_zero():
     EXPECTED.update(slab_topk=0, sweep_topk=0, two_step=0)
 
 
-def topk_read(path, phase, sweep, two_step=False):
+def topk_read(path, phase, sweep):
     """slab_topk's and sweep_topk's launches since `topk_zero`, kept as
-    `path`'s, and sweep_topk's calls on its two-step route.  The phase
-    fails unless each equals what the path's calls imply
-    (`install_launch_ledger`), sweep_topk launched where the path runs a
-    bf16 or i8 sweep or an f32-table build at the kernel's shapes (`sweep`
-    true) and never elsewhere, slab_topk launched on the other paths
-    (their selections and merges), and the two-step route taken where the
-    path's rows are wider than the kernel's (`two_step` true: phase 3b's
-    lanes) and nowhere else.  Returns slab_topk's count."""
+    `path`'s.  The phase fails unless each equals what the path's calls
+    imply (`install_launch_ledger`), sweep_topk launched where the path
+    runs a bf16 or i8 sweep or an f32-table build (`sweep` true) and never
+    elsewhere, slab_topk launched on the other paths (their selections and
+    merges), and sweep_topk's two-step route (rows past 1,024, kc past
+    256) taken nowhere.  Returns slab_topk's count."""
     from cozo_tpu_torch.ops import exact_knn as ek
 
     n = TOPK_LAUNCHES[path] = ek.select_topk.launches
     m = SWEEP_LAUNCHES[path] = ek.sweep_topk.launches
     t = ek.sweep_topk.two_step
-    if two_step:
-        TWO_STEP_CALLS[path] = t
     want = (EXPECTED["slab_topk"], EXPECTED["sweep_topk"],
             EXPECTED["two_step"])
-    if ((n, m, t) != want or (m >= 1) != sweep or not (sweep or n >= 1)
-            or (t >= 1) != two_step):
+    if (n, m, t) != want or (m >= 1) != sweep or not (sweep or n >= 1) or t:
         raise SystemExit(
             f"{phase} failed on {path}: slab_topk launched {n} times, "
             f"sweep_topk {m} and its two-step route {t}, where the calls "
@@ -1184,11 +1187,18 @@ SWEEP_DS = (16, 64, 128)
 SWEEP_VARIANTS = ("random", "ties", "dead", "ascending")
 SWEEP_EDGE_KCS = (32, 33, 64, 65, 96, 97, 256)  # each row state's edges
 SWEEP_EDGE_BS = (1, 17, 129, 257)
-# the wide rows the lanes hand the two-step route (phase 3b's d = 768): one
-# 131,072-row piece, B = 257 (query tiles of 128 and 64 rows, a ragged last)
-SWEEP_WIDE_CASES = tuple((kind, 257, 131_072, 1, 768, kc, variant)
+# the wide rows (the kernel's wide form past d_pad 128): 256, phase 3b's 768
+# and the widest, 1,024; every row state's kc (and the lanes' 10, 26, 64,
+# 97, 128), both kinds, "random" (with rows whose int8 sums pass 2^22) and
+# "ties"; B = 257 (5 query tiles of 64 rows: a pair that ends with a block
+# past the rows), 2 pieces of 8,192 rows
+SWEEP_WIDE_DS = (256, 768, 1024)
+SWEEP_WIDE_KCS = (10, 26, 64, 97, 128, 256)
+SWEEP_WIDE_CASES = tuple((kind, 257, 8192, 2, d_pad, kc, variant)
+                         for d_pad in SWEEP_WIDE_DS
+                         for kc in SWEEP_WIDE_KCS
                          for kind in SWEEP_KINDS
-                         for kc, variant in ((26, "random"), (64, "ties")))
+                         for variant in ("random", "ties"))
 SWEEP_TOL = 1e-5  # bf16 route: |value - plain| <= SWEEP_TOL * max(1, |plain|)
 SWEEP_ID_SHARE = 0.999  # bf16 route: ids equal on at least this share
 
@@ -1198,7 +1208,7 @@ def sweep_cases():
     piece width at every kc up to it, both kinds, B, the number of pieces
     (1-3), d_pad and the variant in turn; then every variant of each kind
     at [17 x 2 pieces of 4,096], d_pad 128, kc 26 and 97; then
-    `sweep_edge_cases`; then SWEEP_WIDE_CASES, on the two-step route."""
+    `sweep_edge_cases`; then SWEEP_WIDE_CASES (the kernel's wide form)."""
     cases = []
     for W in SWEEP_WIDTHS:
         for kc in SWEEP_KCS:
@@ -1241,7 +1251,10 @@ def sweep_inputs(kind, B, piece, n_pieces, d_pad, variant, seed, dev):
     repeated at the next piece's start, a quarter of the rows zero with a
     +-0.0 bias, the first query zero; "dead": 3 live rows a piece;
     "ascending": keys that rise along the piece (a bias step past the
-    scores' range).  bf16, or int8 with the lanes' max-abs scales."""
+    scores' range); "random" past d_pad 128 also 8 table rows and 4 queries
+    near a constant vector (every other query negated), whose int8 codes
+    are near +-127: sums past 2^22 at d_pad 768.  bf16, or int8 with the
+    lanes' max-abs scales."""
     import torch
 
     from cozo_tpu_torch.utils.device import quantize_i8
@@ -1253,6 +1266,10 @@ def sweep_inputs(kind, B, piece, n_pieces, d_pad, variant, seed, dev):
     t = np.zeros((n, d_pad), np.float32)
     q[:, :d] = rng.standard_normal((B, d))
     t[:, :d] = rng.standard_normal((n, d))
+    if variant == "random" and d_pad > 128:
+        for m, rows in ((t, 8), (q, min(4, B))):
+            m[:rows, :d] = 1.0 + 0.03 * rng.standard_normal((rows, d))
+        q[1:4:2] *= -1.0
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     t /= np.linalg.norm(t, axis=1, keepdims=True)
     bias = np.zeros(n, np.float32)
@@ -1345,8 +1362,8 @@ def phase_sweep_vs_plain(dev):
     """Phase 2 for `sweep_topk`: every case of `sweep_cases` against
     `sweep_topk_plain` on the card (int8 bit-equal; bf16 by
     `sweep_agreement`), two runs bit-identical, each call on the route
-    `sweep_route` names (the wide cases: the two-step route).  Launches
-    here are not counted on any path."""
+    `sweep_route` names (every case here: the kernel's).  Launches here
+    are not counted on any path."""
     import torch
 
     from cozo_tpu_torch.ops import exact_knn as ek
@@ -1361,10 +1378,10 @@ def phase_sweep_vs_plain(dev):
         again = ek.sweep_topk(q, tbl, W, kc, **kw)
         want = ek.sweep_topk_plain(q, tbl, W, kc, **kw)
         torch.cuda.synchronize()
-        wide = ek.sweep_route(d_pad, kc, W) == "two_step"
+        two = ek.sweep_route(d_pad, kc, W) == "two_step"
         launched = (ek.sweep_topk.launches - before[0],
                     ek.sweep_topk.two_step - before[1]) == (
-            (0, 2) if wide else (2, 0))
+            (0, 2) if two else (2, 0))
         ok, share, err = sweep_agreement(got, want,
                                          sweep_slab_keys(q, tbl, kw))
         twice = topk_same(got, again)
@@ -1381,8 +1398,9 @@ def phase_sweep_vs_plain(dev):
     say(f"phase 2 sweep_topk vs plain: {len(cases)} cases (B {SWEEP_BS}, "
         f"pieces of {SWEEP_WIDTHS} x 1-3, d_pad {SWEEP_DS}, kc {SWEEP_KCS}, "
         f"{list(SWEEP_VARIANTS)}; the edges: kc {SWEEP_EDGE_KCS}, B "
-        f"{SWEEP_EDGE_BS}; {len(SWEEP_WIDE_CASES)} on the two-step route at "
-        f"d_pad 768, B 257, a 131,072-row piece, kc 26 and 64) in "
+        f"{SWEEP_EDGE_BS}; {len(SWEEP_WIDE_CASES)} at the wide rows: d_pad "
+        f"{SWEEP_WIDE_DS}, kc {SWEEP_WIDE_KCS}, B 257, 2 pieces of 8,192, "
+        f"random and ties) in "
         f"{time.time() - t0:.1f}s: int8 values "
         f"and ids bit-equal; bf16 values within {SWEEP_TOL} x max(1, |v|) "
         f"(max err {worst['bf16'][1]:.3g}), ids equal on >= "
@@ -2663,27 +2681,35 @@ def lsh_docs(n):
     return docs
 
 
-def lsh_host_chunks(docs, n_perm):
-    """Per backfill chunk: (hashes, doc starts, host signatures), the
+def lsh_host_chunk(texts, n_perm):
+    """One backfill chunk's (hashes, doc starts, host signatures): the
     signatures from the host `minhash_segments` over the chunk's
-    `hash_tokens_dedup` hashes (the `Simple` tokenizer, n_gram 1), the
-    chunks' numpy work spread over the host's cores."""
+    `hash_tokens_dedup` hashes (the `Simple` tokenizer, n_gram 1)."""
     from cozo_tpu_torch.fts.tokenizer import build_analyzer
     from cozo_tpu_torch.ops.minhash import hash_tokens_dedup, minhash_segments
 
-    an = build_analyzer(("Simple", []), [])
-    chunks = []
-    for s in range(0, len(docs), LSH_CHUNK):
-        toks = an.analyze_texts(docs[s:s + LSH_CHUNK])
-        lens = np.fromiter((len(t) for t in toks), np.int64, len(toks))
-        offs = np.zeros(len(toks), np.int64)
-        np.cumsum(lens[:-1], out=offs[1:])
-        chunks.append((hash_tokens_dedup([t for ts in toks for t in ts]),
-                       offs))
-    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
-        sigs = ex.map(lambda c: minhash_segments(*c, n_perm), chunks)
-        for (flat, offs), sig in zip(chunks, sigs):
-            yield flat, offs, sig
+    toks = build_analyzer(("Simple", []), []).analyze_texts(texts)
+    lens = np.fromiter((len(t) for t in toks), np.int64, len(toks))
+    offs = np.zeros(len(toks), np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    flat = hash_tokens_dedup([t for ts in toks for t in ts])
+    return flat, offs, minhash_segments(flat, offs, n_perm)
+
+
+def lsh_host_chunks(docs, n_perm):
+    """`lsh_host_chunk` of every backfill chunk, in order, the chunks
+    spread over worker processes (spawned, one a core the process may use
+    but its own: the tokenizer is Python, so threads would share one core;
+    all of them stopped on return)."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    workers = max(1, min(len(os.sched_getaffinity(0)) - 1, 8))
+    with ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn")) as ex:
+        yield from ex.map(lsh_host_chunk,
+                          (docs[s:s + LSH_CHUNK]
+                           for s in range(0, len(docs), LSH_CHUNK)),
+                          itertools.repeat(n_perm))
 
 
 def backfill_timer():
@@ -3372,7 +3398,9 @@ def two_step_split(q, tbl, piece, kc, kw, reps):
     route, each the median over `reps` rounds after a warm one of its sum
     over the pieces: CUDA events around each piece's product (`mm_bf16` or
     `int_mm`) and its `select_topk`, as `exact_knn.sweep_two_step` runs
-    them; the last round's answer must equal `sweep_topk`'s."""
+    them; the last round's answer must agree with `sweep_topk`'s at the
+    same piece (`sweep_values_agree`: int8 bit-equal, bf16 within its
+    tolerance)."""
     import torch
 
     from cozo_tpu_torch.ops import exact_knn as ek
@@ -3399,7 +3427,7 @@ def two_step_split(q, tbl, piece, kc, kw, reps):
         torch.cuda.synchronize()
         rounds.append((sum(a.elapsed_time(b) for a, b, _ in marks),
                        sum(b.elapsed_time(c) for _, b, c in marks)))
-    if not topk_same(out, ek.sweep_topk(q, tbl, piece, kc, **kw)):
+    if not sweep_values_agree(out, ek.sweep_topk(q, tbl, piece, kc, **kw))[0]:
         raise SystemExit("phase 3b failed: the split two-step route differs "
                          "from sweep_topk's")
     return (float(np.median([r[0] for r in rounds[1:]])),
@@ -3426,13 +3454,15 @@ def key_ties(q, tbl, piece, kc, kw):
 def phase_wide_lanes(data, norms, qs, gt):
     """Phase 3b's draw under the f32 budget, through the code
     `HnswIndex.search` runs for a batch of B >= 64 there (`sweep_search` ->
-    `SweepTable.search` -> `sweep_topk`, which takes its two-step route at
-    d_pad 768): the bf16+rerank and i8+rerank lanes (the latter at
-    WIDE_I8_RERANK re-ranked; its recall at phase 3's 64 printed beside,
-    with the ties of bf16 keys that cut it), each held to its bar against
-    `brute_force_knn` on the first QUANT_GT queries, its launches gated at
-    what the calls imply, a batch timed on the host clock and its chunk
-    step split into product and selection ms."""
+    `SweepTable.search` -> `sweep_topk`, its wide form at d_pad 768): the
+    bf16+rerank and i8+rerank lanes (the latter at WIDE_I8_RERANK
+    re-ranked; its recall at phase 3's 64 printed beside, with the ties of
+    bf16 keys that cut it), each held to its bar against `brute_force_knn`
+    on the first QUANT_GT queries, its launches gated at what the calls
+    imply (sweep_topk, no two-step call), a batch timed on the host clock,
+    its chunk step timed on the kernel in turns with the two-step route
+    split into product and selection ms; then phase 4's timings of the
+    chunk steps at these rows (`time_wide_sweep`)."""
     import torch
 
     from cozo_tpu_torch import sweep_search
@@ -3451,6 +3481,12 @@ def phase_wide_lanes(data, norms, qs, gt):
     say(f"phase 3b sweep table {QUANT_N} x {d_pad} f32 on the device "
         f"(refresh {time.time() - t0:.1f}s)")
     st = index._sweep_table
+    qd = to_device(np.ascontiguousarray(qs), st.device)
+    q16 = prepare_queries(qd, "Cosine", d_pad, half=True,
+                          reciprocal=True).to(torch.bfloat16)
+    _, q8, rs8 = prepare_queries(qd, "Cosine", d_pad, half=True,
+                                 quantize=True, reciprocal=True)
+    del qd
     out = {}
     for tag, cd, rk in (("bf16+rerank", "bf16", None),
                         ("i8+rerank", "i8", WIDE_I8_RERANK)):
@@ -3463,27 +3499,38 @@ def phase_wide_lanes(data, norms, qs, gt):
                                       rerank_k=rk)
             ms.append(1e3 * (time.time() - t0))
         path = f"wide {tag} (phase 3b)"
-        slab = topk_read(path, "phase 3b", sweep=False, two_step=True)
+        slab = topk_read(path, "phase 3b", sweep=True)
+        two_calls = ek.sweep_topk.two_step  # 0: the gate holds it there
         r = recall(ids[:QUANT_GT], gt)
         ok = (ids.shape == (QUANT_NQ, K) and np.isfinite(dists).all()
               and r >= BARS[tag])
         # the chunk step as the lane hands it to sweep_topk
-        prep = prepare_queries(to_device(np.ascontiguousarray(qs), st.device),
-                               "Cosine", d_pad, half=True,
-                               quantize=cd == "i8", reciprocal=True)
         kf = max(rk or 0, K + 16)  # as `SweepTable.search` widens it
         if cd == "i8":
-            q, tbl = prep[1], st.tbl_i8.reshape(-1, d_pad)
+            q, tbl = q8, st.tbl_i8.reshape(-1, d_pad)
             kw = {"bias": st.bias.reshape(-1), "col_scale":
-                  st.scale_i8.reshape(-1), "row_scale": prep[2]}
+                  st.scale_i8.reshape(-1), "row_scale": rs8}
         else:
-            q, tbl = prep.to(torch.bfloat16), st.tbl_bf16
+            q, tbl = q16, st.tbl_bf16
             kw = {"bias": st.bias.reshape(-1)}
         piece = ek.sweep_piece(tbl.shape[0], st.chunk, QUANT_NQ, d_pad,
                                min(kf, st.chunk), cd == "i8", q.device)
-        route = ek.sweep_route(d_pad, min(kf, piece), piece)
-        product_ms, select_ms = two_step_split(q, tbl, piece, min(kf, piece),
-                                               kw, OTHER_LANE_REPS)
+        kc = min(kf, piece)
+        route = ek.sweep_route(d_pad, kc, piece)
+        # the kernel's launch and the two-step route's split, in turns
+        buf = ek._chunk_buffers(QUANT_NQ, QUANT_N // piece, kc,
+                                torch.bfloat16 if cd == "i8"
+                                else torch.float32, q.device)
+        kern, split = [], []
+        for _ in range(SWEEP_TURNS):
+            kern.append(cuda_ms(lambda: ek.sweep_topk(q, tbl, piece, kc,
+                                                      out=buf, **kw),
+                                OTHER_LANE_REPS))
+            split.append(two_step_split(q, tbl, st.chunk, kc, kw, 1))
+        del buf
+        kernel_ms = float(np.median(kern))
+        product_ms = float(np.median([x[0] for x in split]))
+        select_ms = float(np.median([x[1] for x in split]))
         # the least time of the chunk step's products (operations bound)
         bound_ms = 2.0 * QUANT_NQ * QUANT_N * d_pad / (
             PEAK_INT8 if cd == "i8" else PEAK_BF16) * 1e3
@@ -3491,36 +3538,104 @@ def phase_wide_lanes(data, norms, qs, gt):
             ids64, _ = sweep_search(index, qs, K, compute_dtype=cd,
                                     rerank_k=64)
             r64 = recall(ids64[:QUANT_GT], gt)
-            ties = key_ties(q, tbl, piece, 64, kw)
+            ties = key_ties(q, tbl, st.chunk, 64, kw)
             say(f"phase 3b lane {tag} with phase 3's 64 re-ranked: recall@10 "
-                f"{r64:.5f} (bar {BARS[tag]}); bf16 keys equal to a piece's "
-                f"64th key: median {ties[0]:.0f}, max {ties[1]} (ROADMAP.md "
-                f"section 3: the lane re-ranks {rk} here)")
-        del prep, q, tbl, kw
+                f"{r64:.5f} (bar {BARS[tag]}); bf16 keys equal to a "
+                f"{st.chunk}-row chunk's 64th key: median {ties[0]:.0f}, max "
+                f"{ties[1]} (ROADMAP.md section 3: the lane re-ranks {rk} "
+                f"here)")
+        del q, tbl, kw
         out[tag] = {"ms_a_batch": float(np.median(ms)), "per_rep_ms": ms,
-                    "recall@10": r, "rerank_k": kf, "product_ms": product_ms,
-                    "selection_ms": select_ms, "bound_ms": bound_ms,
-                    "route": route,
-                    "pieces": QUANT_N // piece, "kc": min(kf, piece),
-                    "slab_topk": slab, "two_step_calls": TWO_STEP_CALLS[path]}
+                    "recall@10": r, "rerank_k": kf, "kernel_ms": kernel_ms,
+                    "kernel_turns": kern, "product_ms": product_ms,
+                    "selection_ms": select_ms, "two_step_turns": split,
+                    "bound_ms": bound_ms, "route": route,
+                    "pieces": QUANT_N // piece, "kc": kc,
+                    "sweep_topk": SWEEP_LAUNCHES[path], "slab_topk": slab,
+                    "two_step_calls": two_calls}
         if cd == "i8":
             out[tag].update(recall_at_64=r64, key_ties_at_64=ties)
         say(f"phase 3b lane {tag} at d_pad {d_pad} ({kf} re-ranked, "
-            f"sweep_topk's {route} route, {QUANT_N // piece} pieces, kc "
-            f"{min(kf, piece)}): "
-            f"B={QUANT_NQ} median {np.median(ms):.1f} ms a batch ({ms}), the "
-            f"chunk step's product {product_ms:.2f} ms + selection "
-            f"{select_ms:.2f} ms ({100 * bound_ms / (product_ms + select_ms):.1f}"
-            f"% of the products' bound {bound_ms:.2f} ms); slab_topk {slab} "
-            f"launches, two-step calls "
-            f"{TWO_STEP_CALLS[path]}; recall@10 {r:.5f} on {QUANT_GT} queries "
-            f"against brute_force_knn (bar {BARS[tag]}) "
-            f"{'ok' if ok else 'FAIL'}")
+            f"sweep_topk's {route} route, {QUANT_N // piece} piece(s), kc "
+            f"{kc}): B={QUANT_NQ} median {np.median(ms):.1f} ms a batch "
+            f"({ms}); the chunk step on the kernel {kernel_ms:.2f} ms "
+            f"({100 * bound_ms / kernel_ms:.1f}% of the products' bound "
+            f"{bound_ms:.2f} ms; turns {[round(x, 3) for x in kern]}), on the "
+            f"two-step route in turns with it (chunks of {st.chunk}) product "
+            f"{product_ms:.2f} ms + selection {select_ms:.2f} ms "
+            f"({(product_ms + select_ms) / kernel_ms:.2f}x the kernel's); "
+            f"sweep_topk {SWEEP_LAUNCHES[path]} launches, slab_topk {slab} "
+            f"(the merges), two-step calls {two_calls}; "
+            f"recall@10 {r:.5f} on {QUANT_GT} queries against "
+            f"brute_force_knn (bar {BARS[tag]}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"phase 3b failed: lane {tag} at d_pad {d_pad}")
-    del index, st
+    time_wide_sweep(st.tbl_bf16, st.tbl_i8.reshape(-1, d_pad),
+                    st.scale_i8.reshape(-1), st.bias.reshape(-1), st.chunk,
+                    q16, q8, rs8)
+    del index, st, q16, q8, rs8
     torch.cuda.empty_cache()
     return out
+
+
+def sweep_wide_shapes(tbl16, tbl8, scale8, bias, chunk, q16, q8, rs8):
+    """The chunk steps at phase 3b's 768-wide rows, as `sweep_main_shapes`
+    yields them: [4,096 x 2,097,152] bf16 kc 26 (the bf16 lane + its
+    re-rank) and 10 (raw), int8 kc 64 and WIDE_I8_RERANK (the i8 lane),
+    and the f32-table build's kc 97 for a wave of 8,192 of the table's
+    rows."""
+    i8 = {"bias": bias, "col_scale": scale8, "row_scale": rs8}
+    yield "wide bf16 lane", q16, tbl16, chunk, 26, {"bias": bias}
+    yield "wide bf16 raw", q16, tbl16, chunk, 10, {"bias": bias}
+    yield "wide i8 lane", q8, tbl8, chunk, 64, i8
+    yield (f"wide i8 lane, {WIDE_I8_RERANK} re-ranked", q8, tbl8, chunk,
+           WIDE_I8_RERANK, i8)
+    yield ("wide build step", tbl16[:8192].contiguous(), tbl16, chunk, 97,
+           {"bias": bias})
+
+
+def synthetic_wide_table(dev, seed=43):
+    """`sweep_wide_shapes`'s inputs at phase 3b's shape, made on the card
+    without an index: QUANT_N random unit rows of QUANT_D (bf16, and int8
+    with their column scales as `quantize_tbl` makes them), all alive, in
+    chunks of 131,072, and QUANT_NQ random unit queries as
+    `prepare_queries` makes them (bf16; int8 with their row scales)."""
+    import torch
+
+    from cozo_tpu_torch.ops.exact_knn import quantize_tbl
+    from cozo_tpu_torch.utils.device import prepare_queries
+
+    chunk = 131_072
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tbl = torch.nn.functional.normalize(
+        torch.randn((QUANT_N, QUANT_D), generator=g, device=dev), dim=1)
+    bias = torch.zeros(QUANT_N, device=dev)
+    tbl8, scale8 = quantize_tbl(tbl.view(-1, chunk, QUANT_D),
+                                bias.view(-1, chunk))
+    tbl16 = tbl.to(torch.bfloat16)
+    del tbl
+    q = torch.nn.functional.normalize(
+        torch.randn((QUANT_NQ, QUANT_D), generator=g, device=dev), dim=1)
+    q16 = prepare_queries(q, "Cosine", QUANT_D, half=True,
+                          reciprocal=True).to(torch.bfloat16)
+    _, q8, rs8 = prepare_queries(q, "Cosine", QUANT_D, half=True,
+                                 quantize=True, reciprocal=True)
+    return (tbl16, tbl8.reshape(-1, QUANT_D), scale8.reshape(-1), bias, chunk,
+            q16, q8, rs8)
+
+
+def time_wide_sweep(*inputs):
+    """Phase 4's timings (`time_sweep_shape`) of the chunk steps at phase
+    3b's 768-wide rows (`sweep_wide_shapes` of `inputs`), the plain
+    version over the whole table in blocks of WIDE_PLAIN_ROWS query rows.
+    Kept in WIDE_SWEEP_SHAPES."""
+    import torch
+
+    for lane, q, tbl, chunk, kc, kw in sweep_wide_shapes(*inputs):
+        WIDE_SWEEP_SHAPES[lane] = time_sweep_shape(
+            lane, q, tbl, chunk, kc, kw, OTHER_LANE_REPS, WIDE_PLAIN_ROWS)
+        del q, tbl, kw
+        torch.cuda.empty_cache()
 
 
 def phase_quant_wide():
@@ -3531,7 +3646,6 @@ def phase_quant_wide():
     import torch
 
     from cozo_tpu_torch.ops.quant_knn import QuantSweepTable, quant_search
-    from cozo_tpu_torch.ops.vector_search import brute_force_knn
     from cozo_tpu_torch.utils.datasets import glove_like
 
     say(f"quant cut: {QUANT_N:,} rows instead of 10,000,000")
@@ -3555,11 +3669,7 @@ def phase_quant_wide():
     topk_read("quant (phase 3b)", "phase 3b", sweep=False)
     scan_s, rerank_s = quant_search.last_timing
     del table
-    norms = np.concatenate([
-        np.einsum("nd,nd->n", blk, blk) for blk in np.array_split(data, 16)])
-    gt = np.concatenate([
-        brute_force_knn(data, norms, qs[b0:b0 + 512], K, "Cosine")[0]
-        for b0 in range(0, QUANT_GT, 512)])
+    norms, gt = wide_truth(data, qs)
     torch.cuda.empty_cache()
     r = recall(ids[:QUANT_GT], gt)
     ok = (ids.shape == (QUANT_NQ, K) and np.isfinite(dists).all()
@@ -3575,6 +3685,19 @@ def phase_quant_wide():
     return {"quant": {"qps_median": float(np.median(qps)), "recall@10": r,
                       "scan_s": scan_s, "rerank_s": rerank_s},
             **phase_wide_lanes(data, norms, qs, gt)}
+
+
+def wide_truth(data, qs):
+    """(the rows' squared norms, `brute_force_knn`'s ids of the first
+    QUANT_GT queries) of phase 3b's draw."""
+    from cozo_tpu_torch.ops.vector_search import brute_force_knn
+
+    norms = np.concatenate([
+        np.einsum("nd,nd->n", blk, blk) for blk in np.array_split(data, 16)])
+    gt = np.concatenate([
+        brute_force_knn(data, norms, qs[b0:b0 + 512], K, "Cosine")[0]
+        for b0 in range(0, QUANT_GT, 512)])
+    return norms, gt
 
 
 def phase_i8_build(data, qs):
@@ -3780,6 +3903,9 @@ def time_beam(index, qs, launches):
 
 
 TOPK_PLAIN_ROWS = 1024  # the plain version runs the main shapes in row blocks
+# and the wide shapes (a block's slab of a 2,097,152-row piece and its
+# composite keys take some 11 GB)
+WIDE_PLAIN_ROWS = 256
 
 
 def topk_plain_blocks(x, kf, kw):
@@ -4004,16 +4130,18 @@ def sweep_main_shapes(st, qs):
            {"bias": torch.where(torch.isfinite(bias), rising, bias)})
 
 
-def sweep_plain_blocks(q, tbl, piece, kc, kw):
-    """`sweep_topk_plain` over row blocks of q (its selection of a whole
-    [16,384 x 131,072] slab would take some 45 GB)."""
+def sweep_plain_blocks(q, tbl, piece, kc, kw, rows=None):
+    """`sweep_topk_plain` over blocks of `rows` (TOPK_PLAIN_ROWS) query
+    rows (its selection of a whole [16,384 x 131,072] slab would take some
+    45 GB)."""
     import torch
 
     from cozo_tpu_torch.ops import exact_knn as ek
 
+    rows = rows or TOPK_PLAIN_ROWS
     parts = []
-    for r0 in range(0, q.shape[0], TOPK_PLAIN_ROWS):
-        sl = slice(r0, r0 + TOPK_PLAIN_ROWS)
+    for r0 in range(0, q.shape[0], rows):
+        sl = slice(r0, r0 + rows)
         kb = dict(kw)
         if "row_scale" in kb:
             kb["row_scale"] = kb["row_scale"][sl].contiguous()
@@ -4038,89 +4166,97 @@ def sweep_library(q, tbl, piece, kc, kw):
         del s
 
 
-def time_sweep(st, qs, reps):
-    """Phase 4 for `sweep_topk` at each chunk step of the main path
-    (`sweep_main_shapes`), at the piece `sweep_piece` gives the lane: the
-    kernel against the plain version first (int8 bit-equal, bf16 by
-    `sweep_values_agree`), then its time (CUDA events, a launch covers all
-    the pieces), the old two-step route's a chunk at a time (the product
-    writes each chunk's slab, `slab_topk` reads it) in turns with it, the
-    plain version's (row blocks) and the library yardstick's, beside the
-    bound: the products at the tensor cores' peak (989 TFLOP/s bf16, 1,979
-    TOP/s int8) or the bytes (the queries, the table and the vectors read
-    once, the outputs written once) at 3.35 TB/s, the larger.  Returns its
-    entry of the `kernels` line (the bf16 lane's numbers; every shape under
-    "shapes"), its launches by path filled in at the end of the run."""
+def time_sweep_shape(lane, q, tbl, chunk, kc, kw, reps, plain_rows=None):
+    """Phase 4 for `sweep_topk` at one chunk step, at the piece
+    `sweep_piece` gives the lane: the kernel against the plain version
+    (in blocks of `plain_rows` query rows) over the whole table first
+    (int8 bit-equal, bf16 by `sweep_values_agree`), then its
+    time (CUDA events, a launch covers all the pieces), the two-step
+    route's a chunk at a time (the product writes each chunk's slab,
+    `slab_topk` reads it) in turns with it, the plain version's (row
+    blocks) and the library yardstick's, beside the bound: the products at
+    the tensor cores' peak (989 TFLOP/s bf16, 1,979 TOP/s int8) or the
+    bytes (the queries, the table and the vectors read once, the outputs
+    written once) at 3.35 TB/s, the larger.  Returns the shape's numbers."""
     import torch
 
     from cozo_tpu_torch.ops import exact_knn as ek
 
+    B, d_pad = q.shape
+    n_total = tbl.shape[0]
+    int8 = q.dtype == torch.int8
+    piece = ek.sweep_piece(n_total, chunk, B, d_pad, kc, int8, q.device)
+    n_p = n_total // piece
+    got = ek.sweep_topk(q, tbl, piece, kc, **kw)
+    t0 = time.time()
+    want = sweep_plain_blocks(q, tbl, piece, kc, kw, plain_rows)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.time() - t0)
+    again = ek.sweep_topk(q, tbl, piece, kc, **kw)
+    torch.cuda.synchronize()
+    ok, share, err = sweep_values_agree(got, want)
+    twice = topk_same(got, again)
+    del got, want, again
+    if not (ok and twice):
+        raise SystemExit(f"phase 4 failed: sweep_topk disagrees with plain "
+                         f"({lane}: ids equal {share}, max err {err})")
+    out = ek._chunk_buffers(B, n_p, kc, torch.bfloat16 if int8
+                            else torch.float32, q.device)
+    out_old = ek._chunk_buffers(B, n_total // chunk, kc, out[0].dtype,
+                                q.device)
+    kern, old = [], []
+    for _ in range(SWEEP_TURNS):
+        kern.append(cuda_ms(lambda: ek.sweep_topk(q, tbl, piece, kc,
+                                                  out=out, **kw), reps))
+        old.append(cuda_ms(lambda: ek.sweep_two_step(
+            q, tbl, chunk, kc, kw["bias"], kw.get("col_scale"),
+            kw.get("row_scale"), 0, out_old), 1))
+    del out_old, out
+    torch.cuda.empty_cache()
+    library_ms = cuda_ms(lambda: sweep_library(q, tbl, chunk, kc, kw), 1)
+    torch.cuda.empty_cache()
+    ops = 2.0 * B * n_total * d_pad
+    peak = PEAK_INT8 if int8 else PEAK_BF16
+    nbytes = (q.numel() * q.element_size() + tbl.numel() * tbl.element_size()
+              + 4 * n_total * (2 if "col_scale" in kw else 1)
+              + (4 * B if "row_scale" in kw else 0)
+              + B * n_p * kc * ((2 if int8 else 4) + 8))
+    bound = max(ops / peak, nbytes / PEAK_BYTES) * 1e3
+    ms = float(np.median(kern))
+    say(f"phase 4 sweep_topk ({lane}: [{B} x {n_total}] {q.dtype} in "
+        f"{n_p} piece(s) of {piece}, d_pad {d_pad}, kc {kc}): {ms:.3f} ms "
+        f"a launch ({100 * bound / ms:.1f}% of the bound {bound:.3f} ms, "
+        f"{ops / 1e12:.2f} T{'OP' if int8 else 'FLOP'}, "
+        f"{nbytes / 1e9:.3f} GB; turns {[round(x, 3) for x in kern]}), "
+        f"the two-step route in chunks of {chunk} "
+        f"{np.median(old):.3f} ms (turns "
+        f"{[round(x, 3) for x in old]}), library mm + topk "
+        f"{library_ms:.3f} ms, plain {plain_ms:.1f} ms (blocks of "
+        f"{plain_rows or TOPK_PLAIN_ROWS} rows, host clock); ids "
+        f"equal {share:.5f}, max err {err:.3g}, two runs identical {twice}")
+    return {
+        "B": B, "n_total": n_total, "piece": piece, "chunk": chunk,
+        "kc": kc, "d_pad": d_pad, "dtype": str(q.dtype), "ms": ms,
+        "ms_turns": kern, "two_step_ms": float(np.median(old)),
+        "two_step_turns": old, "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "bound_ms": bound,
+        "bound_by": "operations" if ops / peak >= nbytes / PEAK_BYTES
+        else "bytes", "ids_equal": share, "max_abs_err": err}
+
+
+def time_sweep(st, qs, reps):
+    """Phase 4 for `sweep_topk` at each chunk step of the main path
+    (`sweep_main_shapes`, `time_sweep_shape`).  Returns its entry of the
+    `kernels` line (the bf16 lane's numbers; every shape under "shapes",
+    phase 3b's wide rows added at the end of the run), its launches by
+    path filled in at the end of the run."""
+    import torch
+
     shapes = {}
     for lane, q, tbl, chunk, kc, kw in sweep_main_shapes(st, qs):
-        B, d_pad = q.shape
-        n_total = tbl.shape[0]
-        # the kernel at the piece the lanes hand it; the old route a chunk
-        # at a time, as it ran
-        piece = ek.sweep_piece(n_total, chunk, B, d_pad, kc,
-                               q.dtype == torch.int8, q.device)
-        n_p = n_total // piece
-        got = ek.sweep_topk(q, tbl, piece, kc, **kw)
-        t0 = time.time()
-        want = sweep_plain_blocks(q, tbl, piece, kc, kw)
-        torch.cuda.synchronize()
-        plain_ms = 1e3 * (time.time() - t0)
-        again = ek.sweep_topk(q, tbl, piece, kc, **kw)
-        torch.cuda.synchronize()
-        ok, share, err = sweep_values_agree(got, want)
-        twice = topk_same(got, again)
-        del got, want, again
-        if not (ok and twice):
-            raise SystemExit(f"phase 4 failed: sweep_topk disagrees with "
-                             f"plain ({lane}: ids equal {share}, max err "
-                             f"{err})")
-        out = ek._chunk_buffers(B, n_p, kc, torch.bfloat16 if q.dtype ==
-                                torch.int8 else torch.float32, q.device)
-        out_old = ek._chunk_buffers(B, n_total // chunk, kc, out[0].dtype,
-                                    q.device)
-        kern, old = [], []
-        for _ in range(SWEEP_TURNS):
-            kern.append(cuda_ms(lambda: ek.sweep_topk(q, tbl, piece, kc,
-                                                      out=out, **kw), reps))
-            old.append(cuda_ms(lambda: ek.sweep_two_step(
-                q, tbl, chunk, kc, kw["bias"], kw.get("col_scale"),
-                kw.get("row_scale"), 0, out_old), 1))
-        del out_old
-        torch.cuda.empty_cache()
-        library_ms = cuda_ms(lambda: sweep_library(q, tbl, chunk, kc, kw), 1)
-        torch.cuda.empty_cache()
-        ops = 2.0 * B * n_total * d_pad
-        peak = PEAK_INT8 if q.dtype == torch.int8 else PEAK_BF16
-        nbytes = (q.numel() * q.element_size() + tbl.numel() * tbl.element_size()
-                  + 4 * n_total * (2 if "col_scale" in kw else 1)
-                  + (4 * B if "row_scale" in kw else 0)
-                  + B * n_p * kc * ((2 if q.dtype == torch.int8 else 4) + 8))
-        bound = max(ops / peak, nbytes / PEAK_BYTES) * 1e3
-        ms = float(np.median(kern))
-        shapes[lane] = {
-            "B": B, "n_total": n_total, "piece": piece, "chunk": chunk,
-            "kc": kc,
-            "d_pad": d_pad, "dtype": str(q.dtype), "ms": ms, "ms_turns": kern,
-            "two_step_ms": float(np.median(old)), "two_step_turns": old,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
-            "bound_by": "operations" if ops / peak >= nbytes / PEAK_BYTES
-            else "bytes", "ids_equal": share, "max_abs_err": err}
-        say(f"phase 4 sweep_topk ({lane}: [{B} x {n_total}] {q.dtype} in "
-            f"{n_p} piece(s) of {piece}, d_pad {d_pad}, kc {kc}): {ms:.3f} ms "
-            f"a launch ({100 * bound / ms:.1f}% of the bound {bound:.3f} ms, "
-            f"{ops / 1e12:.2f} T{'OP' if q.dtype == torch.int8 else 'FLOP'}, "
-            f"{nbytes / 1e9:.3f} GB; turns {[round(x, 3) for x in kern]}), "
-            f"the old two-step route in chunks of {chunk} "
-            f"{np.median(old):.3f} ms (turns "
-            f"{[round(x, 3) for x in old]}), library mm + topk "
-            f"{library_ms:.3f} ms, plain {plain_ms:.1f} ms (blocks of "
-            f"{TOPK_PLAIN_ROWS} rows, host clock); ids equal {share:.5f}, "
-            f"max err {err:.3g}, two runs identical {twice}")
-        del q, tbl, kw, out
+        shapes[lane] = time_sweep_shape(lane, q, tbl, chunk, kc, kw, reps)
+        del q, tbl, kw
         torch.cuda.empty_cache()
     main = shapes["bf16 lane"]
     return {
@@ -4142,9 +4278,14 @@ def time_sweep(st, qs, reps):
     }
 
 
+# phase 3b's chunk steps at 768-wide rows, timed as phase 4's
+# (`time_wide_sweep`), added to sweep_topk's entry at the end of the run
+WIDE_SWEEP_SHAPES = {}
+
+
 def finish_topk_entry(kernels):
     """slab_topk's and sweep_topk's entries gain the launches counted on
-    each path, sweep_topk's also its calls on the two-step route."""
+    each path, sweep_topk's also phase 3b's wide shapes."""
     for entry in kernels:
         by = {"slab_topk": TOPK_LAUNCHES, "sweep_topk": SWEEP_LAUNCHES}.get(
             entry["name"])
@@ -4152,7 +4293,9 @@ def finish_topk_entry(kernels):
             entry["launches_by_path"].update(by)
             entry["launches"] = sum(entry["launches_by_path"].values())
         if entry["name"] == "sweep_topk":
-            entry["two_step_calls_by_path"] = dict(TWO_STEP_CALLS)
+            entry["shapes"].update(WIDE_SWEEP_SHAPES)
+            entry["max_abs_err"] = max(v["max_abs_err"]
+                                       for v in entry["shapes"].values())
 
 
 def phase_beam_quick(n):
@@ -4409,9 +4552,10 @@ def backlog_turns(db, scripts, want):
     return turns
 
 
-# (a)'s gate: through `serve`, no collector pass inside the burst, nor the
-# next full pass after it (brought forward by `gc.collect()`: it walks what
-# the collector's own next full pass would), may take this long.  A small
+# (a)'s gate: through `serve`, no collector pass while PageRank's answer is
+# built, nor inside the burst, nor the next full pass after it (brought
+# forward by `gc.collect()`: it walks what the collector's own next full
+# pass would), may take this long.  A small
 # join over HTTP takes 30-60 ms at p50 and under 100 ms at p99 on a quiet
 # heap (PERF.md §5); a pass past 100 ms at least doubles the requests it
 # stops, where a full pass over the heap the server found took 0.5-0.9 s.
@@ -4530,9 +4674,9 @@ def gc_turn(db, scripts, want, direct, repaired, census=False, extra=None):
     before (a `CozoHTTPServer` alone, over list maps: `list_maps`); PageRank
     over HTTP, a large answer (its ranks bit-equal to `direct`), then
     (`census`) the heap by owner, the burst, one timed full pass, and
-    `extra(url)` where given; through `serve`, a pass of GC_PASS_BAR_MS in
-    the burst or in that full pass fails the run.  Returns the turn's
-    numbers."""
+    `extra(url)` where given; through `serve`, a pass of GC_PASS_BAR_MS
+    while the answer is built, in the burst or in that full pass fails the
+    run.  Returns the turn's numbers."""
     import gc
     import threading
 
@@ -4574,11 +4718,13 @@ def gc_turn(db, scripts, want, direct, repaired, census=False, extra=None):
                 cache.slot_to_item = own
     if not (out["pagerank_bit_equal"] and out["small_join_rows_equal"]):
         raise SystemExit(f"phase 11 failed: {what}'s answers")
-    longest = max(out["gc_longest_ms"], out["full_pass_ms"])
+    longest = max(out["answer_gc_longest_ms"], out["gc_longest_ms"],
+                  out["full_pass_ms"])
     if repaired and not longest < GC_PASS_BAR_MS:
         raise SystemExit(f"phase 11 failed: a collector pass of "
-                         f"{longest:.1f} ms in or right after the burst "
-                         f"through {what} (bar {GC_PASS_BAR_MS} ms)")
+                         f"{longest:.1f} ms while the answer was built, in "
+                         f"the burst or right after it through {what} (bar "
+                         f"{GC_PASS_BAR_MS} ms)")
     return out
 
 
@@ -4654,8 +4800,8 @@ def phase_server(db):
     request dropped by a full listen queue where the kernel counts them),
     with no collection before it; then one timed full pass.  The first
     two turns count the heap by owner after the answer; the served turns
-    fail where a collector pass inside the burst, or that full pass,
-    reaches GC_PASS_BAR_MS.
+    fail where a collector pass while the answer is built, inside the
+    burst, or that full pass, reaches GC_PASS_BAR_MS.
     The first served turn carries an SSE change stream, the second a
     large write over HTTP; the burst then runs in turns through
     socketserver's listen backlog of 5 and `serve`'s (`backlog_turns`).
@@ -5169,12 +5315,19 @@ def synthetic_sweep_table(n, dev, seed=0):
 def sweep_only(args, dev):
     """--sweep-only: the loop for work on the chunk-step kernel: phase 2's
     sweep_topk cases, then phase 4's sweep_topk timings on a synthetic
-    table of --n rows (the main path's shape, no index)."""
+    table of --n rows (the main path's shape, no index) and at phase 3b's
+    768-wide shapes on a synthetic table of its size."""
+    import torch
+
     t0 = time.time()
     phase_sweep_vs_plain(dev)
     say(f"[{time.time() - t0:.1f}s] phase 2 (sweep_topk) done")
     st, qs = synthetic_sweep_table(args.n, dev)
     kernels = [time_sweep(st, qs, args.reps)]
+    del st, qs
+    torch.cuda.empty_cache()
+    time_wide_sweep(*synthetic_wide_table(dev))
+    finish_topk_entry(kernels)
     say(f"total {time.time() - t0:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
@@ -5217,7 +5370,8 @@ def main():
     ap.add_argument("--sweep-only", action="store_true",
                     help="build the kernels, hold sweep_topk to its plain "
                          "version and time it on a synthetic table of --n "
-                         "rows; no verdict")
+                         "rows and at phase 3b's 768-wide shapes; no "
+                         "verdict")
     ap.add_argument("--quality-main-draw", action="store_true",
                     help="with --hosts-only: the graph-quality check on "
                          "the first --n rows of the main path's draw and "

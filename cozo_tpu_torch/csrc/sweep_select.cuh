@@ -114,6 +114,11 @@ struct Cfg {
 template <int MODE, int CLUSTER>
 using CfgOf = Cfg<MODE <= LIST16 ? 2 : 1, MODE, CLUSTER>;
 
+// The wide rows' configuration (`sweep_topk.cu`, 128 < d_pad): one consumer
+// of 64 rows for every row state, blocks in pairs.
+template <int MODE>
+using WideCfg = Cfg<1, MODE, 2>;
+
 // What the kernel reads and writes beside the two matrices.
 struct Args {
   const float* bias;       // [n_total]
@@ -318,8 +323,10 @@ __device__ __forceinline__ void write_entry(const Args& a, long long o, u64 cv, 
 // The selection state of one consumer thread (KIND 0: bf16, 1: int8) and
 // its steps: `init` once, then for every tile `pass1` (after which the
 // tile's slot may be freed), `need` and, where it says so, `select`; then
-// `finish`.
-template <class C, int KIND>
+// `finish`.  WIDE: the int8 sums may pass 2^22 (d_pad > 128), converted to
+// f32 by round-to-nearest; below (d_pad <= 128: |s| <= 128 127^2 < 2^22)
+// by the cheaper magic number, exact there.
+template <class C, int KIND, bool WIDE = false>
 struct Select {
   static constexpr bool ROUND = KIND == 1;
   static constexpr int NL = C::LISTS ? C::L : 1;
@@ -415,8 +422,12 @@ struct Select {
 #pragma unroll
           for (int e2 = 0; e2 < 2; ++e2) {
             const int i = 4 * j + 2 * h + e2;
-            // |s| < 2^22: s + 1.5 2^23 is exact in f32, and so is the difference
-            const float f = __fsub_rn(__int_as_float((int)d[i] + 0x4B400000), 12582912.f);
+            // WIDE: `s32.astype(f32)`, exact below 2^24 (d_pad <= 1,040);
+            // else |s| < 2^22: s + 1.5 2^23 is exact in f32, and so is the
+            // difference
+            const float f =
+                WIDE ? __int2float_rn((int)d[i])
+                     : __fsub_rn(__int_as_float((int)d[i] + 0x4B400000), 12582912.f);
             x[i] = __fadd_rn(__fmul_rn(__fmul_rn(f, e2 ? c2.y : c2.x), rs[h]), e2 ? b.y : b.x);
             mx[h] = fmaxf(mx[h], x[i]);
           }

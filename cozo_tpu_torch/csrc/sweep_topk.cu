@@ -93,8 +93,10 @@
 // Where trouble is likely, and what the code does about it:
 //   1. Positions and ids: 64-bit ids, 32-bit positions within a piece.
 //   2. The int8 route is bit-equal to `int_mm` + `select_topk_plain`: exact
-//      s32 sums, s32 -> f32 exact (|s| < 2^22 at d_pad <= 128: the magic-
-//      number conversion), `__fmul_rn` / `__fadd_rn`, `__float2bfloat16_rn`.
+//      s32 sums, s32 -> f32 as `.float()` rounds (|s| <= 128 127^2 < 2^22
+//      at d_pad <= 128: the magic-number conversion, exact; the wide
+//      kernel's sums reach 1,024 127^2 > 2^22: `__int2float_rn`, exact
+//      below 2^24), `__fmul_rn` / `__fadd_rn`, `__float2bfloat16_rn`.
 //      The bf16 route's f32 sums follow the tensor core's order, not
 //      cuBLAS's: its callers compare with a tolerance.
 //   3. Rows past B in the last query tile read zeros (TMA fills out of
@@ -469,6 +471,454 @@ sweep_topk_kernel(const __grid_constant__ CUtensorMap map_q,
   sel.finish(a, piece_idx);
 }
 
+// ---- the wide rows: 128 < d_pad <= WIDE_MAX_D ------------------------------
+//
+// The same chunk step at rows of up to 2,048 bytes (bf16 d_pad 1,024), where
+// the narrow kernel's design does not fit: its consumers hold the query
+// rows' A fragments in registers (192 a thread at bf16 d_pad 768) and its
+// ring holds whole tiles (96 KB at bf16 d_pad 768).  Here:
+//   * one consumer warpgroup of 64 query rows a block, every row state, and
+//     blocks in pairs sharing each table tile by multicast (each loads 32
+//     rows): 128 query rows a table byte, the L2 stream's budget (a table
+//     byte feeds 2 operations a query row sharing it; the card needs about
+//     120 a byte that L2 delivers, 240 in int8);
+//   * `wgmma` with A from shared memory (SS form; A from registers, read
+//     once a chunk for two tiles, was slower: PERF.md §6) and the ring's
+//     stages one 128-byte K-chunk of a 64-row tile (8 KB): a tile's
+//     products are kcn = ceil(d_pad bytes / 128) chunks of four k-steps,
+//     for `wide_tiles` tiles at once (4 with the lists of 8, 2 past),
+//     chunk by chunk, into as many accumulator sets.  bf16: the group's
+//     stages of a chunk lie side by side (the stages a multiple of the
+//     group), so each chunk is one product of N = 128 / 256 (`wide_merge`),
+//     one in flight past the one issued; int8: one product a tile, the
+//     tiles in turns (their chains: one kept the tensor cores at 26-27% of
+//     their peak at bf16 d_pad 768, two 39%, four 43%; splitting a tile's
+//     chunks over two sets moved its sums off cuBLAS's order).  A chunk's
+//     stages are freed once a later product is issued and it is done (the
+//     CUTLASS main loop's shape);
+//   * the query rows resident in shared memory (kcn boxes of 64 x 128 B,
+//     loaded once) where that leaves MIN_WIDE_STAGES stages (and two
+//     products' worth) beside the row state, else streamed: a box with the
+//     first stage of each product, in a ring of their own beside the
+//     table's -- the heads' configurations, whose state is 128-160 KB a
+//     block;
+//   * the tiles' bias (and column scales) go through a ring of their own,
+//     `wide_vecs` slots with their own barriers, each freed after its tile's
+//     selection (held in a chunk's stage, they would pin it while the next
+//     tile's chunks wrap the ring onto it);
+//   * the tiles' selections after their products, not beside them.  The
+//     products of one chunk are 128 cycles of the tensor cores at their
+//     peak a tile in both kinds, a tile's 6-16 chunks; pass 1 is 50-100
+//     cycles a tile in bf16, ~300 in int8, where the conversion to f32 is
+//     the exact one (sums reach 768 127^2 > 2^22).  A group's pass 1 beside
+//     the next group's products (two sets of half as many tiles) was
+//     slower: 1.5-2.1x where ptxas serialised the products (C7514, C7518:
+//     an accumulator in flight fenced, an issue under a branch), 1.04-1.38x
+//     without (half the product chains in flight; PERF.md §6).
+// Shared memory of a block (232,448 bytes; `wide_layout`'s map; a stage 8
+// KB, and 8 KB of A a product where A is streamed; the vectors' ring 1-4
+// KB; A resident at d_pad 768 / 1,024: bf16 96 / 128 KB, int8 48 / 64 KB),
+// the stages at d_pad 768 / 1,024:
+//   * lists of 8 (no state): A resident; bf16 12 / 8, int8 16 / 16;
+//   * lists of 16 (a tail of 72 a row, 36.3 KB): A resident; bf16 10 / 6,
+//     int8 16 / 15;
+//   * head 128 (128.3 KB): bf16 A resident to d_pad 384 (6 stages there),
+//     streamed past it (8); int8 resident to 768 (5), streamed past it (5);
+//   * head 256 (160.3 KB): bf16 A streamed (4 stages); int8 resident to 256
+//     (5), streamed past it (3).
+// What bounds it: operations (bf16 2 B n d_pad at 989 TFLOP/s, int8 at
+// 1,979 TOP/s); beside it the L2 stream (the table once a pair of blocks,
+// and where A is streamed, A once a product).
+constexpr int WIDE_MAX_D = 1024;
+constexpr int MIN_WIDE_STAGES = 5;   // with A resident; else A streamed
+constexpr int MAX_WIDE_STAGES = 16;  // 128 KB of chunks: past the L2 latency
+// Tiles whose products a wide block keeps in flight at once, by row state:
+// four with the lists of 8 (their state is in registers already), two past.
+__host__ __device__ constexpr int wide_tiles(int mode) { return mode == LIST8 ? 4 : 2; }
+// The vectors' slots: two groups of tiles.
+__host__ __device__ constexpr int wide_vecs(int mode) { return 2 * wide_tiles(mode); }
+// The ring's stages one product reads: bf16 the group's tiles side by side
+// as one `wgmma` of N = 64 wide_tiles (7-17% faster at d_pad 768 than one
+// a tile), int8 one a tile (2-4% slower merged; PERF.md §6).
+__host__ __device__ constexpr int wide_merge(int kind, int mode) {
+  return kind == 0 ? wide_tiles(mode) : 1;
+}
+constexpr uint32_t Q_WBOX = BM * ROW;  // 8 KB: the query rows' K-chunk
+
+// The runtime map of a wide configuration (offsets from a 1,024-byte
+// boundary): A (resident) at 0, the ring's table chunks, the ring's A
+// chunks (A streamed: one a product's stages), the vectors' slots, the
+// selection's rows, the barriers (q_full, the stages' full and empty, the
+// slots' full and empty).
+struct Wide {
+  int kcn, stages, stream;
+  uint32_t ring, aring, vecs, sel, bar, bytes;
+};
+
+template <int KIND, class C>
+Wide wide_layout(int d_pad) {
+  constexpr uint32_t sel_bytes = C::SEL_BYTES;
+  constexpr int WIDE_VECS = wide_vecs(C::MODE);
+  constexpr int MG = wide_merge(KIND, C::MODE);
+  constexpr uint32_t VEC = TN * 4 * (KIND == 1 ? 2 : 1);
+  Wide w;
+  w.kcn = (d_pad * (KIND == 0 ? 2 : 1) + ROW - 1) / ROW;
+  // the selection, the vectors' slots and barriers, q_full, the alignment
+  const uint32_t fixed = sel_bytes + 16 + WIDE_VECS * (VEC + 16) + 8 + 1024;
+  const int least = MIN_WIDE_STAGES > 2 * MG ? MIN_WIDE_STAGES : 2 * MG;
+  for (w.stream = 0; w.stream < 2; ++w.stream) {
+    const uint32_t a_res = w.stream ? 0u : w.kcn * Q_WBOX;
+    // MG stages and, A streamed, their product's A chunk
+    const uint32_t per = MG * (T_BOX + 16) + (w.stream ? Q_WBOX : 0u);
+    const int fit =
+        a_res + fixed >= SMEM_MAX ? 0 : (int)((SMEM_MAX - a_res - fixed) / per) * MG;
+    const int most = MAX_WIDE_STAGES / MG * MG;
+    w.stages = fit < most ? fit : most;
+    w.ring = a_res;
+    if (w.stream || w.stages >= least) break;
+  }
+  w.aring = w.ring + w.stages * T_BOX;
+  w.vecs = w.aring + (w.stream ? (uint32_t)(w.stages / MG) * Q_WBOX : 0u);
+  w.sel = w.vecs + WIDE_VECS * VEC;
+  w.bar = (w.sel + sel_bytes + 15u) & ~15u;
+  w.bytes = w.bar + 8 * (1 + 2 * w.stages + 2 * WIDE_VECS) + 1024;
+  return w;
+}
+
+#define COZO_REGS64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define COZO_REGS128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
+// d (+)= A[64 x 16] . B[64 x 16]^T (bf16, f32 sums) or A[64 x 32] .
+// B[64 x 32]^T (s8, exact s32 sums), both from shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " COZO_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}"
+      : COZO_R32("+f")
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss(int (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " COZO_REGS32 ", %32, %33, p;\n}"
+      : COZO_R32("+r")
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// The same for 2 or 4 tiles side by side in shared memory as one product
+// of N = 128 / 256: the accumulators of tile t are dt (the fragment of
+// columns 64 t ... is laid out as an m64n64 one).
+#define COZO_Q4(c, a, i) c(a[i]), c(a[i + 1]), c(a[i + 2]), c(a[i + 3])
+#define COZO_Q32(c, a)                                                                  \
+  COZO_Q4(c, a, 0), COZO_Q4(c, a, 4), COZO_Q4(c, a, 8), COZO_Q4(c, a, 12), COZO_Q4(c, a, 16), \
+      COZO_Q4(c, a, 20), COZO_Q4(c, a, 24), COZO_Q4(c, a, 28)
+__device__ __forceinline__ void wgmma_ss2(float (&d0)[32], float (&d1)[32], uint64_t da,
+                                          uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " COZO_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n}"
+      : COZO_Q32("+f", d0), COZO_Q32("+f", d1)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss2(int (&d0)[32], int (&d1)[32], uint64_t da, uint64_t db,
+                                          int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " COZO_REGS64 ", %64, %65, p;\n}"
+      : COZO_Q32("+r", d0), COZO_Q32("+r", d1)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss4(float (&d0)[32], float (&d1)[32], float (&d2)[32],
+                                          float (&d3)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " COZO_REGS128
+      ", %128, %129, p, 1, 1, 0, 0;\n}"
+      : COZO_Q32("+f", d0), COZO_Q32("+f", d1), COZO_Q32("+f", d2), COZO_Q32("+f", d3)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss4(int (&d0)[32], int (&d1)[32], int (&d2)[32],
+                                          int (&d3)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " COZO_REGS128 ", %128, %129, p;\n}"
+      : COZO_Q32("+r", d0), COZO_Q32("+r", d1), COZO_Q32("+r", d2), COZO_Q32("+r", d3)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <class A>
+__device__ __forceinline__ void wgmma_group(A (&d)[2][32], uint64_t da, uint64_t db, int acc) {
+  wgmma_ss2(d[0], d[1], da, db, acc);
+}
+
+template <class A>
+__device__ __forceinline__ void wgmma_group(A (&d)[4][32], uint64_t da, uint64_t db, int acc) {
+  wgmma_ss4(d[0], d[1], d[2], d[3], da, db, acc);
+}
+
+// Arrives on the barrier at `bar`'s offset in block `cta` where p, with no
+// branch (it runs while products are in flight).
+__device__ __forceinline__ void mbar_arrive_cluster_if(uint32_t bar, uint32_t cta, bool p) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 ra;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [ra];\n}" ::"r"(bar),
+      "r"(cta), "r"((int)p)
+      : "memory");
+}
+
+// KIND 0: bf16, 1: int8.  The grid as the narrow kernel's; the tiles go in
+// groups (e, ..., e + G - 1) of the stride order, and the ring's sequence
+// holds chunk c of the group's tile t at g = e kcn + G c + t, stage g mod
+// stages (a multiple of the stages a product reads, so that a merged
+// product's stages lie side by side).
+template <int KIND, class C>
+__global__ void __launch_bounds__(C::NTHREADS, 1)
+sweep_topk_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_t, const Args a, const Wide w) {
+  static_assert(C::NCONS == 1 && C::CLUSTER == 2, "the wide configuration");
+  typedef typename std::conditional<KIND == 0, float, int>::type Acc;
+  constexpr int ELEMS = ROW / (KIND == 0 ? 2 : 1);
+  constexpr int SHARE = TN / C::CLUSTER;
+  constexpr uint32_t VEC = TN * 4 * (KIND == 1 ? 2 : 1);
+  constexpr int G = wide_tiles(C::MODE);
+  constexpr int MG = wide_merge(KIND, C::MODE);
+  constexpr int WIDE_VECS = wide_vecs(C::MODE);
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = aligned_smem_base(smem_raw);
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t q_full = base + w.bar, full = q_full + 8, empty = full + 8 * w.stages;
+  const uint32_t vfull = empty + 8 * w.stages, vempty = vfull + 8 * WIDE_VECS;
+
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(FULL, tid >> 7, 0);
+  const int piece_idx = (int)(blockIdx.x / (unsigned)a.n_qt_c);
+  const int qt = (int)(blockIdx.x % (unsigned)a.n_qt_c);
+  const bool idle = qt >= a.n_qt;
+  const int n_tiles = a.piece / TN;
+  const int kcn = w.kcn;
+  const uint32_t rank = cluster_rank();
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < w.stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * C::NCONS * C::CLUSTER);
+    }
+    for (int s = 0; s < WIDE_VECS; ++s) {
+      mbar_init(vfull + 8 * s, 1);
+      mbar_init(vempty + 8 * s, 4 * C::NCONS);  // this block's consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();
+
+  if (wg == C::NCONS) {
+    // ===== producer: the query rows once (or a chunk with a product's
+    // first stage), each tile's vectors (not for an idle block), its share
+    // of every table chunk
+    if (tid == 128 * C::NCONS) {
+      const bool own_a = w.stream && !idle;
+      if (!idle && !w.stream) {
+        mbar_expect_tx(q_full, kcn * Q_WBOX);
+        for (int c = 0; c < kcn; ++c)
+          tma_load_2d(base + c * Q_WBOX, &map_q, q_full, c * ELEMS, qt * C::RB);
+      }
+      const long long col_base = (long long)piece_idx * a.piece;
+      int stage = 0;
+      uint32_t round = 0;
+      for (int e = 0, tile = 0; e < n_tiles; e += G) {
+        long long col[G];
+        for (int t = 0; t < G; ++t, tile = next_tile(tile, a.stride, n_tiles)) {
+          col[t] = col_base + (long long)tile * TN;
+          if (idle) continue;
+          const int v = (e + t) % WIDE_VECS;
+          if (e + t >= WIDE_VECS)
+            mbar_wait(vempty + 8 * v, (uint32_t)((e + t) / WIDE_VECS - 1) & 1);
+          const uint32_t vec = base + w.vecs + v * VEC;
+          mbar_expect_tx(vfull + 8 * v, VEC);
+          bulk_load(vec, a.bias + col[t], TN * 4, vfull + 8 * v);
+          if (KIND == 1) bulk_load(vec + TN * 4, a.col_scale + col[t], TN * 4, vfull + 8 * v);
+        }
+        for (int c = 0; c < kcn; ++c)
+          for (int t = 0; t < G; ++t) {
+            if (round > 0) mbar_wait(empty + 8 * stage, (round - 1) & 1);
+            const uint32_t bar = full + 8 * stage;
+            const bool with_a = own_a && stage % MG == 0;
+            mbar_expect_tx(bar, T_BOX + (with_a ? Q_WBOX : 0u));
+            tma_load_2d_mc(base + w.ring + stage * T_BOX + rank * (SHARE * ROW), &map_t, bar,
+                           c * ELEMS, (int)(col[t] + rank * SHARE),
+                           (uint16_t)((1u << C::CLUSTER) - 1));
+            if (with_a)
+              tma_load_2d(base + w.aring + (stage / MG) * Q_WBOX, &map_q, bar, c * ELEMS,
+                          qt * C::RB);
+            if (++stage == w.stages) {
+              stage = 0;
+              ++round;
+            }
+          }
+      }
+      // every slot's last release, the other block's included
+      for (int i = 0; i < w.stages; ++i) {
+        if (round > 0) mbar_wait(empty + 8 * stage, (round - 1) & 1);
+        if (++stage == w.stages) {
+          stage = 0;
+          ++round;
+        }
+      }
+    }
+    return;
+  }
+
+  // ===== the consumer warpgroup =====
+  const int lane = tid & 31;
+  // frees stage g's slot in both blocks of the pair (after the warp's reads)
+  auto release = [&](int g) {
+    const uint32_t bar = empty + 8 * (uint32_t)(g % w.stages);
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < C::CLUSTER; ++r) mbar_arrive_cluster_if(bar, (uint32_t)r, lane == 0);
+  };
+  const int n_chunks = n_tiles * kcn;
+  if (idle) {
+    for (int g = 0; g < n_chunks; ++g) {
+      mbar_wait(full + 8 * (g % w.stages), (uint32_t)(g / w.stages) & 1);
+      release(g);
+    }
+    return;
+  }
+
+  Select<C, KIND, true> sel;
+  sel.init(tid, qt, a, gbase + w.sel);
+  if (!w.stream) mbar_wait(q_full, 0);
+
+  auto vec_of = [&](int e) {
+    const int v = e % WIDE_VECS;
+    mbar_wait(vfull + 8 * v, (uint32_t)(e / WIDE_VECS) & 1);
+    return reinterpret_cast<const float*>(gbase + w.vecs + v * VEC);
+  };
+  auto free_vec = [&](int e) {
+    __syncwarp();
+    if (lane == 0)
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(vempty + 8 * (e % WIDE_VECS))
+                   : "memory");
+  };
+  // a product's n stages from g's on landed; its A and B descriptors
+  auto wait_stages = [&](int g, int n) {
+    const int stage = g % w.stages;
+    for (int t = 0; t < n; ++t) mbar_wait(full + 8 * (stage + t), (uint32_t)(g / w.stages) & 1);
+  };
+  auto desc_a = [&](int g, int c) {
+    const int stage = g % w.stages;
+    return mma_desc(w.stream ? base + w.aring + (stage / MG) * Q_WBOX : base + c * Q_WBOX);
+  };
+  auto desc_b = [&](int g) { return mma_desc(base + w.ring + (g % w.stages) * T_BOX); };
+  // chunk c of one tile, at g in the ring's sequence, into d (added to it
+  // where acc), once its stage has landed
+  auto issue = [&](Acc(&d)[32], int g, int c, bool acc) {
+    wait_stages(g, 1);
+    const uint64_t da = desc_a(g, c), db = desc_b(g);
+    acc_fence(d);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_ss(d, da + 2 * ks, db + 2 * ks, acc || ks > 0);
+    wgmma_commit();
+  };
+  int tile = 0;
+  // the e-th tile's selection on its products d, then its vectors' slot freed
+  auto select_tile = [&](const Acc(&d)[32], int e) {
+    const float* vec = vec_of(e);
+    float x[32], mx[2];
+    sel.pass1(d, vec, x, mx);
+    if (sel.need(mx, tile)) sel.select(d, x, tile, vec);
+    free_vec(e);
+    tile = next_tile(tile, a.stride, n_tiles);
+  };
+  Acc d[G][32];
+  // bf16: chunk c of every tile of the group, its G stages from g on, as
+  // one product of N = 64 G
+  auto issue_group = [&](int g, int c, bool acc) {
+    wait_stages(g, G);
+    const uint64_t da = desc_a(g, c), db = desc_b(g);
+#pragma unroll
+    for (int t = 0; t < G; ++t) acc_fence(d[t]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_group(d, da + 2 * ks, db + 2 * ks, acc || ks > 0);
+    wgmma_commit();
+  };
+  auto free_group = [&](int g) {
+#pragma unroll
+    for (int t = 0; t < G; ++t) release(g + t);
+  };
+  // the group's chunks one product each, one in flight past the one issued
+  auto products_merged = [&](int g0) {
+    for (int c = 0; c < kcn; ++c) {
+      issue_group(g0 + G * c, c, c > 0);
+      wgmma_wait<1>();
+      if (c > 0) free_group(g0 + G * (c - 1));
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int t = 0; t < G; ++t) acc_fence(d[t]);
+    free_group(g0 + G * (kcn - 1));
+  };
+  // int8: the products of the group of G tiles whose chunks start at g0:
+  // chunk c of tile t into d[t] (G chains of dependent products in flight
+  // at once), each chunk's stage freed once G - 1 later ones are issued and
+  // it is done.
+  auto products_tiles = [&](int g0) {
+#pragma unroll
+    for (int t = 0; t < G; ++t) {
+      issue(d[t], g0 + t, 0, false);
+      wgmma_wait<G - 1>();
+      if (t == G - 1) release(g0);
+    }
+    for (int c = 1; c < kcn; ++c) {
+#pragma unroll
+      for (int t = 0; t < G; ++t) {
+        issue(d[t], g0 + G * c + t, c, true);
+        wgmma_wait<G - 1>();
+        release(g0 + G * c + t - G + 1);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int t = 0; t < G; ++t) acc_fence(d[t]);
+    for (int k = G * kcn - G + 1; k < G * kcn; ++k) release(g0 + k);
+  };
+  for (int e = 0; e < n_tiles; e += G) {
+    if (MG > 1)
+      products_merged(e * kcn);
+    else
+      products_tiles(e * kcn);
+#pragma unroll
+    for (int t = 0; t < G; ++t) select_tile(d[t], e + t);
+  }
+  sel.finish(a, piece_idx);
+}
+
 // ---- host side -----------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -593,6 +1043,62 @@ int slots_kc(int kc) {
   }
 }
 
+template <int KIND, class C>
+int launch_wide(const void* q, const void* tbl, long long n_total, int d_pad, Args a,
+                cudaStream_t stream) {
+  const Wide w = wide_layout<KIND, C>(d_pad);
+  const int least = 2 * wide_merge(KIND, C::MODE) > 3 ? 2 * wide_merge(KIND, C::MODE) : 3;
+  if (w.stages < least) return (int)cudaErrorInvalidValue;
+  a.n_qt = (a.B + C::RB - 1) / C::RB;
+  a.n_qt_c = (a.n_qt + C::CLUSTER - 1) / C::CLUSTER * C::CLUSTER;
+  const long long blocks = (n_total / a.piece) * (long long)a.n_qt_c;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap map_q, map_t;
+  int err = make_map(&map_q, q, a.B, d_pad, KIND, C::RB);
+  if (!err) err = make_map(&map_t, tbl, n_total, d_pad, KIND, TN / C::CLUSTER);
+  if (err) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  auto kernel = sweep_topk_wide_kernel<KIND, C>;
+  err = (int)launch_config<C>(kernel, w.bytes, (unsigned)blocks, stream, &cfg, &attr);
+  if (err) return err;
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, map_q, map_t, a, w);
+  return err ? err : (int)cudaGetLastError();
+}
+
+template <int KIND, class C>
+int slots_wide(int d_pad) {
+  const Wide w = wide_layout<KIND, C>(d_pad);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  auto kernel = sweep_topk_wide_kernel<KIND, C>;
+  cudaError_t e = launch_config<C>(kernel, w.bytes, 1024u * C::CLUSTER, nullptr, &cfg, &attr);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return e == cudaSuccess ? n * C::CLUSTER : -(int)e;
+}
+
+template <int KIND>
+int launch_wide_kc(const void* q, const void* tbl, long long n_total, int d_pad, const Args& a,
+                   cudaStream_t s) {
+  switch (mode_of(a.kc)) {
+    case LIST8: return launch_wide<KIND, WideCfg<LIST8>>(q, tbl, n_total, d_pad, a, s);
+    case LIST16: return launch_wide<KIND, WideCfg<LIST16>>(q, tbl, n_total, d_pad, a, s);
+    case HEAD128: return launch_wide<KIND, WideCfg<HEAD128>>(q, tbl, n_total, d_pad, a, s);
+    default: return launch_wide<KIND, WideCfg<HEAD256>>(q, tbl, n_total, d_pad, a, s);
+  }
+}
+
+template <int KIND>
+int slots_wide_kc(int d_pad, int kc) {
+  switch (mode_of(kc)) {
+    case LIST8: return slots_wide<KIND, WideCfg<LIST8>>(d_pad);
+    case LIST16: return slots_wide<KIND, WideCfg<LIST16>>(d_pad);
+    case HEAD128: return slots_wide<KIND, WideCfg<HEAD128>>(d_pad);
+    default: return slots_wide<KIND, WideCfg<HEAD256>>(d_pad);
+  }
+}
+
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
@@ -605,15 +1111,17 @@ extern "C" {
 // (null for bf16).  out_v (f32, or bf16 for int8) and out_i (int64) hold
 // B rows `ldo` apart; piece p writes its kc columns from p kc on, ids =
 // p piece + position + id_off.  Needs B >= 1, d_pad % 16 == 0, d_pad <=
-// 128, piece % 256 == 0, n_total % piece == 0, 1 <= kc <= min(256, piece),
-// ldo >= kc n_total / piece.  Returns 0 when the kernel was launched, else
+// 1,024, piece % 256 == 0, n_total % piece == 0, 1 <= kc <= min(256, piece),
+// ldo >= kc n_total / piece.  d_pad <= 128 runs the narrow kernel, wider
+// rows the wide one.  Returns 0 when the kernel was launched, else
 // a cudaError_t (> 0) or a negated CUresult (< 0).
 // Allocates nothing, does not synchronise.
 int cozo_sweep_topk(const void* q, const void* tbl, int kind, int B, long long n_total, int d_pad,
                     int piece, int kc, const void* bias, const void* col_scale,
                     const void* row_scale, void* out_v, void* out_i, long long ldo,
                     long long id_off, void* stream) {
-  if (kind < 0 || kind > 1 || B < 1 || d_pad < 16 || d_pad % 16 || d_pad > 128 || piece < PIECE_ALIGN ||
+  if (kind < 0 || kind > 1 || B < 1 || d_pad < 16 || d_pad % 16 || d_pad > WIDE_MAX_D ||
+      piece < PIECE_ALIGN ||
       piece % PIECE_ALIGN || n_total < piece || n_total % piece || kc < 1 || kc > MAX_KC ||
       kc > piece || ldo < (long long)kc * (n_total / piece) || !bias ||
       (kind == 1) != (col_scale != nullptr) || (kind == 1) != (row_scale != nullptr) ||
@@ -634,24 +1142,32 @@ int cozo_sweep_topk(const void* q, const void* tbl, int kind, int B, long long n
   a.n_qt = a.n_qt_c = 0;
   a.stride = stride_of(piece / TN);
   cudaStream_t s = (cudaStream_t)stream;
+  if (d_pad > 128)
+    return kind == 1 ? launch_wide_kc<1>(q, tbl, n_total, d_pad, a, s)
+                     : launch_wide_kc<0>(q, tbl, n_total, d_pad, a, s);
   if (kind == 1) return launch_kc<1, 1>(q, tbl, n_total, d_pad, a, s);
   return d_pad <= 64 ? launch_kc<0, 1>(q, tbl, n_total, d_pad, a, s)
                      : launch_kc<0, 2>(q, tbl, n_total, d_pad, a, s);
 }
 
-// The query rows a block owns for this kind at this kc (the launch's tile).
-int cozo_sweep_topk_rows(int kind, int kc) {
+// The query rows a block owns for this kind, d_pad and kc (the launch's
+// tile).
+int cozo_sweep_topk_rows(int kind, int d_pad, int kc) {
   (void)kind;
+  if (d_pad > 128) return WideCfg<LIST8>::RB;
   return mode_of(kc) <= LIST16 ? CfgOf<LIST8, 1>::RB : CfgOf<HEAD128, 1>::RB;
 }
 
-// The blocks in a cluster for this kind at this kc (the launch rounds the
+// The blocks in a cluster for this kind, d_pad and kc (the launch rounds the
 // query tiles up to it).
-int cozo_sweep_topk_cluster(int kind, int kc) { return cluster_of(kind, mode_of(kc)); }
+int cozo_sweep_topk_cluster(int kind, int d_pad, int kc) {
+  return d_pad > 128 ? WideCfg<LIST8>::CLUSTER : cluster_of(kind, mode_of(kc));
+}
 
 // The blocks of the launch for (kind, d_pad, kc) that the card holds at
 // once, or minus a cudaError_t.
 int cozo_sweep_topk_slots(int kind, int d_pad, int kc) {
+  if (d_pad > 128) return kind == 1 ? slots_wide_kc<1>(d_pad, kc) : slots_wide_kc<0>(d_pad, kc);
   if (kind == 1) return slots_kc<1, 1>(kc);
   return d_pad <= 64 ? slots_kc<0, 1>(kc) : slots_kc<0, 2>(kc);
 }

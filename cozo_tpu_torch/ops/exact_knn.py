@@ -261,7 +261,7 @@ def _topk_run(lib, x, kf, col_scale, row_scale, bias, bf16, offset, out,
 
 # -- the chunk step: csrc/sweep_topk.cu ---------------------------------------
 
-SWEEP_MAX_D = 128     # the kernel's widest row (d_pad)
+SWEEP_MAX_D = 1024    # the kernel's widest row (d_pad; past 128 its wide form)
 SWEEP_MAX_KC = 256    # its largest kc
 SWEEP_PIECE = 256     # a piece is a multiple of this many table rows
 SWEEP_FILL = 0.9      # `sweep_piece`: the share of the SMs' waves enough
@@ -275,9 +275,9 @@ def _bind_sweep(lib: ctypes.CDLL) -> ctypes.CDLL:
     if lib.cozo_sweep_topk.argtypes is None:
         lib.cozo_sweep_topk.argtypes = _SWEEP_ARGTYPES
         lib.cozo_sweep_topk.restype = ctypes.c_int
-        lib.cozo_sweep_topk_rows.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.cozo_sweep_topk_rows.argtypes = [ctypes.c_int] * 3
         lib.cozo_sweep_topk_rows.restype = ctypes.c_int
-        lib.cozo_sweep_topk_cluster.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.cozo_sweep_topk_cluster.argtypes = [ctypes.c_int] * 3
         lib.cozo_sweep_topk_cluster.restype = ctypes.c_int
         lib.cozo_sweep_topk_slots.argtypes = [ctypes.c_int] * 3
         lib.cozo_sweep_topk_slots.restype = ctypes.c_int
@@ -299,8 +299,8 @@ def _sweep_block_shape(lib, device_index: int, kind: int, d_pad: int,
         slots = lib.cozo_sweep_topk_slots(kind, d_pad, kc)
     if slots <= 0:
         raise RuntimeError(f"sweep_piece: the occupancy query failed ({slots})")
-    return (lib.cozo_sweep_topk_rows(kind, kc),
-            lib.cozo_sweep_topk_cluster(kind, kc), slots)
+    return (lib.cozo_sweep_topk_rows(kind, d_pad, kc),
+            lib.cozo_sweep_topk_cluster(kind, d_pad, kc), slots)
 
 
 def sweep_piece(n_total: int, chunk: int, B: int, d_pad: int, kc: int,
@@ -456,9 +456,11 @@ def sweep_topk(q: torch.Tensor, tbl: torch.Tensor, piece: int, kc: int,
     CUDA tensors: the route `sweep_route(d_pad, kc, piece)` names, chosen
     before any launch: "kernel" launches `csrc/sweep_topk.cu` once on the
     current stream for every piece (counted in `sweep_topk.launches`),
-    with no slab in device memory; "two_step" (d_pad > 128, kc > 256 or a
-    piece that is not a multiple of 256) runs each piece's product and
-    `select_topk` (counted in `sweep_topk.two_step`).
+    with no slab in device memory (rows past 128 wide in its wide form:
+    query rows in shared memory, the table's 128-byte K-chunks through
+    its ring); "two_step" (d_pad > 1,024, kc > 256 or a piece that is not
+    a multiple of 256) runs each piece's product and `select_topk`
+    (counted in `sweep_topk.two_step`).
     CPU tensors run `sweep_topk_plain`."""
     _check_sweep(q, tbl, piece, kc, bias, col_scale, row_scale, out)
     if q.device.type == "cpu":

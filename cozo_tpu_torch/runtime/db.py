@@ -147,12 +147,16 @@ class NamedRows:
         self.rows = rows
         self.next = next_rows
 
-    def to_dict(self) -> dict:
+    def to_dict(self, row=list) -> dict:
+        """The answer as JSON values, each row a `row` (list or tuple: the
+        same JSON text; the collector stops tracking a tuple of atoms at
+        its first pass, so a large answer's rows then add nothing to the
+        full passes that run while it is built)."""
         d = {
             "headers": self.headers,
-            "rows": [[to_json(v) for v in r] for r in self.rows],
+            "rows": [row(map(to_json, r)) for r in self.rows],
         }
-        d["next"] = self.next.to_dict() if self.next is not None else None
+        d["next"] = self.next.to_dict(row) if self.next is not None else None
         return d
 
     def __repr__(self):
@@ -255,6 +259,12 @@ class Db:
         params: Optional[Dict[str, Any]] = None,
         immutable: bool = False,
     ) -> NamedRows:
+        return self._run_script(payload, params, immutable, list)
+
+    def _run_script(self, payload: str, params: Optional[Dict[str, Any]],
+                    immutable: bool, row) -> NamedRows:
+        """`run_script` with a query's answer rows made by `row` (list, or
+        tuple for an answer that is only serialised)."""
         cur_vld = current_validity_ts()
         fast = self._fast_plans.get(payload)
         if fast is None and payload not in self._plan_cache:
@@ -262,7 +272,7 @@ class Db:
             prog0 = self._parse_cached(payload, params or {})
             fast = self._fast_plans.get(payload)
             if fast is None and prog0 is not None:
-                return self._execute_single(prog0, cur_vld, immutable)
+                return self._execute_single(prog0, cur_vld, immutable, row)
         if fast is not None:
             from ..query import fastpath
 
@@ -271,13 +281,13 @@ class Db:
                 return res
         prog = self._parse_cached(payload, params or {})
         if prog is not None:
-            return self._execute_single(prog, cur_vld, immutable)
+            return self._execute_single(prog, cur_vld, immutable, row)
         script = parse_script(payload, params or {})
         if isinstance(script, A.SysScript):
             return self.run_sys_op(script.op, immutable)
         if isinstance(script, A.ImperativeScript):
             return self._execute_imperative(script, cur_vld, immutable)
-        return self._execute_single(script.prog, cur_vld, immutable)
+        return self._execute_single(script.prog, cur_vld, immutable, row)
 
     def _parse_cached(self, payload: str, params: Dict[str, Any]):
         """Template cache: parse query scripts once with deferred params,
@@ -319,8 +329,8 @@ class Db:
         start = _time.time()
         try:
             params = _json.loads(params_json) if params_json else {}
-            res = self.run_script(payload, params)
-            d = res.to_dict()
+            res = self._run_script(payload, params, False, tuple)
+            d = res.to_dict(tuple)
             d["ok"] = True
             d["took"] = _time.time() - start
             return _json.dumps(d)
@@ -423,7 +433,7 @@ class Db:
             self._running.pop(qid, None)
 
     def _execute_single(
-        self, prog: InputProgram, cur_vld: int, immutable: bool
+        self, prog: InputProgram, cur_vld: int, immutable: bool, row=list
     ) -> NamedRows:
         write = prog.out_opts.store_relation is not None
         if write and immutable:
@@ -440,7 +450,7 @@ class Db:
         collector: Dict[str, list] = {}
         try:
             res = self._run_query_program(
-                tx, prog, cur_vld, cb_targets, collector, True, poison
+                tx, prog, cur_vld, cb_targets, collector, True, poison, row
             )
             tx.commit()
             self._send_callbacks(collector)
@@ -465,8 +475,13 @@ class Db:
         callback_collector: Dict[str, list],
         propagate_triggers: bool,
         poison: Optional[Poison] = None,
+        row=list,
     ) -> NamedRows:
+        """`row` makes each answer row (list, or tuple where the answer is
+        only serialised); rows a mutation writes are lists."""
         opts = prog.out_opts
+        if opts.store_relation is not None:
+            row = list
         if poison is None:
             poison = Poison()
         if opts.timeout is not None:
@@ -529,15 +544,19 @@ class Db:
                 # first tuples in generation order; output is then sorted
                 gen = list(store.total.values())[:limit_hint]
                 gen = gen[prog.out_opts.offset or 0:]
-                rows = _sort_value_order([list(r) for r in gen])
+                rows = _sort_value_order([row(r) for r in gen])
                 rows = rows[: prog.out_opts.limit]
                 limited = True
             elif store.presorted:
+                # the stored rows themselves where they are `row`s already
+                # (a bulk fixed rule's tuples, for the serialised answer)
                 rows = list(store.total.values())
+                if any(type(r) is not row for r in rows):
+                    rows = [row(r) for r in rows]
             else:
                 t_sort = _time.time()
                 rows = _sort_value_order(
-                    [list(r) for r in store.total.values()]
+                    [row(r) for r in store.total.values()]
                 )
                 t_sort = _time.time() - t_sort
             headers = self._entry_headers(prog)

@@ -17,13 +17,18 @@ host (f32 for the bf16 route, s32 for int8, of small integer inputs: every
 f32 sum exact), the tile's bias and column scales in shared memory as the
 kernel's ring holds them.
 
+Each row state is built twice: in the narrow kernel's configuration and in
+the wide one's (`-DSEL_WIDE=1`: one consumer of 64 rows for every state,
+the int8 sums converted by round-to-nearest).
+
 The cases: kc 1, 10, 26, 32 (lists of 8), 33, 64 (lists of 16), 65, 97,
 128 (head 128 and tail 128), 256 (head 256 and tail 64); both key kinds;
 "random" (2% dead columns), "ties" (integer keys: equal keys in every tile,
 and rows repeated across tiles), "zeros" (+-0.0: zero rows with a +-0.0
 bias, the first query zero), "dead" (3 live columns a piece: fewer than
 kc), "rising" (keys that rise along the piece: every tile of the order
-beats the threshold); two pieces of 512 columns, 70 or 130 query rows (a
+beats the threshold), and in the wide configuration "big" (sums past
+2^22); two pieces of 512 columns, 70 or 130 query rows (a
 ragged last tile of rows), an id offset.
 
 Tolerance: none.  Values and ids must be bit-equal to
@@ -64,6 +69,12 @@ HARNESS = r'''
 #include "sweep_select.cuh"
 using namespace cozo_sweep;
 
+#ifndef SEL_WIDE
+#define SEL_WIDE 0
+#endif
+// the narrow kernel's configuration of the row state, or the wide one's
+typedef typename std::conditional<SEL_WIDE, WideCfg<SEL_MODE>, CfgOf<SEL_MODE, 1>>::type Conf;
+
 template <int KIND, class C>
 __global__ void walk(const void* prod, long long n_total, Args a) {
   typedef typename std::conditional<KIND == 0, float, int>::type Acc;
@@ -73,7 +84,7 @@ __global__ void walk(const void* prod, long long n_total, Args a) {
   const int piece_idx = blockIdx.x / a.n_qt, qt = blockIdx.x % a.n_qt;
   const int n_tiles = a.piece / TN;
   const int wrow = (tid >> 7) * BM + ((tid & 127) >> 5) * 16;
-  Select<C, KIND> sel;
+  Select<C, KIND, SEL_WIDE> sel;
   sel.init(tid, qt, a, smem);
   for (int e = 0, tile = 0; e < n_tiles; ++e, tile = next_tile(tile, a.stride, n_tiles)) {
     if (tile != tile_of(e, n_tiles, a.stride)) abort();  // the two forms of the order
@@ -99,7 +110,7 @@ __global__ void walk(const void* prod, long long n_total, Args a) {
 
 template <int KIND>
 int run(const void* prod, long long n_total, Args a) {
-  typedef CfgOf<SEL_MODE, 1> C;
+  typedef Conf C;
   a.n_qt = a.n_qt_c = (a.B + C::RB - 1) / C::RB;
   a.stride = stride_of(a.piece / TN);
   const unsigned blocks = (unsigned)((n_total / a.piece) * a.n_qt);
@@ -128,7 +139,10 @@ int run_select(int kind, const void* prod, long long n_total, int B, int piece, 
   a.kc = kc;
   return kind == 0 ? run<0>(prod, n_total, a) : run<1>(prod, n_total, a);
 }
-int block_rows(int kc) { return mode_of(kc) <= LIST16 ? CfgOf<LIST8, 1>::RB : CfgOf<HEAD128, 1>::RB; }
+int block_rows(int kc) {
+  (void)kc;
+  return Conf::RB;
+}
 }
 '''
 
@@ -140,19 +154,27 @@ PIECE, N_PIECES, D, ID_OFF = 512, 2, 16, 1000
 COMPILE_TIMEOUT_S = 600
 
 
-def cases(mode):
+def cases(mode, wide=False):
     """(kind, kc, variant, B) of a row state: every kc, kind and variant,
-    B 70 and 130 in turn."""
+    B 70 and 130 in turn; for the wide kernel's configuration also "big"
+    (768-wide rows of integers near +-127: sums past 2^22, where the int8
+    route's conversion to f32 must round as `.float()` does)."""
     out = []
     for kc in KCS[mode]:
         for kind in KINDS:
-            for variant in VARIANTS:
+            for variant in VARIANTS + (("big",) if wide else ()):
                 out.append((kind, kc, variant, (70, 130)[len(out) % 2]))
     return out
 
 
-def case_ids(mode):
-    return [f"{k}-kc{kc}-{v}-B{B}" for k, kc, v, B in cases(mode)]
+def case_ids(mode, wide=False):
+    return [f"{k}-kc{kc}-{v}-B{B}" for k, kc, v, B in cases(mode, wide)]
+
+
+def build_wide(tmp_path_factory, mode):
+    """The harness of row state `mode` in the wide kernel's configuration
+    (one consumer of 64 rows, the exact conversion)."""
+    return build_lib(tmp_path_factory, mode, ("-DSEL_WIDE=1",))
 
 
 def build_lib(tmp_path_factory, mode, defines=()):
@@ -190,6 +212,9 @@ def inputs(kind, B, variant, seed):
     n = PIECE * N_PIECES
     q = rng.integers(-3, 4, (B, D))
     t = rng.integers(-3, 4, (n, D))
+    if variant == "big":  # |sums| up to 768 127^2 = 12,387,072 > 2^22
+        q = rng.integers(100, 128, (B, 768)) * rng.choice([-1, 1], (B, 1))
+        t = rng.integers(100, 128, (n, 768)) * rng.choice([-1, 1], (n, 1))
     bias = -rng.integers(0, 9, n).astype(np.float32) * 0.25
     bias[rng.random(n) < 0.02] = -np.inf
     cs = rng.integers(1, 4, n).astype(np.float32) * 0.25
@@ -253,10 +278,10 @@ def plain(kind, prod, kc, bias, cs, rs):
     return torch.cat(vals, 1), torch.cat(ids, 1)
 
 
-def check_case(lib, mode, i):
+def check_case(lib, mode, i, wide=False):
     """Case i of the row state: values and ids bit-equal to the plain
     version."""
-    kind, kc, variant, B = cases(mode)[i]
+    kind, kc, variant, B = cases(mode, wide)[i]
     prod, bias, cs, rs = inputs(kind, B, variant, i)
     got = run_source(lib, kind, prod, kc, bias, cs, rs)
     want = plain(kind, prod, kc, bias, cs, rs)

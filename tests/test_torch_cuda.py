@@ -728,11 +728,10 @@ def test_bf16_and_i8_lanes_launch_sweep_topk_the_others_slab_topk(cuda, cd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cd", ["bf16", "i8"])
-def test_wide_sweep_lanes_take_the_two_step_route(cuda, cd):
-    """At d = 768 (d_pad past the kernel's 128) `sweep_search`'s bf16 and
-    i8 lanes, as `HnswIndex.search` serves a batch of B >= 64 there, call
-    `sweep_topk` once on its two-step route (counted in
-    `sweep_topk.two_step`; the kernel not launched) and give the CPU's
+def test_wide_sweep_lanes_take_the_kernel_route(cuda, cd):
+    """At d = 768 (the kernel's wide form) `sweep_search`'s bf16 and i8
+    lanes, as `HnswIndex.search` serves a batch of B >= 64 there, launch
+    `sweep_topk` once (no call on its two-step route) and give the CPU's
     answers."""
     rng = np.random.default_rng(8)
     data = rng.standard_normal((5000, 768)).astype(np.float32)
@@ -746,20 +745,20 @@ def test_wide_sweep_lanes_take_the_two_step_route(cuda, cd):
                                 rerank_k=64 if cd == "i8" else None)
         if dev == "cuda":
             assert (ek.sweep_topk.launches, ek.sweep_topk.two_step) == (
-                before[0], before[1] + 1)
+                before[0] + 1, before[1])
     assert np.mean(got["cpu"][0] == got["cuda"][0]) > 0.99
     np.testing.assert_allclose(np.sort(got["cuda"][1], 1),
                                np.sort(got["cpu"][1], 1), atol=1e-5)
 
 
-SWEEP_CASES = [c for c in sweep_cases() if c[2] <= 4096]
+SWEEP_CASES = [c for c in sweep_cases() if c[2] <= 8192]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("i", range(len(SWEEP_CASES)),
                          ids=["-".join(map(str, c)) for c in SWEEP_CASES])
 def test_sweep_topk_matches_plain(cuda, i):
-    """Every case of `chip_smoke.py` phase 2 with pieces up to 4,096 rows,
+    """Every case of `chip_smoke.py` phase 2 with pieces up to 8,192 rows,
     by its measure (`sweep_agreement`: int8 bit-equal; bf16 values within
     1e-5 x max(1, |v|), ids equal on >= 99.9%, every other a near-tie), two
     runs identical, one launch each."""
@@ -778,10 +777,11 @@ def test_sweep_topk_matches_plain(cuda, i):
 
 @pytest.mark.cuda
 def test_sweep_topk_takes_the_two_step_route_past_its_shapes(cuda):
-    """d_pad 144, kc 300 and pieces of 128 rows take the product and
-    `slab_topk`, counted apart, with the plain version's answer; the
-    kernel is not launched."""
-    for d_pad, kc, piece in ((144, 26, 512), (128, 300, 512), (128, 26, 128)):
+    """d_pad 1,040 (past the wide form's 1,024), kc 300 and pieces of 128
+    rows take the product and `slab_topk`, counted apart, with the plain
+    version's answer; the kernel is not launched."""
+    for d_pad, kc, piece in ((1040, 26, 512), (128, 300, 512),
+                             (128, 26, 128)):
         q, tbl, kw = sweep_inputs("bf16", 5, 512, 2, d_pad, "random", 1, cuda)
         before = (ek.sweep_topk.launches, ek.sweep_topk.two_step)
         got = ek.sweep_topk(q, tbl, piece, kc, **kw)
@@ -807,24 +807,26 @@ def test_the_lanes_piece_divides_the_table(cuda, n_chunks, chunk, B, kc, int8):
     assert piece % ek.SWEEP_PIECE == 0 and n_total % piece == 0
     assert piece >= min(n_total, max(chunk // 8, ek.SWEEP_PIECE))
     # the two-step route keeps the chunk: its slab is a piece wide
-    assert ek.sweep_piece(n_total, chunk, B, 144, kc, int8, cuda) == chunk
+    assert ek.sweep_piece(n_total, chunk, B, 1040, kc, int8, cuda) == chunk
+    wide = ek.sweep_piece(n_total, chunk, B, 768, kc, int8, cuda)
+    assert wide % ek.SWEEP_PIECE == 0 and n_total % wide == 0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kc", [1, 32, 33, 64, 65, 128, 129, 256])
 @pytest.mark.parametrize("int8", [False, True])
 def test_sweep_topk_block_shape_and_slots(cuda, kc, int8):
-    """The kernel's query rows a block (128 with the lists, kc <= 64; 64
-    past), its cluster (1 or 2 blocks) and the blocks the card holds at
-    once: whole clusters, at least one a cluster's worth, at most the
-    SMs."""
+    """The kernel's query rows a block (to d_pad 128: 128 with the lists,
+    kc <= 64, 64 past; wider: 64, in pairs), its cluster (1 or 2 blocks)
+    and the blocks the card holds at once: whole clusters, at least one a
+    cluster's worth, at most the SMs."""
     lib = ek._sweep_lib()
-    assert lib.cozo_sweep_topk_rows(int(int8), kc) == (128 if kc <= 64
-                                                       else 64)
-    cluster = lib.cozo_sweep_topk_cluster(int(int8), kc)
-    assert cluster in (1, 2)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for d_pad in (16, 128):
+    for d_pad in (16, 128, 256, 768, 1024):
+        rows = lib.cozo_sweep_topk_rows(int(int8), d_pad, kc)
+        assert rows == (64 if d_pad > 128 or kc > 64 else 128)
+        cluster = lib.cozo_sweep_topk_cluster(int(int8), d_pad, kc)
+        assert cluster == 2 if d_pad > 128 else cluster in (1, 2)
         slots = lib.cozo_sweep_topk_slots(int(int8), d_pad, kc)
         assert cluster <= slots <= sms and slots % cluster == 0
 

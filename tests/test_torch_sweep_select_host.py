@@ -23,3 +23,17 @@ def test_sweep_select_on_the_host(lib, i):
     """Every kc of the row state, both kinds, every variant: values and ids
     bit-equal to the plain version."""
     host.check_case(lib, MODE, i)
+
+
+@pytest.fixture(scope="module")
+def lib_wide(tmp_path_factory):
+    return host.build_wide(tmp_path_factory, MODE)
+
+
+@pytest.mark.parametrize("i", range(len(host.cases(MODE, wide=True))),
+                         ids=host.case_ids(MODE, wide=True))
+def test_sweep_select_on_the_host_wide(lib_wide, i):
+    """The wide kernel's configuration of the row state (one consumer of
+    64 rows), every case and sums past 2^22: values and ids bit-equal to
+    the plain version."""
+    host.check_case(lib_wide, MODE, i, wide=True)

@@ -19,7 +19,9 @@ plain version.
   1e-5), the i8 lane as `tests/test_torch_i8.py::
   test_sweep_i8_lane_matches_exact` (ids rank for rank after the
   re-rank), the build step on integer rows exactly (ids, distance bits
-  and selection mask).
+  and selection mask); each at d_pad 128 and at 768 (the kernel's wide
+  form on the card), the i8 lane there with rows whose int8 sums pass
+  2^22.
 * The wrapper refuses what the kernel cannot take, and the route by
   shape is the one its docstring names.
 
@@ -127,18 +129,20 @@ def test_the_wrapper_on_cpu_tensors_is_the_plain_version():
 
 
 def test_route_by_shape_is_the_docstring_s():
-    """"kernel" for d_pad <= 128, kc <= 256 and a piece that is a multiple
-    of 256, else "two_step": a function of (d_pad, kc, piece) alone, and
-    the docstrings name the bounds."""
-    for d_pad in (16, 64, 112, 128, 144, 256, 768):
+    """"kernel" for d_pad <= 1,024, kc <= 256 and a piece that is a
+    multiple of 256, else "two_step": a function of (d_pad, kc, piece)
+    alone, and the docstrings name the bounds."""
+    for d_pad in (16, 64, 112, 128, 144, 256, 768, 1024, 1040, 2048):
         for kc in (1, 26, 97, 256, 257, 1000):
             for piece in (128, 256, 384, 512, 131_072):
-                want = "kernel" if (d_pad <= 128 and kc <= 256
+                want = "kernel" if (d_pad <= 1024 and kc <= 256
                                     and piece % 256 == 0) else "two_step"
                 assert ek.sweep_route(d_pad, kc, piece) == want
-    assert (ek.SWEEP_MAX_D, ek.SWEEP_MAX_KC, ek.SWEEP_PIECE) == (128, 256, 256)
+    assert (ek.SWEEP_MAX_D, ek.SWEEP_MAX_KC, ek.SWEEP_PIECE) == (1024, 256,
+                                                                256)
     doc = " ".join(ek.sweep_topk.__doc__.split())
-    assert "d_pad > 128, kc > 256 or a piece that is not a multiple of 256" in doc
+    assert ("d_pad > 1,024, kc > 256 or a piece that is not a multiple of "
+            "256") in doc
     doc = " ".join(ek.sweep_route.__doc__.split())
     assert ("d_pad <= SWEEP_MAX_D, kc <= SWEEP_MAX_KC and a piece that is a "
             "multiple of SWEEP_PIECE") in doc
@@ -200,18 +204,27 @@ def counted(monkeypatch):
     return calls
 
 
-def _table(seed, metric="Cosine", n_dead=40):
+def _table(seed, metric="Cosine", n_dead=40, d_pad=D_PAD, d=D,
+           flat_rows=0):
+    """(table [N_CHUNKS, CHUNK, d_pad], bias, queries [96, d]) of unit rows;
+    the first `flat_rows` table rows and queries near a constant vector
+    (each component within a few % of the others, every other query
+    negated), whose int8 codes are all near +-127: their products pass
+    2^22 at d = 768."""
     rng = np.random.default_rng(seed)
     n = N_CHUNKS * CHUNK
-    v = rng.standard_normal((n, D)).astype(np.float32)
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((96, d)).astype(np.float32)
+    for m in (v, q):
+        m[:flat_rows] = 1.0 + 0.03 * rng.standard_normal((flat_rows, d))
+    q[1:flat_rows:2] *= -1.0
     v /= np.linalg.norm(v, axis=1, keepdims=True)
-    tbl = np.zeros((n, D_PAD), np.float32)
-    tbl[:, :D] = v
-    bias = np.zeros(n, np.float32)
-    bias[rng.choice(n, n_dead, replace=False)] = -np.inf
-    q = rng.standard_normal((96, D)).astype(np.float32)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
-    return (tbl.reshape(N_CHUNKS, CHUNK, D_PAD), bias.reshape(N_CHUNKS, CHUNK),
+    tbl = np.zeros((n, d_pad), np.float32)
+    tbl[:, :d] = v
+    bias = np.zeros(n, np.float32)
+    bias[rng.choice(np.arange(flat_rows, n), n_dead, replace=False)] = -np.inf
+    return (tbl.reshape(N_CHUNKS, CHUNK, d_pad), bias.reshape(N_CHUNKS, CHUNK),
             q)
 
 
@@ -224,17 +237,28 @@ def _unpack(packed):
 @pytest.mark.parametrize("rerank_k", [0, 26])
 def test_sweep_bf16_lanes_match_jax(counted, rerank_k):
     """Raw bf16 (rerank_k 0: the scan's own scores) and bf16 + re-rank."""
+    _bf16_lanes_match_jax(counted, rerank_k, _table(5), D_PAD, D)
+
+
+@pytest.mark.parametrize("rerank_k", [0, 26])
+def test_sweep_bf16_lanes_match_jax_at_768(counted, rerank_k):
+    """The same at 768-wide rows (the kernel's wide form on the card)."""
+    _bf16_lanes_match_jax(counted, rerank_k,
+                          _table(15, d_pad=768, d=768, flat_rows=8), 768, 768)
+
+
+def _bf16_lanes_match_jax(counted, rerank_k, table, d_pad, d):
     import jax.numpy as jnp
 
-    tbl, bias, q = _table(5)
+    tbl, bias, q = table
     k = 10
-    qp = np.zeros((q.shape[0], D_PAD), np.float32)
-    qp[:, :D] = q
+    qp = np.zeros((q.shape[0], d_pad), np.float32)
+    qp[:, :d] = q
     got = ek._sweep(torch.from_numpy(tbl), torch.from_numpy(bias),
                     torch.from_numpy(qp), k, "bf16", rerank_k=rerank_k,
                     metric="Cosine").numpy()
     assert counted == [max(k, rerank_k)]
-    want = np.asarray(_sweep_fn(N_CHUNKS, CHUNK, D_PAD, k, 1.0, "bf16",
+    want = np.asarray(_sweep_fn(N_CHUNKS, CHUNK, d_pad, k, 1.0, "bf16",
                                 rerank_k, "Cosine")(
         jnp.asarray(tbl), jnp.asarray(bias), jnp.asarray(qp)))
     (ids_t, s_t), (ids_j, s_j) = _unpack(got), _unpack(want)
@@ -248,21 +272,37 @@ def test_sweep_bf16_lanes_match_jax(counted, rerank_k):
 def test_sweep_i8_matches_jax(counted):
     """The i8 lane: the port's table, scales and quantised queries (bit-
     equal to the JAX package's, `tests/test_torch_i8.py`) through both."""
+    _i8_matches_jax(counted, _table(6), D_PAD, D)
+
+
+def test_sweep_i8_matches_jax_at_768(counted):
+    """The same at 768-wide rows, with rows whose int8 codes are all near
+    +-127: products near 768 x 127^2, past 2^22, where the s32 -> f32
+    conversion must round as `.astype(float32)` does (planted; checked)."""
+    table = _table(16, d_pad=768, d=768, flat_rows=8)
+    tt = torch.from_numpy(table[0])
+    tbl_i8, _ = ek.quantize_tbl(tt, torch.from_numpy(table[1]))
+    big = int_mm(tbl_i8.reshape(-1, 768)[:8], tbl_i8.reshape(-1, 768)[:8])
+    assert int(big.abs().max()) > 1 << 22
+    _i8_matches_jax(counted, table, 768, 768)
+
+
+def _i8_matches_jax(counted, table, d_pad, d):
     import jax.numpy as jnp
 
-    tbl, bias, q = _table(6)
+    tbl, bias, q = table
     k, rerank_k = 10, 64
     tt, bt = torch.from_numpy(tbl), torch.from_numpy(bias)
     tbl_i8, scale = ek.quantize_tbl(tt, bt)
     q16 = q.astype(np.float16)
     prepared = prepare_queries(torch.from_numpy(q16.astype(np.float32)),
-                               "Cosine", D_PAD, half=True, quantize=True,
+                               "Cosine", d_pad, half=True, quantize=True,
                                reciprocal=True)
     got = ek._sweep_i8(tbl_i8, scale, bt, tt, *prepared, k, rerank_k,
                        "Cosine").numpy()
     assert counted == [rerank_k]
-    want = np.asarray(_sweep_fn_i8(N_CHUNKS, CHUNK, D_PAD, k, 0.99, rerank_k,
-                                   "Cosine", D)(
+    want = np.asarray(_sweep_fn_i8(N_CHUNKS, CHUNK, d_pad, k, 0.99, rerank_k,
+                                   "Cosine", d)(
         jnp.asarray(tbl_i8.numpy()), jnp.asarray(scale.numpy()),
         jnp.asarray(bias), jnp.asarray(tbl), jnp.asarray(q16)))
     (ids_t, s_t), (ids_j, s_j) = _unpack(got), _unpack(want)
@@ -275,10 +315,19 @@ def test_build_step_matches_jax(counted):
     sums in any order, so the pools compare exactly): ids, distance bits
     and selection mask equal to `_build_step_fn`'s, and the bf16 copy of
     the table updated in step."""
+    _build_step_matches_jax(counted, 8, 24, D_PAD, D)
+
+
+def test_build_step_matches_jax_at_768(counted):
+    """The same at 768-wide rows."""
+    _build_step_matches_jax(counted, 18, 24, 768, 768)
+
+
+def _build_step_matches_jax(counted, seed, P, D_PAD, D):
     import jax.numpy as jnp
 
-    rng = np.random.default_rng(8)
-    n, W, P, mmax = N_CHUNKS * CHUNK, 64, 24, 8
+    rng = np.random.default_rng(seed)
+    n, W, mmax = N_CHUNKS * CHUNK, 64, 8
     tbl = np.zeros((N_CHUNKS, CHUNK, D_PAD), np.float32)
     tbl.reshape(-1, D_PAD)[:, :D] = rng.integers(-2, 3, (n, D))
     bias = np.zeros((N_CHUNKS, CHUNK), np.float32)
@@ -313,8 +362,8 @@ def test_ctypes_signature_matches_the_source():
 
     funcs = _extern_c_functions()
     assert funcs["cozo_sweep_topk"] == ek._SWEEP_ARGTYPES
-    assert funcs["cozo_sweep_topk_rows"] == [ctypes.c_int, ctypes.c_int]
-    assert funcs["cozo_sweep_topk_cluster"] == [ctypes.c_int, ctypes.c_int]
+    assert funcs["cozo_sweep_topk_rows"] == [ctypes.c_int] * 3
+    assert funcs["cozo_sweep_topk_cluster"] == [ctypes.c_int] * 3
     assert funcs["cozo_sweep_topk_slots"] == [ctypes.c_int] * 3
     assert funcs["cozo_sweep_topk_counts"] == [ctypes.c_void_p]
 
