@@ -6,7 +6,9 @@
     python3 chip_graph_vs.py --kernel pagerank --other .archive/other
     python3 chip_graph_vs.py --kernel slab_topk --other .archive/other
     python3 chip_graph_vs.py --kernel sweep_topk --other .archive/other \
-        [--counters] [--unchecked-other] [--wide]
+        [--diag .archive/copy ...] [--counters] \
+        [--wide [--d 768 --d 384] [--all-modes]]
+    python3 chip_graph_vs.py --make-wide-copies .archive/pr18
 
 Builds the kernel's source (`cozo_tpu_torch/csrc/graph_labelprop.cu`,
 `graph_pagerank.cu`, `slab_topk.cu` or `sweep_topk.cu`) of both checkouts with this
@@ -52,14 +54,30 @@ at phase 3b's five 768-wide chunk steps (`chip_smoke.sweep_wide_shapes`)
 on a synthetic table of its size (`chip_smoke.synthetic_wide_table`).  A
 design choice is weighed as a copy of the source with one change under
 `.archive/NAME`, timed as one more other; a copy that does not build is
-reported (nvcc's errors) and left out.  Every result is held to the
-plain version by phase 4's measure (`sweep_values_agree`), the others'
-unless `--unchecked-other` says that they compute something else (a
-diagnostic such as the ring and the products alone); ptxas's registers,
-shared memory, spills and warnings are printed for every build.
-`--counters` also runs a build with `-DCOZO_SWEEP_COUNTERS` once a shape
-and prints its counts (warp-tiles with pass 2, keyings, rejected
-keyings).
+reported (nvcc's errors) and left out.  Every result of this build and
+of each `--other` is held to the plain version by phase 4's measure
+(`sweep_values_agree`); `--diag DIR` times a build as `--other` does but
+never holds it to plain (a copy that computes something else, such as the
+ring and the products alone).  ptxas's registers, shared memory, spills
+and warnings are printed for every build.  `--counters` also runs a
+build with `-DCOZO_SWEEP_COUNTERS` once a shape and prints its counts
+(warp-tiles with pass 2, keyings, rejected keyings).  Each shape's line
+also gives the table's bytes from L2 a launch (the table once a cluster
+of blocks: table x query tiles / cluster).  `--d 384` runs the wide
+shapes on a table of that width (phase 4's second wide table); `--d 768
+--d 384` both, one after the other; `--all-modes` adds the row states the
+lanes do not reach there (bf16 kc 64, int8 kc 26, kc 256 of both kinds).
+
+`--make-wide-copies BASE` needs no card: it writes the diagnostic copies
+of BASE's wide form (`WIDE_COPIES`, for the source at commit 6100156: the
+form as it stood before its redesign) under `.archive/wide-NAME/`, each BASE's
+`sweep_topk.cu` and `sweep_select.cuh` with a few lines replaced, which
+split the wide form's time: `ring` the ring alone (the producer streams,
+the consumers wait and release), `products` the ring and the products
+with no selection, `l2hit` that with every block streaming the same 16
+tiles (always in L2), `noload` the products with no table loads at all,
+and `c4` clusters of 4 blocks sharing each chunk (a design, held to
+plain).  Time them with `--diag` (`--other` for `c4`).
 
 `--sector-model` runs no kernel and needs no card: it counts, on the
 host, the distinct 32-byte sectors each window of 32 consecutive gathers
@@ -82,6 +100,64 @@ import chip_smoke as cs
 # the edges of the Db's level-0 graph in chip_smoke.py phase 6 (1,183,514
 # `glove_like` rows, m = 16)
 DB_GRAPH_EDGES = 26_489_371
+
+# The diagnostic copies of the wide form, as (file, old, new) replacements
+# of the source at commit 6100156 (`--make-wide-copies`); each `old`
+# occurs once there.
+_WIDE_IDLE = ("sweep_topk.cu",
+              "  const bool idle = qt >= a.n_qt;\n  const int n_tiles = a.piece / TN;\n"
+              "  const int kcn = w.kcn;\n",
+              "  const bool idle = true;  // diagnostic: the ring alone\n"
+              "  const int n_tiles = a.piece / TN;\n  const int kcn = w.kcn;\n")
+_WIDE_NO_SELECT = ("sweep_topk.cu",
+                   "    for (int t = 0; t < G; ++t) select_tile(d[t], e + t);\n",
+                   "    for (int t = 0; t < G; ++t) {  // diagnostic: no selection\n"
+                   "      vec_of(e + t);\n      free_vec(e + t);\n    }\n")
+_WIDE_L2_HIT = ("sweep_topk.cu",
+                "          col[t] = col_base + (long long)tile * TN;\n",
+                "          col[t] = (long long)(tile & 15) * TN;  // diagnostic: 16 tiles\n")
+_WIDE_NO_LOAD = ("sweep_topk.cu",
+                 "            mbar_expect_tx(bar, T_BOX + (with_a ? Q_WBOX : 0u));\n"
+                 "            tma_load_2d_mc(base + w.ring + stage * T_BOX + rank * (SHARE * ROW), &map_t, bar,\n"
+                 "                           c * ELEMS, (int)(col[t] + rank * SHARE),\n"
+                 "                           (uint16_t)((1u << C::CLUSTER) - 1));\n",
+                 "            mbar_expect_tx(bar, with_a ? Q_WBOX : 0u);  // diagnostic: no table\n")
+WIDE_COPIES = {
+    "ring": (_WIDE_IDLE,),
+    "products": (_WIDE_NO_SELECT,),
+    "l2hit": (_WIDE_NO_SELECT, _WIDE_L2_HIT),
+    "noload": (_WIDE_NO_SELECT, _WIDE_NO_LOAD),
+    "c4": (("sweep_select.cuh", "using WideCfg = Cfg<1, MODE, 2>;",
+            "using WideCfg = Cfg<1, MODE, 4>;"),
+           ("sweep_topk.cu", "C::NCONS == 1 && C::CLUSTER == 2",
+            "C::NCONS == 1 && C::CLUSTER == 4")),
+}
+
+
+def make_copies(base, copies, prefix, out_root=".archive"):
+    """Writes each of `copies` under `out_root/PREFIX-NAME/`: BASE's
+    `sweep_topk.cu` and `sweep_select.cuh` with the copy's lines
+    replaced.  Returns the copies' roots."""
+    src = os.path.join(base, "cozo_tpu_torch", "csrc")
+    roots = []
+    for name, edits in copies.items():
+        text = {}
+        for f in ("sweep_topk.cu", "sweep_select.cuh"):
+            with open(os.path.join(src, f)) as fh:
+                text[f] = fh.read()
+        for f, old, new in edits:
+            if text[f].count(old) != 1:
+                raise SystemExit(f"copy {name}: {f} of {base} has "
+                                 f"{text[f].count(old)} places for {old!r}")
+            text[f] = text[f].replace(old, new)
+        root = os.path.join(out_root, f"{prefix}-{name}")
+        dst = os.path.join(root, "cozo_tpu_torch", "csrc")
+        os.makedirs(dst, exist_ok=True)
+        for f, t in text.items():
+            with open(os.path.join(dst, f), "w") as fh:
+                fh.write(t)
+        roots.append(root)
+    return roots
 
 
 def build_other(root, out_dir, name):
@@ -398,17 +474,38 @@ def sweep_launch(lib, q, tbl, piece, kc, kw, out):
     return out
 
 
-def compare_sweep(libs, counting, reps, dev, checked=True, wide=False):
-    """Each build at every phase-4 shape (`wide`: phase 3b's 768-wide
-    ones), in turns (other, this, this, other), each held to the plain
-    version first (the others only if `checked`)."""
+def wide_modes(shapes):
+    """`shapes` (phase 3b's wide chunk steps), then the row states that
+    they do not reach on the same table: bf16 kc 64 (lists of 16), int8
+    kc 26 (lists of 8), both kinds at kc 256 (head 256)."""
+    import torch
+
+    by_kc = {}
+    for lane, q, tbl, chunk, kc, kw in shapes:
+        by_kc.setdefault(q.dtype, (q, tbl, chunk, kw))
+        yield lane, q, tbl, chunk, kc, kw
+    for dtype, kc in ((torch.bfloat16, 64), (torch.int8, 26),
+                      (torch.bfloat16, 256), (torch.int8, 256)):
+        q, tbl, chunk, kw = by_kc[dtype]
+        yield f"wide {dtype} kc {kc}", q, tbl, chunk, kc, kw
+
+
+def compare_sweep(libs, counting, reps, dev, unchecked=(), wide=False, d=None,
+                  all_modes=False):
+    """Each build at every phase-4 shape (`wide`: phase 3b's wide ones, on
+    a table d wide; `all_modes`: and `wide_modes`'s), in turns (other,
+    this, this, other), each held to the plain version first (not the
+    builds named in `unchecked`)."""
     import numpy as np
     import torch
 
     from cozo_tpu_torch.ops import exact_knn as ek
 
     if wide:
-        shapes = cs.sweep_wide_shapes(*cs.synthetic_wide_table(dev))
+        shapes = cs.sweep_wide_shapes(*cs.synthetic_wide_table(
+            dev, d=d or cs.QUANT_D))
+        if all_modes:
+            shapes = wide_modes(shapes)
         plain_rows = cs.WIDE_PLAIN_ROWS
     else:
         shapes = cs.sweep_main_shapes(*cs.synthetic_sweep_table(cs.N, dev))
@@ -416,7 +513,7 @@ def compare_sweep(libs, counting, reps, dev, checked=True, wide=False):
     for lane, q, tbl, chunk, kc, kw in shapes:
         B, d_pad = q.shape
         int8 = q.dtype == torch.int8
-        runs, pieces = {}, {}
+        runs, pieces, l2 = {}, {}, {}
         for name, lib in libs.items():
             piece = ek.sweep_piece(tbl.shape[0], chunk, B, d_pad, kc, int8,
                                    dev, lib=lib)
@@ -426,8 +523,13 @@ def compare_sweep(libs, counting, reps, dev, checked=True, wide=False):
             runs[name] = (lambda lib=lib, piece=piece, out=out: sweep_launch(
                 lib, q, tbl, piece, kc, kw, out))
             pieces[name] = piece
+            rows = lib.cozo_sweep_topk_rows(int(int8), d_pad, kc)
+            cluster = lib.cozo_sweep_topk_cluster(int(int8), d_pad, kc)
+            n_qt = -(-(-(-B // rows)) // cluster) * cluster
+            # the table once a cluster of blocks that share its chunks
+            l2[name] = tbl.numel() * tbl.element_size() * n_qt / cluster
         for name, run in list(runs.items()):
-            if name != "this" and not checked:
+            if name in unchecked:
                 continue
             got = run()
             want = cs.sweep_plain_blocks(q, tbl, pieces[name], kc, kw,
@@ -467,12 +569,18 @@ def compare_sweep(libs, counting, reps, dev, checked=True, wide=False):
             for turn in (name, "this", "this", name):
                 ms[turn].append(cs.cuda_ms(runs[turn], reps))
             other, this = (sum(v) / len(v) for v in (ms[name], ms["this"]))
-            cs.say(f"sweep_topk {lane} [{B} x {tbl.shape[0]}] {q.dtype} kc "
-                   f"{kc}: {name} {other:.3f} ms at piece {pieces[name]} "
-                   f"({[round(x, 3) for x in ms[name]]}), this {this:.3f} ms "
+            held = ("not held to plain" if name in unchecked
+                    else "both agree with plain")
+            cs.say(f"sweep_topk {lane} [{B} x {tbl.shape[0]}] x {d_pad} "
+                   f"{q.dtype} kc {kc}: {name} {other:.3f} ms at piece "
+                   f"{pieces[name]} ({[round(x, 3) for x in ms[name]]}; table "
+                   f"from L2 {l2[name] / 1e9:.1f} GB a launch = "
+                   f"{l2[name] / other / 1e9:.2f} TB/s), this {this:.3f} ms "
                    f"at piece {pieces['this']} "
-                   f"({[round(x, 3) for x in ms['this']]}), "
-                   f"{other / this:.3f}x; both agree with plain")
+                   f"({[round(x, 3) for x in ms['this']]}; "
+                   f"{l2['this'] / 1e9:.1f} GB = "
+                   f"{l2['this'] / this / 1e9:.2f} TB/s), "
+                   f"{other / this:.3f}x; {held}")
         del runs, q, tbl, kw
         torch.cuda.empty_cache()
 
@@ -524,21 +632,41 @@ def main():
     ap.add_argument("--wide", action="store_true",
                     help="sweep_topk: phase 3b's 768-wide shapes instead "
                          "of the main path's")
+    ap.add_argument("--d", type=int, action="append", default=None,
+                    help="sweep_topk --wide: the table's width (default "
+                         "768); repeat for several, in one process")
+    ap.add_argument("--all-modes", action="store_true",
+                    help="sweep_topk --wide: also bf16 kc 64, int8 kc 26 and "
+                         "kc 256 of both kinds (every row state)")
+    ap.add_argument("--diag", action="append", default=[],
+                    help="sweep_topk: another build timed like --other but "
+                         "not held to plain (a diagnostic copy); repeat")
+    ap.add_argument("--make-wide-copies", metavar="BASE",
+                    help="write the wide form's diagnostic copies of BASE "
+                         "under .archive/wide-NAME and exit (no card)")
     ap.add_argument("--unchecked-other", action="store_true",
-                    help="the other build computes another function (a "
-                         "stream floor, PageRank; a diagnostic, sweep_topk): "
-                         "time it, do not hold it to plain")
+                    help="pagerank: the other build computes another "
+                         "function (a stream floor): time it, do not hold it "
+                         "to plain (sweep_topk: --diag)")
     ap.add_argument("--reps", type=int, default=None,
                     help="replays timed (default: 100 picks, 20 PageRank "
                          "calls, 5 selections)")
     args = ap.parse_args()
+    if args.make_wide_copies:
+        for root in make_copies(args.make_wide_copies, WIDE_COPIES, "wide"):
+            print(root)
+        return 0
     if args.sector_model:
         from cozo_tpu_torch.ops import graph_algos as ga
 
         sector_model((ga.PR_BIN_NODES, 28_672))
         return 0
-    if not args.other:
+    if not (args.other or args.diag):
         ap.error("--other is required")
+    if args.unchecked_other and args.kernel != "pagerank":
+        ap.error("--unchecked-other is PageRank's; a sweep_topk build not "
+                 "held to plain is named by --diag")
+    args.other = args.other or []
 
     import torch
 
@@ -561,7 +689,8 @@ def main():
             # every build at once: this checkout's and the others
             mine = [ex.submit(_build.build, "sweep_topk", d) for d in defines]
             libs = {root: bind_sweep_any(lib) for root, lib in build_others(
-                args.other, tmp, "sweep_topk").items()}
+                args.other + args.diag, tmp, "sweep_topk").items()} \
+                if args.other or args.diag else {}
             for f in mine:
                 f.result()
             libs["this"] = ek_sweep_lib()
@@ -570,8 +699,9 @@ def main():
                 if args.counters else None)
             for what, (_, log) in sorted(_build.BUILD_INFO.items()):
                 say_ptxas(f"{what} of this checkout", log)
-            compare_sweep(libs, counting, args.reps or 5, dev,
-                          not args.unchecked_other, args.wide)
+            for d in args.d or [None]:
+                compare_sweep(libs, counting, args.reps or 5, dev,
+                              set(args.diag), args.wide, d, args.all_modes)
         cs.say(cs.smi_line())
         return 0
     if args.kernel == "slab_topk":

@@ -151,7 +151,8 @@ Phases, each reported on its own line; any failure exits non-zero:
      LabelPropagation on the 50M-edge hub graph, each cold and warm and
      held to the plain versions; prints a `scale` line;
   8. the text indexes: `benches/bench_lsh_1m.py` through `Db("mem")`,
-     nothing cut (1,000,000 docs, 1,000 planted near-duplicates; ingest by
+     at 262,144 of its 1,000,000 docs (LSH_N; 1,000 planted
+     near-duplicates; ingest by
      `:put` batches of 50,000, `::lsh create` with 128 permutations at
      threshold 0.7, whose backfill runs the `minhash` kernel once a chunk
      of 32,768 docs, the serving image, 200 single queries and the
@@ -169,7 +170,10 @@ Phases, each reported on its own line; any failure exits non-zero:
      the merges' buffers as the lanes fill them: [16,384 x 260] kf 26,
      [16,384 x 100] kf 10, [16,384 x 640] bf16 kf 64, the build's [8,192
      x 970] kf 97 and its pool [8,192 x 97] kf 96, beside the plain
-     version (in row blocks) and `torch.topk` on the key slab; the graph kernels at phase 7's, `minhash` at phase
+     version (in row blocks) and `torch.topk` on the key slab; `sweep_topk`
+     at the main path's chunk steps, at phase 3b's (timed there, on its
+     table) and, after phase 3b, at bf16 kc 26 and int8 kc 128 on a
+     synthetic table of 3b's size 384 wide (`time_wide_384`); the graph kernels at phase 7's, `minhash` at phase
      8's first backfill chunk, with a chunk's upload and copy back) with
      CUDA events, beside its bound and its plain version, and the fused
      routes and PageRank beside a one-call PyTorch yardstick (for
@@ -185,6 +189,11 @@ Phases, each reported on its own line; any failure exits non-zero:
      Db, the index, the graph rules, the scale graphs, the LSH build, the
      engines of phase 10), the card's name and power limit, and as the
      last line {"ok": true, "device": {...}}.
+
+Beside phase 2, three threads of the host (`HostJob`) make phase 3b's
+draw and phase 7's graphs and build phase 11 (f)'s baseline, each mostly
+outside the GIL; the phase that takes a job's result prints its seconds
+and those it still waited for.
 
 `--kernels-only` skips phases 3-3c, times the fused main-path route on a
 random table of the main-path shape and `beam_search` (kernel and call) on
@@ -202,7 +211,8 @@ rows (262,144 unless given), runs each sweep lane once (launches
 counted) and times `slab_topk` as phase 4 does, and prints none either;
 `--sweep-only` runs phases 1 and 2 (`sweep_topk`) and times `sweep_topk`
 as phase 4 does on a synthetic table of `--n` rows and at phase 3b's
-768-wide shapes on a synthetic table of its size, and prints none either.
+768-wide shapes on a synthetic table of its size (and two of them 384
+wide), and prints none either.
 """
 
 import argparse
@@ -317,6 +327,50 @@ def kernel_times(fn, first):
     starts = [i for i, e in enumerate(evs) if first in e.name]
     return [(e.name, e.time_range.elapsed_us() / 1e3)
             for e in evs[starts[-1] if starts else len(evs):]]
+
+
+class HostJob:
+    """`fn(*args)` on a thread of its own, started at once: host work that
+    needs no card and spends most of its time outside the GIL (numpy,
+    a ctypes call), run beside phase 2 so that the phase that needs it
+    does not wait for it.  A daemon thread: a failed run does not wait for
+    it to end."""
+
+    def __init__(self, fn, *args):
+        import threading
+
+        self._done = {}
+
+        def run():
+            t0 = time.time()
+            try:
+                self._done["value"] = fn(*args)
+            except BaseException as exc:  # re-raised by result()
+                self._done["error"] = exc
+            self._done["seconds"] = time.time() - t0
+
+        self._thread = threading.Thread(target=run, name=fn.__name__,
+                                        daemon=True)
+        self._thread.start()
+
+    def result(self):
+        """(fn's value, its seconds on its thread, the seconds waited for
+        it here)."""
+        t0 = time.time()
+        self._thread.join()
+        if "error" in self._done:
+            raise self._done["error"]
+        return self._done["value"], self._done["seconds"], time.time() - t0
+
+
+def host_result(job, fn, *args):
+    """`job.result()`, or without a job `fn(*args)` run here (all of its
+    seconds then waited for)."""
+    if job is not None:
+        return job.result()
+    t0 = time.time()
+    value = fn(*args)
+    return value, time.time() - t0, time.time() - t0
 
 
 def phase_build():
@@ -1187,18 +1241,26 @@ SWEEP_DS = (16, 64, 128)
 SWEEP_VARIANTS = ("random", "ties", "dead", "ascending")
 SWEEP_EDGE_KCS = (32, 33, 64, 65, 96, 97, 256)  # each row state's edges
 SWEEP_EDGE_BS = (1, 17, 129, 257)
-# the wide rows (the kernel's wide form past d_pad 128): 256, phase 3b's 768
-# and the widest, 1,024; every row state's kc (and the lanes' 10, 26, 64,
-# 97, 128), both kinds, "random" (with rows whose int8 sums pass 2^22) and
-# "ties"; B = 257 (5 query tiles of 64 rows: a pair that ends with a block
-# past the rows), 2 pieces of 8,192 rows
-SWEEP_WIDE_DS = (256, 768, 1024)
+# the wide rows (the kernel's wide form past d_pad 128): the narrowest,
+# 144, 256, 384 (the small sentence encoders), phase 3b's 768 and the
+# widest, 1,024; every row state's kc (and the lanes' 10, 26, 64, 97, 128),
+# both kinds, "random" (with rows whose int8 sums pass 2^22), "ties" (+-0.0
+# among them) and "ascending" (rising keys); B = 257 (5 query tiles of 64
+# rows: a pair that ends with a block past the rows), 2 pieces of 8,192
+# rows; then pieces of 256 and 768 rows (1 and 3 groups of the lists of
+# 8's 4 tiles: the second consumer of a block selects nothing, or one
+# group fewer than the first)
+SWEEP_WIDE_DS = (144, 256, 384, 768, 1024)
 SWEEP_WIDE_KCS = (10, 26, 64, 97, 128, 256)
+SWEEP_WIDE_VARIANTS = ("random", "ties", "ascending")
 SWEEP_WIDE_CASES = tuple((kind, 257, 8192, 2, d_pad, kc, variant)
                          for d_pad in SWEEP_WIDE_DS
                          for kc in SWEEP_WIDE_KCS
                          for kind in SWEEP_KINDS
-                         for variant in ("random", "ties"))
+                         for variant in SWEEP_WIDE_VARIANTS) + tuple(
+    (kind, 257, piece, 3, d_pad, kc, ("random", "ties")[kc == 26])
+    for piece in (256, 768) for d_pad in (384, 768) for kind in SWEEP_KINDS
+    for kc in (10, 26))
 SWEEP_TOL = 1e-5  # bf16 route: |value - plain| <= SWEEP_TOL * max(1, |plain|)
 SWEEP_ID_SHARE = 0.999  # bf16 route: ids equal on at least this share
 
@@ -1400,7 +1462,7 @@ def phase_sweep_vs_plain(dev):
         f"{list(SWEEP_VARIANTS)}; the edges: kc {SWEEP_EDGE_KCS}, B "
         f"{SWEEP_EDGE_BS}; {len(SWEEP_WIDE_CASES)} at the wide rows: d_pad "
         f"{SWEEP_WIDE_DS}, kc {SWEEP_WIDE_KCS}, B 257, 2 pieces of 8,192, "
-        f"random and ties) in "
+        f"{list(SWEEP_WIDE_VARIANTS)}, and 3 pieces of 256 and 768) in "
         f"{time.time() - t0:.1f}s: int8 values "
         f"and ids bit-equal; bf16 values within {SWEEP_TOL} x max(1, |v|) "
         f"(max err {worst['bf16'][1]:.3g}), ids equal on >= "
@@ -2236,15 +2298,28 @@ def cold_warm(fn):
     return cold, time.time() - t0, res
 
 
-def phase_graph_scale(dev, reps, db_timings):
+def scale_graphs():
+    """Phase 7's two graphs at benches/graph_scale_bench.py's sizes, each
+    with its content key, and the unit weights: (ip, d, ck, w, hp, hd,
+    hck)."""
+    from cozo_tpu_torch.ops import graph_algos as ga
+
+    ip, d = make_graph(LJ_NODES, LJ_EDGES)
+    hp, hd = make_hub_graph(HUB_NODES, HUB_EDGES, HUB_DEG)
+    return (ip, d, ga.graph_content_key(ip, d), np.ones(LJ_EDGES, np.float32),
+            hp, hd, ga.graph_content_key(hp, hd))
+
+
+def phase_graph_scale(dev, reps, db_timings, graphs=None):
     """Phase 7: the shapes of benches/graph_scale_bench.py through the
     entry points: PageRank and single-source SSSP (unit weights: the
     uniform scalar, the source array PageRank put on the card) on the
     LiveJournal-scale graph, LabelPropagation on the hub graph (the hub
     past COZO_TPU_LP_TIER_MAX takes the host lane every step); each cold
     and warm, then held to the plain versions.  Then phase 4 for the graph
-    kernels at these shapes.  Returns their `kernels` entries and the
-    launches of this path."""
+    kernels at these shapes.  `graphs`: the `HostJob` of `scale_graphs`
+    (None: made here).  Returns their `kernels` entries and the launches
+    of this path."""
     import torch
 
     from cozo_tpu_torch.ops import graph_algos as ga
@@ -2252,13 +2327,8 @@ def phase_graph_scale(dev, reps, db_timings):
     out = {"config": "benches/graph_scale_bench.py (BASELINE #3)",
            "reduced": []}
     n, e = LJ_NODES, LJ_EDGES
-    t0 = time.time()
-    ip, d = make_graph(n, e)
-    ck = ga.graph_content_key(ip, d)
-    w = np.ones(e, np.float32)
-    hp, hd = make_hub_graph(HUB_NODES, HUB_EDGES, HUB_DEG)
-    hck = ga.graph_content_key(hp, hd)
-    out["datagen_s"] = time.time() - t0
+    ((ip, d, ck, w, hp, hd, hck), out["datagen_s"],
+     out["datagen_waited_s"]) = host_result(graphs, scale_graphs)
     zero_graph_counts()
     out["pagerank_cold_s"], out["pagerank_warm_s"], pr = cold_warm(
         lambda: ga.pagerank_jax(ip, d, iterations=10, cache_key=ck))
@@ -2285,7 +2355,8 @@ def phase_graph_scale(dev, reps, db_timings):
                pagerank_medges_per_s=10 * e / out["pagerank_warm_s"] / 1e6)
     ok = l1 <= PR_L1_TOL and top
     say(f"phase 7 PageRank (10 steps) on {n} nodes / {e} edges (datagen of "
-        f"both graphs {out['datagen_s']:.1f}s): cold "
+        f"both graphs {out['datagen_s']:.1f}s, "
+        f"{out['datagen_waited_s']:.1f}s of it waited for here): cold "
         f"{out['pagerank_cold_s']:.2f}s warm {out['pagerank_warm_s']:.3f}s "
         f"({out['pagerank_medges_per_s']:.0f} M edges/s); against the plain "
         f"version: L1 {l1:.3e}, top-100 same {top} {'ok' if ok else 'FAIL'}")
@@ -2644,8 +2715,11 @@ def time_lp_pick(cache_key, dev, reps, lanes):
 
 # benches/bench_lsh_1m.py (BASELINE config #4): 1,000,000 short docs of
 # 8-17 words over a 50,000-word vocabulary, 1,000 planted near-duplicates,
-# `::lsh create` with 128 permutations at threshold 0.7
-LSH_N, LSH_VOCAB, LSH_PLANTED = 1_000_000, 50_000, 1000
+# `::lsh create` with 128 permutations at threshold 0.7; phase 8 makes its
+# docs at LSH_N (8 backfill chunks, not 31), so that the whole run ends
+# well inside its 1,200 s (the phase's host work is ~180 s at 1M docs)
+LSH_BENCH_N, LSH_N = 1_000_000, 262_144
+LSH_VOCAB, LSH_PLANTED = 50_000, 1000
 LSH_SINGLE, LSH_BATCHED = 200, 1000  # single queries; the batched join's
 LSH_CHUNK = 32_768  # runtime/minhash_lsh.py's backfill chunk
 LSH_N_PERM = 128
@@ -2778,7 +2852,9 @@ def phase_lsh(n_docs=LSH_N):
     from cozo_tpu_torch.ops import minhash as mh
     from cozo_tpu_torch.utils import fallback
 
-    out = {"n_docs": n_docs, "n_perm": LSH_N_PERM, "target_threshold": 0.7}
+    out = {"n_docs": n_docs, "n_perm": LSH_N_PERM, "target_threshold": 0.7,
+           "reduced": [f"{n_docs:,} of {LSH_BENCH_N:,} docs"]
+           if n_docs < LSH_BENCH_N else []}
     t0 = time.time()
     docs = lsh_docs(n_docs)
     out["docgen_s"] = time.time() - t0
@@ -3594,12 +3670,13 @@ def sweep_wide_shapes(tbl16, tbl8, scale8, bias, chunk, q16, q8, rs8):
            {"bias": bias})
 
 
-def synthetic_wide_table(dev, seed=43):
+def synthetic_wide_table(dev, seed=43, d=QUANT_D):
     """`sweep_wide_shapes`'s inputs at phase 3b's shape, made on the card
-    without an index: QUANT_N random unit rows of QUANT_D (bf16, and int8
-    with their column scales as `quantize_tbl` makes them), all alive, in
-    chunks of 131,072, and QUANT_NQ random unit queries as
-    `prepare_queries` makes them (bf16; int8 with their row scales)."""
+    without an index: QUANT_N random unit rows of d (QUANT_D, phase 3b's
+    768, or 384; bf16, and int8 with their column scales as `quantize_tbl`
+    makes them), all alive, in chunks of 131,072, and QUANT_NQ random unit
+    queries as `prepare_queries` makes them (bf16; int8 with their row
+    scales)."""
     import torch
 
     from cozo_tpu_torch.ops.exact_knn import quantize_tbl
@@ -3608,52 +3685,76 @@ def synthetic_wide_table(dev, seed=43):
     chunk = 131_072
     g = torch.Generator(device=dev).manual_seed(seed)
     tbl = torch.nn.functional.normalize(
-        torch.randn((QUANT_N, QUANT_D), generator=g, device=dev), dim=1)
+        torch.randn((QUANT_N, d), generator=g, device=dev), dim=1)
     bias = torch.zeros(QUANT_N, device=dev)
-    tbl8, scale8 = quantize_tbl(tbl.view(-1, chunk, QUANT_D),
+    tbl8, scale8 = quantize_tbl(tbl.view(-1, chunk, d),
                                 bias.view(-1, chunk))
     tbl16 = tbl.to(torch.bfloat16)
     del tbl
     q = torch.nn.functional.normalize(
-        torch.randn((QUANT_NQ, QUANT_D), generator=g, device=dev), dim=1)
-    q16 = prepare_queries(q, "Cosine", QUANT_D, half=True,
+        torch.randn((QUANT_NQ, d), generator=g, device=dev), dim=1)
+    q16 = prepare_queries(q, "Cosine", d, half=True,
                           reciprocal=True).to(torch.bfloat16)
-    _, q8, rs8 = prepare_queries(q, "Cosine", QUANT_D, half=True,
+    _, q8, rs8 = prepare_queries(q, "Cosine", d, half=True,
                                  quantize=True, reciprocal=True)
-    return (tbl16, tbl8.reshape(-1, QUANT_D), scale8.reshape(-1), bias, chunk,
+    return (tbl16, tbl8.reshape(-1, d), scale8.reshape(-1), bias, chunk,
             q16, q8, rs8)
 
 
-def time_wide_sweep(*inputs):
+def time_wide_sweep(*inputs, lanes=None, tag=""):
     """Phase 4's timings (`time_sweep_shape`) of the chunk steps at phase
-    3b's 768-wide rows (`sweep_wide_shapes` of `inputs`), the plain
-    version over the whole table in blocks of WIDE_PLAIN_ROWS query rows.
-    Kept in WIDE_SWEEP_SHAPES."""
+    3b's wide rows (`sweep_wide_shapes` of `inputs`; `lanes`: only those),
+    the plain version over the whole table in blocks of WIDE_PLAIN_ROWS
+    query rows.  Kept in WIDE_SWEEP_SHAPES under the lane's name + `tag`."""
     import torch
 
     for lane, q, tbl, chunk, kc, kw in sweep_wide_shapes(*inputs):
-        WIDE_SWEEP_SHAPES[lane] = time_sweep_shape(
-            lane, q, tbl, chunk, kc, kw, OTHER_LANE_REPS, WIDE_PLAIN_ROWS)
+        if lanes is None or lane in lanes:
+            WIDE_SWEEP_SHAPES[lane + tag] = time_sweep_shape(
+                lane + tag, q, tbl, chunk, kc, kw, OTHER_LANE_REPS,
+                WIDE_PLAIN_ROWS)
         del q, tbl, kw
         torch.cuda.empty_cache()
 
 
-def phase_quant_wide():
-    """Phase 3b: a 768-wide draw through the quant lane (past the f32
-    budget, as `HnswIndex.search` serves it there), then under the budget
-    through the bf16+rerank and i8+rerank lanes (`phase_wide_lanes`).
-    Returns the `wide` numbers."""
+# phase 4's second wide table: 384 wide (the common small sentence
+# encoders), the bf16 lane's and the i8 lane's chunk steps
+WIDE_384_D = 384
+WIDE_384_LANES = ("wide bf16 lane", f"wide i8 lane, {WIDE_I8_RERANK} re-ranked")
+
+
+def time_wide_384(dev):
+    """`time_wide_sweep` of WIDE_384_LANES on a synthetic [4,096 x
+    2,097,152] x 384 table (`synthetic_wide_table`)."""
+    import torch
+
+    time_wide_sweep(*synthetic_wide_table(dev, d=WIDE_384_D),
+                    lanes=WIDE_384_LANES, tag=f" at d_pad {WIDE_384_D}")
+    torch.cuda.empty_cache()
+
+
+def wide_draw():
+    """Phase 3b's draw: glove_like(QUANT_N + QUANT_NQ, QUANT_D, seed 43)."""
+    from cozo_tpu_torch.utils.datasets import glove_like
+
+    return glove_like(QUANT_N + QUANT_NQ, QUANT_D, seed=43)
+
+
+def phase_quant_wide(draw=None):
+    """Phase 3b: a 768-wide draw (`draw`: the `HostJob` of `wide_draw`;
+    None: made here) through the quant lane (past the f32 budget, as
+    `HnswIndex.search` serves it there), then under the budget through the
+    bf16+rerank and i8+rerank lanes (`phase_wide_lanes`).  Returns the
+    `wide` numbers."""
     import torch
 
     from cozo_tpu_torch.ops.quant_knn import QuantSweepTable, quant_search
-    from cozo_tpu_torch.utils.datasets import glove_like
 
     say(f"quant cut: {QUANT_N:,} rows instead of 10,000,000")
-    t0 = time.time()
-    data = glove_like(QUANT_N + QUANT_NQ, QUANT_D, seed=43)
+    data, gen_s, waited_s = host_result(draw, wide_draw)
     qs, data = data[QUANT_N:], data[:QUANT_N]
     say(f"phase 3b datagen {QUANT_N} + {QUANT_NQ} x {QUANT_D} in "
-        f"{time.time() - t0:.1f}s")
+        f"{gen_s:.1f}s, {waited_s:.1f}s of it waited for here")
     t0 = time.time()
     table = QuantSweepTable().load(data, "Cosine")
     torch.cuda.synchronize()
@@ -4223,11 +4324,19 @@ def time_sweep_shape(lane, q, tbl, chunk, kc, kw, reps, plain_rows=None):
               + B * n_p * kc * ((2 if int8 else 4) + 8))
     bound = max(ops / peak, nbytes / PEAK_BYTES) * 1e3
     ms = float(np.median(kern))
+    # the table's bytes out of L2 a launch: once a cluster of blocks that
+    # share its chunks
+    lib = ek._sweep_lib()
+    rows = lib.cozo_sweep_topk_rows(int(int8), d_pad, kc)
+    cluster = lib.cozo_sweep_topk_cluster(int(int8), d_pad, kc)
+    l2_bytes = (tbl.numel() * tbl.element_size()
+                * (-(-(-(-B // rows)) // cluster)))
     say(f"phase 4 sweep_topk ({lane}: [{B} x {n_total}] {q.dtype} in "
         f"{n_p} piece(s) of {piece}, d_pad {d_pad}, kc {kc}): {ms:.3f} ms "
         f"a launch ({100 * bound / ms:.1f}% of the bound {bound:.3f} ms, "
         f"{ops / 1e12:.2f} T{'OP' if int8 else 'FLOP'}, "
-        f"{nbytes / 1e9:.3f} GB; turns {[round(x, 3) for x in kern]}), "
+        f"{nbytes / 1e9:.3f} GB; turns {[round(x, 3) for x in kern]}; "
+        f"the table from L2 {l2_bytes / 1e9:.1f} GB), "
         f"the two-step route in chunks of {chunk} "
         f"{np.median(old):.3f} ms (turns "
         f"{[round(x, 3) for x in old]}), library mm + topk "
@@ -4242,7 +4351,8 @@ def time_sweep_shape(lane, q, tbl, chunk, kc, kw, reps, plain_rows=None):
         "library_ms": library_ms,
         "bound_ms": bound,
         "bound_by": "operations" if ops / peak >= nbytes / PEAK_BYTES
-        else "bytes", "ids_equal": share, "max_abs_err": err}
+        else "bytes", "l2_bytes": l2_bytes,
+        "ids_equal": share, "max_abs_err": err}
 
 
 def time_sweep(st, qs, reps):
@@ -5102,51 +5212,69 @@ def phase_examples():
     return out
 
 
-def phase_graph_quality(n, main_draw=False):
-    """Phase 11 (f): the graph-quality check.  `glove_like(n + 256, 100,
-    seed 42)` (with `main_draw`, phase 3c's rows and queries: the first n
-    rows of the main path's draw and the first 256 of its queries) built through a `Db("mem")` on the card (`::hnsw create`:
-    the device `bulk_build`, wave 8,192, m = 16, ef_construction = 200,
-    cosine) and by `CpuHnswBaseline` (`native/hnsw_baseline.cpp`, the
-    reference algorithm, one thread of the card's host); recall@10 of
-    each graph's host search at ef = 64 and 128 on the last 256 rows
-    against exact cosine.  Prints, never fails on the numbers (the tier-1
-    test holds the port to JAX).  Returns the numbers and the Db (phase
-    11 (d) of `--hosts-only` runs on it)."""
-    from cozo_tpu_torch.ops.cpu_baseline import CpuHnswBaseline
+def quality_draw(n, main_draw=False):
+    """Phase 11 (f)'s rows and queries: `glove_like(n + 256, 100, seed
+    42)` split, or with `main_draw` the first n rows of the main path's
+    draw and the first 256 of its queries (phase 3c's)."""
     from cozo_tpu_torch.utils.datasets import glove_like
 
     if main_draw:
         x = glove_like(N + NQ, D, seed=42)
-        data, qs = x[:n].copy(), x[N:N + QUALITY_NQ].copy()
-        del x
-    else:
-        x = glove_like(n + QUALITY_NQ, D, seed=42)
-        data, qs = x[:n], x[n:]
+        return x[:n].copy(), x[N:N + QUALITY_NQ].copy()
+    x = glove_like(n + QUALITY_NQ, D, seed=42)
+    return x[:n], x[n:]
+
+
+def baseline_graph(n, main_draw=False):
+    """Phase 11 (f)'s baseline: `CpuHnswBaseline` (m = 16, ef_construction
+    = 200, cosine; one thread, in C++ outside the GIL) built on
+    `quality_draw(n, main_draw)`.  Returns its build seconds and its ids
+    at ef = 64 and 128 for the draw's queries."""
+    from cozo_tpu_torch.ops.cpu_baseline import CpuHnswBaseline
+
+    data, qs = quality_draw(n, main_draw)
+    t0 = time.time()
+    base = CpuHnswBaseline(D, 16, 200, "Cosine")
+    base.add(data)
+    base_s = time.time() - t0
+    return base_s, {ef: base.search(qs, K, ef)[0] for ef in (64, 128)}
+
+
+def phase_graph_quality(n, main_draw=False, baseline=None):
+    """Phase 11 (f): the graph-quality check.  `quality_draw(n,
+    main_draw)` built through a `Db("mem")` on the card (`::hnsw create`:
+    the device `bulk_build`, wave 8,192, m = 16, ef_construction = 200,
+    cosine) and by `CpuHnswBaseline` (`native/hnsw_baseline.cpp`, the
+    reference algorithm, one thread of the card's host; `baseline`: the
+    `HostJob` of `baseline_graph`, None: built here); recall@10 of each
+    graph's host search at ef = 64 and 128 on the 256 queries against
+    exact cosine.  Prints, never fails on the numbers (the tier-1 test
+    holds the port to JAX).  Returns the numbers and the Db (phase 11 (d)
+    of `--hosts-only` runs on it)."""
+    data, qs = quality_draw(n, main_draw)
     dn = data / np.linalg.norm(data, axis=1, keepdims=True)
     qn = qs / np.linalg.norm(qs, axis=1, keepdims=True)
     gt = np.argsort(-(qn @ dn.T), axis=1, kind="stable")[:, :K]
     db, built = build_db(data)
     index = db.algo_cache["hnsw::item::ix"].index
-    t0 = time.time()
-    base = CpuHnswBaseline(D, 16, 200, "Cosine")
-    base.add(data)
-    base_s = time.time() - t0
+    (base_s, base_ids), _, _ = host_result(baseline, baseline_graph, n,
+                                           main_draw)
     out = {"n": n, "draw": f"the first {n} rows of glove_like({N + NQ})"
            if main_draw else f"glove_like({n + QUALITY_NQ})",
            "queries": QUALITY_NQ, "port_bulk_build_s":
-           built["bulk_build_s"], "baseline_build_s": base_s}
+           built["bulk_build_s"], "baseline_build_s": base_s,
+           "baseline_beside_phase_2": baseline is not None}
     for ef in (64, 128):
         out[f"port_recall@10_ef{ef}"] = recall(
             index.search(qs, K, ef, use_tpu=False)[0], gt)
-        out[f"baseline_recall@10_ef{ef}"] = recall(base.search(qs, K, ef)[0],
-                                                   gt)
+        out[f"baseline_recall@10_ef{ef}"] = recall(base_ids[ef], gt)
         out[f"gap_ef{ef}"] = (out[f"port_recall@10_ef{ef}"]
                               - out[f"baseline_recall@10_ef{ef}"])
     say(f"phase 11 (f) graph quality at {n} x {D} ({out['draw']}, seed 42; "
         f"m 16, ef_construction 200): the port's bulk_build on the card "
         f"{built['bulk_build_s']:.1f}s, the baseline on one host thread "
-        f"{base_s:.1f}s; recall@10 port / baseline / gap: ef 64 "
+        f"{base_s:.1f}s{' (beside phase 2)' if baseline else ''}; "
+        f"recall@10 port / baseline / gap: ef 64 "
         f"{out['port_recall@10_ef64']:.5f} / "
         f"{out['baseline_recall@10_ef64']:.5f} / {out['gap_ef64']:+.5f}, "
         f"ef 128 {out['port_recall@10_ef128']:.5f} / "
@@ -5156,14 +5284,16 @@ def phase_graph_quality(n, main_draw=False):
     return out, db
 
 
-def phase_hosts(quality_n, main_draw=False):
-    """Phase 11 (b), (c), (e) and (f); returns their `hosts` numbers and
+def phase_hosts(quality_n, main_draw=False, baseline=None):
+    """Phase 11 (b), (c), (e) and (f) (`baseline`: as
+    `phase_graph_quality` takes it); returns their `hosts` numbers and
     (f)'s Db."""
     out = {}
     out.update(phase_clis())
     out.update(phase_c_abi())
     out["examples"] = phase_examples()
-    out["graph_quality"], db = phase_graph_quality(quality_n, main_draw)
+    out["graph_quality"], db = phase_graph_quality(quality_n, main_draw,
+                                                   baseline)
     return out, db
 
 
@@ -5315,8 +5445,9 @@ def synthetic_sweep_table(n, dev, seed=0):
 def sweep_only(args, dev):
     """--sweep-only: the loop for work on the chunk-step kernel: phase 2's
     sweep_topk cases, then phase 4's sweep_topk timings on a synthetic
-    table of --n rows (the main path's shape, no index) and at phase 3b's
-    768-wide shapes on a synthetic table of its size."""
+    table of --n rows (the main path's shape, no index), at phase 3b's
+    768-wide shapes on a synthetic table of its size and at two of them
+    384 wide (`time_wide_384`)."""
     import torch
 
     t0 = time.time()
@@ -5327,6 +5458,7 @@ def sweep_only(args, dev):
     del st, qs
     torch.cuda.empty_cache()
     time_wide_sweep(*synthetic_wide_table(dev))
+    time_wide_384(dev)
     finish_topk_entry(kernels)
     say(f"total {time.time() - t0:.1f}s")
     say(json.dumps({"kernels": kernels}))
@@ -5414,6 +5546,10 @@ def main():
     phase_minhash_vs_plain(dev)
     if args.lsh_only:
         return lsh_only(args)
+    jobs = {}
+    if not args.kernels_only:  # the host's work of later phases, beside 2
+        jobs = {"wide": HostJob(wide_draw), "graphs": HostJob(scale_graphs),
+                "baseline": HostJob(baseline_graph, QUALITY_N)}
     phase_kernel_vs_plain(dev)
     phase_topk_vs_plain(dev)
     phase_sweep_vs_plain(dev)
@@ -5467,12 +5603,15 @@ def main():
         lap("phase 10 (the engines)")
         phase_i8_build(data, qs)
         del data
-        wide = phase_quant_wide()
+        wide = phase_quant_wide(jobs["wide"])
         wide["card"] = smi_line()
         say("wide " + json.dumps(wide))
         lap("phases 3b and 3c")
+        time_wide_384(dev)
+        lap("phase 4's sweep_topk at d_pad 384")
         (graph_kernels, graph_launches["scale (phase 7)"],
-         mesh["graph"]) = phase_graph_scale(dev, args.reps, db_timings)
+         mesh["graph"]) = phase_graph_scale(dev, args.reps, db_timings,
+                                            jobs["graphs"])
         mesh["card"] = smi_line()
         say("mesh " + json.dumps(mesh))
         lap("phase 7 and its timings, phase 9's graph steps")
@@ -5483,7 +5622,7 @@ def main():
         kernels.append(time_minhash(first_chunk, lsh_launches, args.reps))
         add_path_launches(kernels, "engines (phase 10)", engine_launches)
         lap("phase 8 and its timing")
-        more, db = phase_hosts(QUALITY_N)
+        more, db = phase_hosts(QUALITY_N, baseline=jobs["baseline"])
         del db
         hosts.update(more)
         hosts["card"] = smi_line()

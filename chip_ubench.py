@@ -22,9 +22,9 @@ MB, past the 50 MB L2), through a ring of 16 KB tiles (TMA, 128-byte
 swizzle), every block in the kernel's golden-ratio tile order, so that
 the blocks read each tile at about the same time and device memory
 serves it about once; three consumer warps wait for each tile and free
-its slot.  Clusters of 1 (each block loads its own tiles) and of 2 (each
-block loads half of every tile with `.multicast::cluster` into both), at
-4 and 8 stages: the bytes the SMs receive a second (blocks x table /
+its slot.  Clusters of 1 (each block loads its own tiles), of 2 (each
+block loads half of every tile with `.multicast::cluster` into both) and
+of 4 (a quarter into all four), at 4 and 8 stages: the bytes the SMs receive a second (blocks x table /
 time) and those leaving L2 (the same over the cluster).  It needs CUDA
 and checks nothing.
 """
@@ -249,6 +249,8 @@ int main() {
     run<1, 8>(tbl, rows, blocks, enc, sink);
     run<2, 4>(tbl, rows, blocks, enc, sink);
     run<2, 8>(tbl, rows, blocks, enc, sink);
+    run<4, 4>(tbl, rows, blocks, enc, sink);
+    run<4, 8>(tbl, rows, blocks, enc, sink);
   }
   return 0;
 }

@@ -114,10 +114,16 @@ struct Cfg {
 template <int MODE, int CLUSTER>
 using CfgOf = Cfg<MODE <= LIST16 ? 2 : 1, MODE, CLUSTER>;
 
-// The wide rows' configuration (`sweep_topk.cu`, 128 < d_pad): one consumer
-// of 64 rows for every row state, blocks in pairs.
-template <int MODE>
-using WideCfg = Cfg<1, MODE, 2>;
+// The wide rows' configuration (`sweep_topk.cu`, 128 < d_pad): a block
+// of 64 query rows for every row state, NC consumer warpgroups on those
+// rows (each the tiles of every NC-th group; one row state, whose
+// registers are the consumer's own), blocks in clusters of CLUSTER.
+template <int MODE_, int NC_ = 1, int CLUSTER_ = 2>
+struct WideCfg : Cfg<1, MODE_, CLUSTER_> {
+  static constexpr int NC = NC_;
+  static constexpr int NTHREADS = 128 * (NC_ + 1);  // and one producer warpgroup
+  static_assert(NC_ == 1 || NC_ == 2, "one or two consumers a block");
+};
 
 // What the kernel reads and writes beside the two matrices.
 struct Args {
@@ -645,6 +651,49 @@ struct Select {
           if (r == row[h]) set_t(h, nt);
         }
       }
+    }
+  }
+
+  // Two consumers on one block's rows (the wide form), each selecting the
+  // tiles of its own groups in turn with the other: the heads and tails in
+  // shared memory are one state, whose t the other consumer may have raised
+  // since this thread last read it (t is always its head's kc-th).  The
+  // lists are each consumer's own (registers); their shared tail is
+  // flushed into the lists of the consumer that flushes it.
+  __device__ __forceinline__ void sync_t() {
+    if constexpr (!C::LISTS) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) set_t(h, bufs[(size_t)row[h] * C::BUF + kc - 1]);
+    }
+  }
+
+  // Lists: this consumer's entries to `s` (a row's 4 L a row, in rank
+  // order, 0 where empty) for the other consumer's `merge_lists`.
+  __device__ __forceinline__ void dump_lists(u64* s) const {
+    if constexpr (C::LISTS) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < C::L; ++j) s[(size_t)row[h] * 4 * C::L + C::L * qk + j] = E[h][j];
+    }
+  }
+
+  // Lists: the other consumer's first kc entries of each row, from `s`,
+  // into this one's (each quad one entry a round, as `flush_lists`).
+  __device__ __forceinline__ void merge_lists(const u64* s) {
+    if constexpr (C::LISTS) {
+      __syncwarp();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const u64* other = s + (size_t)row[h] * 4 * C::L;
+        for (int k = 0; k < kc; ++k) {
+          const u64 cv = other[k];
+          const int c = rank_in_list(h, cv);
+          insert_at(h, c, cv, cv != 0);
+        }
+        set_t(h, __shfl_sync(FULL, sel_n<C::L>(E[h], tj), qbase + tk));
+      }
+      __syncwarp();
     }
   }
 

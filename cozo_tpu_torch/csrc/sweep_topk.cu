@@ -477,25 +477,34 @@ sweep_topk_kernel(const __grid_constant__ CUtensorMap map_q,
 // the narrow kernel's design does not fit: its consumers hold the query
 // rows' A fragments in registers (192 a thread at bf16 d_pad 768) and its
 // ring holds whole tiles (96 KB at bf16 d_pad 768).  Here:
-//   * one consumer warpgroup of 64 query rows a block, every row state, and
-//     blocks in pairs sharing each table tile by multicast (each loads 32
-//     rows): 128 query rows a table byte, the L2 stream's budget (a table
-//     byte feeds 2 operations a query row sharing it; the card needs about
-//     120 a byte that L2 delivers, 240 in int8);
+//   * 64 query rows a block, every row state, and blocks in pairs sharing
+//     each table tile by multicast (each loads 32 rows);
 //   * `wgmma` with A from shared memory (SS form; A from registers, read
 //     once a chunk for two tiles, was slower: PERF.md §6) and the ring's
 //     stages one 128-byte K-chunk of a 64-row tile (8 KB): a tile's
 //     products are kcn = ceil(d_pad bytes / 128) chunks of four k-steps,
-//     for `wide_tiles` tiles at once (4 with the lists of 8, 2 past),
-//     chunk by chunk, into as many accumulator sets.  bf16: the group's
-//     stages of a chunk lie side by side (the stages a multiple of the
-//     group), so each chunk is one product of N = 128 / 256 (`wide_merge`),
-//     one in flight past the one issued; int8: one product a tile, the
-//     tiles in turns (their chains: one kept the tensor cores at 26-27% of
-//     their peak at bf16 d_pad 768, two 39%, four 43%; splitting a tile's
-//     chunks over two sets moved its sums off cuBLAS's order).  A chunk's
-//     stages are freed once a later product is issued and it is done (the
-//     CUTLASS main loop's shape);
+//     for `wide_tiles` tiles at once (a group: 4 with the lists of 8, 2
+//     past), chunk by chunk, into as many accumulator sets.  bf16: the
+//     group's stages of a chunk lie side by side (the stages a multiple of
+//     the group), so each chunk is one product of N = 128 / 256
+//     (`wide_merge`), one in flight past the one issued; int8: one product
+//     a tile, the tiles in turns (their chains: one kept the tensor cores
+//     at 26-27% of their peak at bf16 d_pad 768, two 39%, four 43%;
+//     splitting a tile's chunks over two sets moved its sums off cuBLAS's
+//     order).  A chunk's stages are freed once a later product is issued
+//     and it is done (the CUTLASS main loop's shape);
+//   * two consumer warpgroups on the block's 64 rows where the query rows
+//     stay resident beside the row state (`wide_two`: the lists always,
+//     the heads where they fit), one where the heads' state streams them.
+//     Consumer c takes the groups c, c + 2, ...: while one selects its
+//     group, the other multiplies the next.  A consumer starts a group's
+//     products only once the other has waited for every chunk of the group
+//     before (`pturn`): the ring is shorter than a group, and a wait on a
+//     stage whose earlier chunk has not landed would pass on the parity of
+//     the round before.  The lists are each consumer's (registers),
+//     merged through the ring at the end; the heads and tails in shared
+//     memory are one state, selected in turns (named barriers 1 and 2),
+//     each consumer reading the other's raised t first (`sync_t`);
 //   * the query rows resident in shared memory (kcn boxes of 64 x 128 B,
 //     loaded once) where that leaves MIN_WIDE_STAGES stages (and two
 //     products' worth) beside the row state, else streamed: a box with the
@@ -505,38 +514,43 @@ sweep_topk_kernel(const __grid_constant__ CUtensorMap map_q,
 //   * the tiles' bias (and column scales) go through a ring of their own,
 //     `wide_vecs` slots with their own barriers, each freed after its tile's
 //     selection (held in a chunk's stage, they would pin it while the next
-//     tile's chunks wrap the ring onto it);
-//   * the tiles' selections after their products, not beside them.  The
-//     products of one chunk are 128 cycles of the tensor cores at their
-//     peak a tile in both kinds, a tile's 6-16 chunks; pass 1 is 50-100
-//     cycles a tile in bf16, ~300 in int8, where the conversion to f32 is
-//     the exact one (sums reach 768 127^2 > 2^22).  A group's pass 1 beside
-//     the next group's products (two sets of half as many tiles) was
-//     slower: 1.5-2.1x where ptxas serialised the products (C7514, C7518:
-//     an accumulator in flight fenced, an issue under a branch), 1.04-1.38x
-//     without (half the product chains in flight; PERF.md §6).
+//     tile's chunks wrap the ring onto it).
+// Where its time went before the second consumer (diagnostic copies of the
+// source, in turns at phase 3b's [4,096 x 2,097,152] x 768 on an H100 at
+// 700 W: `chip_graph_vs.py --make-wide-copies`, PERF.md §6): the ring
+// alone 15.1 ms (bf16) / 8.0-12.0 (int8), the products alone 15.7 / 10.6-
+// 10.9, both 24.1 / 11.5-16.2, of a chunk step of 28.5 / 26.0-26.5 ms: the
+// selection after the products was 15% of it in bf16 and 38-57% in int8,
+// which the second consumer hides (int8 kc 128 1.25x, bf16 kc 26 1.07x,
+// in turns); L2 misses cost 4-5 ms where the pairs of a piece drift apart.
+// Traffic: the table leaves L2 once a pair of blocks, table x B / 128
+// bytes a launch (103.1 GB at bf16 kc 26 there, 51.5 GB int8, 206.2 GB
+// for the build's 8,192 rows), and where A is streamed, A once a product;
+// the ring alone here streamed 6.8 TB/s out of L2 (15.1 ms of bf16 kc 26's
+// 103.1 GB), `chip_ubench.py`'s pairs 4.6-4.8 TB/s.  Clusters of 4 (a chunk
+// out of L2 once for 256 rows) lost 1.3-2.1x: fewer fit on the card.
 // Shared memory of a block (232,448 bytes; `wide_layout`'s map; a stage 8
-// KB, and 8 KB of A a product where A is streamed; the vectors' ring 1-4
+// KB, and 8 KB of A a product where A is streamed; the vectors' ring 1-8
 // KB; A resident at d_pad 768 / 1,024: bf16 96 / 128 KB, int8 48 / 64 KB),
-// the stages at d_pad 768 / 1,024:
-//   * lists of 8 (no state): A resident; bf16 12 / 8, int8 16 / 16;
-//   * lists of 16 (a tail of 72 a row, 36.3 KB): A resident; bf16 10 / 6,
-//     int8 16 / 15;
-//   * head 128 (128.3 KB): bf16 A resident to d_pad 384 (6 stages there),
-//     streamed past it (8); int8 resident to 768 (5), streamed past it (5);
-//   * head 256 (160.3 KB): bf16 A streamed (4 stages); int8 resident to 256
-//     (5), streamed past it (3).
+// the configurations at d_pad 768:
+//   * lists of 8 (no state): two consumers, A resident; bf16 12 stages;
+//   * lists of 16 (a tail of 72 a row, 36.3 KB): two consumers, A resident;
+//   * head 128 (128.3 KB): int8 two consumers, A resident (5 stages); bf16
+//     one consumer, A streamed (two with A resident to d_pad 256; at 384 and
+//     768 two consumers' larger vector ring leaves too few stages for A,
+//     and two streaming consumers lost 1.17x at 768);
+//   * head 256 (160.3 KB): one consumer, A streamed (int8: two, resident, to
+//     d_pad 256).
 // What bounds it: operations (bf16 2 B n d_pad at 989 TFLOP/s, int8 at
-// 1,979 TOP/s); beside it the L2 stream (the table once a pair of blocks,
-// and where A is streamed, A once a product).
+// 1,979 TOP/s); beside it the L2 stream above.
 constexpr int WIDE_MAX_D = 1024;
 constexpr int MIN_WIDE_STAGES = 5;   // with A resident; else A streamed
 constexpr int MAX_WIDE_STAGES = 16;  // 128 KB of chunks: past the L2 latency
 // Tiles whose products a wide block keeps in flight at once, by row state:
 // four with the lists of 8 (their state is in registers already), two past.
 __host__ __device__ constexpr int wide_tiles(int mode) { return mode == LIST8 ? 4 : 2; }
-// The vectors' slots: two groups of tiles.
-__host__ __device__ constexpr int wide_vecs(int mode) { return 2 * wide_tiles(mode); }
+// The vectors' slots: two groups of tiles a consumer.
+__host__ __device__ constexpr int wide_vecs(int mode, int nc) { return 2 * nc * wide_tiles(mode); }
 // The ring's stages one product reads: bf16 the group's tiles side by side
 // as one `wgmma` of N = 64 wide_tiles (7-17% faster at d_pad 768 than one
 // a tile), int8 one a tile (2-4% slower merged; PERF.md §6).
@@ -558,7 +572,7 @@ struct Wide {
 template <int KIND, class C>
 Wide wide_layout(int d_pad) {
   constexpr uint32_t sel_bytes = C::SEL_BYTES;
-  constexpr int WIDE_VECS = wide_vecs(C::MODE);
+  constexpr int WIDE_VECS = wide_vecs(C::MODE, C::NC);
   constexpr int MG = wide_merge(KIND, C::MODE);
   constexpr uint32_t VEC = TN * 4 * (KIND == 1 ? 2 : 1);
   Wide w;
@@ -581,7 +595,7 @@ Wide wide_layout(int d_pad) {
   w.vecs = w.aring + (w.stream ? (uint32_t)(w.stages / MG) * Q_WBOX : 0u);
   w.sel = w.vecs + WIDE_VECS * VEC;
   w.bar = (w.sel + sel_bytes + 15u) & ~15u;
-  w.bytes = w.bar + 8 * (1 + 2 * w.stages + 2 * WIDE_VECS) + 1024;
+  w.bytes = w.bar + 8 * (1 + 2 * w.stages + 2 * WIDE_VECS + C::NC) + 1024;
   return w;
 }
 
@@ -686,6 +700,23 @@ __device__ __forceinline__ void mbar_arrive_cluster_if(uint32_t bar, uint32_t ct
       : "memory");
 }
 
+// Arrives on this block's barrier at `bar` where p, with no branch.
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool p) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}" ::"r"(bar),
+      "r"((int)p)
+      : "memory");
+}
+
+// The named barrier `id` of `n` threads: wait for them, or only arrive.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
 // KIND 0: bf16, 1: int8.  The grid as the narrow kernel's; the tiles go in
 // groups (e, ..., e + G - 1) of the stride order, and the ring's sequence
 // holds chunk c of the group's tile t at g = e kcn + G c + t, stage g mod
@@ -695,14 +726,18 @@ template <int KIND, class C>
 __global__ void __launch_bounds__(C::NTHREADS, 1)
 sweep_topk_wide_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_t, const Args a, const Wide w) {
-  static_assert(C::NCONS == 1 && C::CLUSTER == 2, "the wide configuration");
+  static_assert(C::RB == BM && C::CLUSTER == 2, "the wide configuration");
   typedef typename std::conditional<KIND == 0, float, int>::type Acc;
+  constexpr int NC = C::NC;
   constexpr int ELEMS = ROW / (KIND == 0 ? 2 : 1);
   constexpr int SHARE = TN / C::CLUSTER;
   constexpr uint32_t VEC = TN * 4 * (KIND == 1 ? 2 : 1);
   constexpr int G = wide_tiles(C::MODE);
   constexpr int MG = wide_merge(KIND, C::MODE);
-  constexpr int WIDE_VECS = wide_vecs(C::MODE);
+  constexpr int WIDE_VECS = wide_vecs(C::MODE, NC);
+  // two consumers share the row state in shared memory: they select their
+  // groups in turns (named barriers 1 and 2, a consumer's turn each)
+  constexpr bool TURNS = NC > 1 && C::TAIL > 0;
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
@@ -710,6 +745,7 @@ sweep_topk_wide_kernel(const __grid_constant__ CUtensorMap map_q,
   unsigned char* gbase = smem_raw + (base - raw);
   const uint32_t q_full = base + w.bar, full = q_full + 8, empty = full + 8 * w.stages;
   const uint32_t vfull = empty + 8 * w.stages, vempty = vfull + 8 * WIDE_VECS;
+  const uint32_t pturn = vempty + 8 * WIDE_VECS;  // consumer c's turn to multiply
 
   const int tid = threadIdx.x;
   const int wg = __shfl_sync(FULL, tid >> 7, 0);
@@ -724,21 +760,23 @@ sweep_topk_wide_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_init(q_full, 1);
     for (int s = 0; s < w.stages; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 4 * C::NCONS * C::CLUSTER);
+      mbar_init(empty + 8 * s, 4 * C::CLUSTER);  // one consumer's warps a block
     }
     for (int s = 0; s < WIDE_VECS; ++s) {
       mbar_init(vfull + 8 * s, 1);
-      mbar_init(vempty + 8 * s, 4 * C::NCONS);  // this block's consumer warps
+      mbar_init(vempty + 8 * s, 4);  // the consumer warps of this block's tile
     }
+    for (int c = 0; c < NC; ++c) mbar_init(pturn + 8 * c, 4);  // the other consumer's warps
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   cluster_sync();
 
-  if (wg == C::NCONS) {
+  if (wg == NC) {
     // ===== producer: the query rows once (or a chunk with a product's
     // first stage), each tile's vectors (not for an idle block), its share
     // of every table chunk
-    if (tid == 128 * C::NCONS) {
+    if constexpr (NC > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (tid == 128 * NC) {
       const bool own_a = w.stream && !idle;
       if (!idle && !w.stream) {
         mbar_expect_tx(q_full, kcn * Q_WBOX);
@@ -791,7 +829,9 @@ sweep_topk_wide_kernel(const __grid_constant__ CUtensorMap map_q,
     return;
   }
 
-  // ===== the consumer warpgroup =====
+  // ===== the consumer warpgroups: consumer c the groups c, c + NC, ... =====
+  if constexpr (NC > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int cons = wg;
   const int lane = tid & 31;
   // frees stage g's slot in both blocks of the pair (after the warp's reads)
   auto release = [&](int g) {
@@ -802,6 +842,7 @@ sweep_topk_wide_kernel(const __grid_constant__ CUtensorMap map_q,
   };
   const int n_chunks = n_tiles * kcn;
   if (idle) {
+    if (cons > 0) return;
     for (int g = 0; g < n_chunks; ++g) {
       mbar_wait(full + 8 * (g % w.stages), (uint32_t)(g / w.stages) & 1);
       release(g);
@@ -810,8 +851,14 @@ sweep_topk_wide_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   Select<C, KIND, true> sel;
-  sel.init(tid, qt, a, gbase + w.sel);
+  sel.init(tid & 127, qt, a, gbase + w.sel);  // every consumer: the block's rows
   if (!w.stream) mbar_wait(q_full, 0);
+  const int n_groups = n_tiles / G;
+  // the first group's turn, once this consumer's share of the state is clear
+  if (TURNS && cons == 1) {
+    __threadfence_block();
+    named_arrive(1, 256);
+  }
 
   auto vec_of = [&](int e) {
     const int v = e % WIDE_VECS;
@@ -845,15 +892,14 @@ sweep_topk_wide_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int ks = 0; ks < 4; ++ks) wgmma_ss(d, da + 2 * ks, db + 2 * ks, acc || ks > 0);
     wgmma_commit();
   };
-  int tile = 0;
-  // the e-th tile's selection on its products d, then its vectors' slot freed
-  auto select_tile = [&](const Acc(&d)[32], int e) {
+  // the e-th tile's selection on its products d (its place `tile`), then
+  // its vectors' slot freed
+  auto select_tile = [&](const Acc(&d)[32], int e, int tile) {
     const float* vec = vec_of(e);
     float x[32], mx[2];
     sel.pass1(d, vec, x, mx);
     if (sel.need(mx, tile)) sel.select(d, x, tile, vec);
     free_vec(e);
-    tile = next_tile(tile, a.stride, n_tiles);
   };
   Acc d[G][32];
   // bf16: chunk c of every tile of the group, its G stages from g on, as
@@ -872,6 +918,16 @@ sweep_topk_wide_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int t = 0; t < G; ++t) release(g + t);
   };
+  // two consumers: every chunk of the group has landed (this consumer
+  // waited for each), so the other may wait for its next group's chunks,
+  // whose stages held this group's (a wait on a stage two rounds ahead of
+  // its barrier would pass: the parity repeats)
+  auto pass_on = [&] {
+    if constexpr (NC > 1) {
+      __syncwarp();
+      mbar_arrive_if(pturn + 8 * (1 - cons), lane == 0);
+    }
+  };
   // the group's chunks one product each, one in flight past the one issued
   auto products_merged = [&](int g0) {
     for (int c = 0; c < kcn; ++c) {
@@ -879,6 +935,7 @@ sweep_topk_wide_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<1>();
       if (c > 0) free_group(g0 + G * (c - 1));
     }
+    pass_on();
     wgmma_wait<0>();
 #pragma unroll
     for (int t = 0; t < G; ++t) acc_fence(d[t]);
@@ -903,18 +960,50 @@ sweep_topk_wide_kernel(const __grid_constant__ CUtensorMap map_q,
         release(g0 + G * c + t - G + 1);
       }
     }
+    pass_on();
     wgmma_wait<0>();
 #pragma unroll
     for (int t = 0; t < G; ++t) acc_fence(d[t]);
     for (int k = G * kcn - G + 1; k < G * kcn; ++k) release(g0 + k);
   };
-  for (int e = 0; e < n_tiles; e += G) {
+  int tile = 0;  // the place of this consumer's next tile: tile_of(e)
+  for (int t = 0; t < cons * G; ++t) tile = next_tile(tile, a.stride, n_tiles);
+  for (int j = cons, k = 0; j < n_groups; j += NC, ++k) {
+    const int e = j * G;
+    // the other consumer's products of group j - 1 issued (its k-th turn
+    // for the second consumer, its (k - 1)-th for the first)
+    if (NC > 1 && (cons > 0 || k > 0))
+      mbar_wait(pturn + 8 * cons, (uint32_t)(cons > 0 ? k : k - 1) & 1);
     if (MG > 1)
       products_merged(e * kcn);
     else
       products_tiles(e * kcn);
+    if constexpr (TURNS) {  // the other consumer has selected group j - 1
+      named_sync(1 + cons, 256);
+      sel.sync_t();
+    }
 #pragma unroll
-    for (int t = 0; t < G; ++t) select_tile(d[t], e + t);
+    for (int t = 0; t < G; ++t) {
+      select_tile(d[t], e + t, tile);
+      tile = next_tile(tile, a.stride, n_tiles);
+    }
+    for (int t = 0; t < (NC - 1) * G; ++t) tile = next_tile(tile, a.stride, n_tiles);
+    if (TURNS && j + 1 < n_groups) {  // group j + 1's turn
+      __threadfence_block();
+      named_arrive(2 - cons, 256);
+    }
+  }
+  if constexpr (NC > 1) {
+    // every group selected and every chunk landed: the ring is free, and
+    // the second consumer's lists go through it into the first's
+    named_sync(3, 256);
+    if constexpr (C::LISTS) {
+      u64* lists = reinterpret_cast<u64*>(gbase + w.ring);
+      if (cons == 1) sel.dump_lists(lists);
+      named_sync(3, 256);
+      if (cons == 0) sel.merge_lists(lists);
+    }
+    if (cons > 0) return;
   }
   sel.finish(a, piece_idx);
 }
@@ -1048,7 +1137,10 @@ int launch_wide(const void* q, const void* tbl, long long n_total, int d_pad, Ar
                 cudaStream_t stream) {
   const Wide w = wide_layout<KIND, C>(d_pad);
   const int least = 2 * wide_merge(KIND, C::MODE) > 3 ? 2 * wide_merge(KIND, C::MODE) : 3;
-  if (w.stages < least) return (int)cudaErrorInvalidValue;
+  // two consumers' lists meet in the ring at the end: 64 rows of 4 L
+  const uint32_t merge_bytes = C::NC > 1 && C::LISTS ? 64u * 4 * C::L * 8 : 0u;
+  if (w.stages < least || (uint32_t)w.stages * T_BOX < merge_bytes)
+    return (int)cudaErrorInvalidValue;
   a.n_qt = (a.B + C::RB - 1) / C::RB;
   a.n_qt_c = (a.n_qt + C::CLUSTER - 1) / C::CLUSTER * C::CLUSTER;
   const long long blocks = (n_total / a.piece) * (long long)a.n_qt_c;
@@ -1078,24 +1170,49 @@ int slots_wide(int d_pad) {
   return e == cudaSuccess ? n * C::CLUSTER : -(int)e;
 }
 
+// The wide configuration of (KIND, MODE) at d_pad: two consumers where the
+// query rows stay resident beside their state (the lists always, the heads
+// where they fit), one where the heads' state streams them (two lost
+// there: PERF.md section 6).
+template <int KIND, int MODE>
+bool wide_two(int d_pad) {
+  return MODE <= LIST16 || !wide_layout<KIND, WideCfg<MODE, 2>>(d_pad).stream;
+}
+
+template <int KIND, int MODE>
+int launch_wide_mode(const void* q, const void* tbl, long long n_total, int d_pad, const Args& a,
+                     cudaStream_t s) {
+  if constexpr (MODE > LIST16)
+    if (!wide_two<KIND, MODE>(d_pad))
+      return launch_wide<KIND, WideCfg<MODE, 1>>(q, tbl, n_total, d_pad, a, s);
+  return launch_wide<KIND, WideCfg<MODE, 2>>(q, tbl, n_total, d_pad, a, s);
+}
+
+template <int KIND, int MODE>
+int slots_wide_mode(int d_pad) {
+  if constexpr (MODE > LIST16)
+    if (!wide_two<KIND, MODE>(d_pad)) return slots_wide<KIND, WideCfg<MODE, 1>>(d_pad);
+  return slots_wide<KIND, WideCfg<MODE, 2>>(d_pad);
+}
+
 template <int KIND>
 int launch_wide_kc(const void* q, const void* tbl, long long n_total, int d_pad, const Args& a,
                    cudaStream_t s) {
   switch (mode_of(a.kc)) {
-    case LIST8: return launch_wide<KIND, WideCfg<LIST8>>(q, tbl, n_total, d_pad, a, s);
-    case LIST16: return launch_wide<KIND, WideCfg<LIST16>>(q, tbl, n_total, d_pad, a, s);
-    case HEAD128: return launch_wide<KIND, WideCfg<HEAD128>>(q, tbl, n_total, d_pad, a, s);
-    default: return launch_wide<KIND, WideCfg<HEAD256>>(q, tbl, n_total, d_pad, a, s);
+    case LIST8: return launch_wide_mode<KIND, LIST8>(q, tbl, n_total, d_pad, a, s);
+    case LIST16: return launch_wide_mode<KIND, LIST16>(q, tbl, n_total, d_pad, a, s);
+    case HEAD128: return launch_wide_mode<KIND, HEAD128>(q, tbl, n_total, d_pad, a, s);
+    default: return launch_wide_mode<KIND, HEAD256>(q, tbl, n_total, d_pad, a, s);
   }
 }
 
 template <int KIND>
 int slots_wide_kc(int d_pad, int kc) {
   switch (mode_of(kc)) {
-    case LIST8: return slots_wide<KIND, WideCfg<LIST8>>(d_pad);
-    case LIST16: return slots_wide<KIND, WideCfg<LIST16>>(d_pad);
-    case HEAD128: return slots_wide<KIND, WideCfg<HEAD128>>(d_pad);
-    default: return slots_wide<KIND, WideCfg<HEAD256>>(d_pad);
+    case LIST8: return slots_wide_mode<KIND, LIST8>(d_pad);
+    case LIST16: return slots_wide_mode<KIND, LIST16>(d_pad);
+    case HEAD128: return slots_wide_mode<KIND, HEAD128>(d_pad);
+    default: return slots_wide_mode<KIND, HEAD256>(d_pad);
   }
 }
 
@@ -1154,14 +1271,14 @@ int cozo_sweep_topk(const void* q, const void* tbl, int kind, int B, long long n
 // tile).
 int cozo_sweep_topk_rows(int kind, int d_pad, int kc) {
   (void)kind;
-  if (d_pad > 128) return WideCfg<LIST8>::RB;
+  if (d_pad > 128) return BM;
   return mode_of(kc) <= LIST16 ? CfgOf<LIST8, 1>::RB : CfgOf<HEAD128, 1>::RB;
 }
 
 // The blocks in a cluster for this kind, d_pad and kc (the launch rounds the
 // query tiles up to it).
 int cozo_sweep_topk_cluster(int kind, int d_pad, int kc) {
-  return d_pad > 128 ? WideCfg<LIST8>::CLUSTER : cluster_of(kind, mode_of(kc));
+  return d_pad > 128 ? WideCfg<LIST8, 2>::CLUSTER : cluster_of(kind, mode_of(kc));
 }
 
 // The blocks of the launch for (kind, d_pad, kc) that the card holds at

@@ -17,9 +17,15 @@ host (f32 for the bf16 route, s32 for int8, of small integer inputs: every
 f32 sum exact), the tile's bias and column scales in shared memory as the
 kernel's ring holds them.
 
-Each row state is built twice: in the narrow kernel's configuration and in
-the wide one's (`-DSEL_WIDE=1`: one consumer of 64 rows for every state,
-the int8 sums converted by round-to-nearest).
+Each row state is built three times: in the narrow kernel's configuration,
+in the wide one's (`-DSEL_WIDE=1`: one consumer of 64 rows for every
+state, the int8 sums converted by round-to-nearest), and in the wide one's
+with two consumers on the block's 64 rows (`-DSEL_WIDE=2`): the piece's
+tiles in groups of 1, 2 or 8 (`set_group`: eight groups, four, or one, so
+that the second consumer selects nothing), each group selected by the
+consumers in turn (`sync_t` first), the heads and tails one state in
+shared memory, the lists each consumer's own, merged at the end
+(`dump_lists`, `merge_lists`).
 
 The cases: kc 1, 10, 26, 32 (lists of 8), 33, 64 (lists of 16), 65, 97,
 128 (head 128 and tail 128), 256 (head 256 and tail 64); both key kinds;
@@ -72,20 +78,32 @@ using namespace cozo_sweep;
 #ifndef SEL_WIDE
 #define SEL_WIDE 0
 #endif
-// the narrow kernel's configuration of the row state, or the wide one's
-typedef typename std::conditional<SEL_WIDE, WideCfg<SEL_MODE>, CfgOf<SEL_MODE, 1>>::type Conf;
+// the narrow kernel's configuration of the row state, the wide one's, or
+// the wide one's with two consumers
+typedef typename std::conditional<
+    SEL_WIDE == 2, WideCfg<SEL_MODE, 2>,
+    typename std::conditional<SEL_WIDE == 1, WideCfg<SEL_MODE>, CfgOf<SEL_MODE, 1>>::type>::type
+    Conf;
+constexpr int TURNS = SEL_WIDE == 2 ? 2 : 1;  // consumers that take the groups in turns
+constexpr int THREADS = 128 * (SEL_WIDE == 2 ? 2 : Conf::NCONS);
+constexpr unsigned SCRATCH = SEL_WIDE == 2 ? 64u * 4 * Conf::L * 8 : 0u;  // lists' merge
+static int sel_group = 1;  // tiles a group (SEL_WIDE == 2)
 
 template <int KIND, class C>
 __global__ void walk(const void* prod, long long n_total, Args a) {
   typedef typename std::conditional<KIND == 0, float, int>::type Acc;
   unsigned char* smem = SHIM_SMEM;
   float* vec = reinterpret_cast<float*>(smem + C::SEL_BYTES);  // the stage's vectors
+  u64* scratch = reinterpret_cast<u64*>(smem + C::SEL_BYTES + 512);
   const int tid = threadIdx.x, lane = tid & 31;
   const int piece_idx = blockIdx.x / a.n_qt, qt = blockIdx.x % a.n_qt;
   const int n_tiles = a.piece / TN;
-  const int wrow = (tid >> 7) * BM + ((tid & 127) >> 5) * 16;
-  Select<C, KIND, SEL_WIDE> sel;
-  sel.init(tid, qt, a, smem);
+  // two consumers: both on the block's rows, the groups of tiles in turns
+  const int cons = SEL_WIDE == 2 ? tid >> 7 : 0, ctid = SEL_WIDE == 2 ? tid & 127 : tid;
+  const int group = SEL_WIDE == 2 ? sel_group : 1;
+  const int wrow = (ctid >> 7) * BM + ((ctid & 127) >> 5) * 16;
+  Select<C, KIND, SEL_WIDE != 0> sel;
+  sel.init(ctid, qt, a, smem);
   for (int e = 0, tile = 0; e < n_tiles; ++e, tile = next_tile(tile, a.stride, n_tiles)) {
     if (tile != tile_of(e, n_tiles, a.stride)) abort();  // the two forms of the order
     const long long col = (long long)piece_idx * a.piece + (long long)tile * TN;
@@ -95,6 +113,8 @@ __global__ void walk(const void* prod, long long n_total, Args a) {
       if (KIND == 1) vec[TN + tid] = a.col_scale[col + tid];
     }
     __syncthreads();
+    if (cons != (e / group) % TURNS) continue;  // the other consumer's group
+    if (SEL_WIDE == 2 && e % group == 0) sel.sync_t();
     Acc d[32];  // m64n64's fragment: row lane/4 (+ 8), columns 8 j + 2 (lane & 3) (+ 1)
     for (int i = 0; i < 32; ++i) {
       const int r = wrow + (lane >> 2) + 8 * ((i >> 1) & 1);
@@ -105,6 +125,13 @@ __global__ void walk(const void* prod, long long n_total, Args a) {
     sel.pass1(d, vec, x, mx);
     if (sel.need(mx, tile)) sel.select(d, x, tile, vec);
   }
+  if (SEL_WIDE == 2) {  // the second consumer's lists into the first's
+    __syncthreads();
+    if (cons == 1) sel.dump_lists(scratch);
+    __syncthreads();
+    if (cons == 1) return;
+    sel.merge_lists(scratch);
+  }
   sel.finish(a, piece_idx);
 }
 
@@ -114,7 +141,8 @@ int run(const void* prod, long long n_total, Args a) {
   a.n_qt = a.n_qt_c = (a.B + C::RB - 1) / C::RB;
   a.stride = stride_of(a.piece / TN);
   const unsigned blocks = (unsigned)((n_total / a.piece) * a.n_qt);
-  shim::launch(dim3(blocks), C::NCONS * 128, C::SEL_BYTES + 512, &walk<KIND, C>)(prod, n_total, a);
+  shim::launch(dim3(blocks), THREADS, C::SEL_BYTES + 512 + SCRATCH,
+               &walk<KIND, C>)(prod, n_total, a);
   return 0;
 }
 
@@ -143,6 +171,7 @@ int block_rows(int kc) {
   (void)kc;
   return Conf::RB;
 }
+void set_group(int g) { sel_group = g; }
 }
 '''
 
@@ -171,10 +200,16 @@ def case_ids(mode, wide=False):
     return [f"{k}-kc{kc}-{v}-B{B}" for k, kc, v, B in cases(mode, wide)]
 
 
-def build_wide(tmp_path_factory, mode):
+def build_wide(tmp_path_factory, mode, consumers=1):
     """The harness of row state `mode` in the wide kernel's configuration
-    (one consumer of 64 rows, the exact conversion)."""
-    return build_lib(tmp_path_factory, mode, ("-DSEL_WIDE=1",))
+    (64 rows a block, the exact conversion; one consumer, or two that
+    select the groups of tiles in turns)."""
+    return build_lib(tmp_path_factory, mode, (f"-DSEL_WIDE={consumers}",))
+
+
+# the tiles a group in the two-consumer build, by case: a piece's 8 tiles
+# in eight groups, four, or one (the second consumer selects nothing)
+GROUPS = (1, 2, 8)
 
 
 def build_lib(tmp_path_factory, mode, defines=()):
@@ -202,6 +237,8 @@ def build_lib(tmp_path_factory, mode, defines=()):
     lib.run_select.restype = ctypes.c_int
     lib.block_rows.argtypes = [ctypes.c_int]
     lib.block_rows.restype = ctypes.c_int
+    lib.set_group.argtypes = [ctypes.c_int]
+    lib.set_group.restype = None
     return lib
 
 
@@ -278,11 +315,12 @@ def plain(kind, prod, kc, bias, cs, rs):
     return torch.cat(vals, 1), torch.cat(ids, 1)
 
 
-def check_case(lib, mode, i, wide=False):
+def check_case(lib, mode, i, wide=False, group=1):
     """Case i of the row state: values and ids bit-equal to the plain
-    version."""
+    version (`group`: the two-consumer build's tiles a group)."""
     kind, kc, variant, B = cases(mode, wide)[i]
     prod, bias, cs, rs = inputs(kind, B, variant, i)
+    lib.set_group(group)
     got = run_source(lib, kind, prod, kc, bias, cs, rs)
     want = plain(kind, prod, kc, bias, cs, rs)
     assert topk_same(got, want), (

@@ -801,15 +801,47 @@ def test_sweep_topk_takes_the_two_step_route_past_its_shapes(cuda):
 def test_the_lanes_piece_divides_the_table(cuda, n_chunks, chunk, B, kc, int8):
     """`sweep_piece` on the card: a multiple of 256 rows that divides the
     table, at least a chunk / 8 wide, and the widest of those that fill
-    the SMs as well."""
+    the SMs as well; at d_pad 384 and 768 (the wide form: 64 query rows a
+    block, two consumer warpgroups, blocks in pairs) from the library's
+    rows, cluster and slots of that configuration."""
     n_total = n_chunks * chunk
     piece = ek.sweep_piece(n_total, chunk, B, 128, kc, int8, cuda)
     assert piece % ek.SWEEP_PIECE == 0 and n_total % piece == 0
     assert piece >= min(n_total, max(chunk // 8, ek.SWEEP_PIECE))
     # the two-step route keeps the chunk: its slab is a piece wide
     assert ek.sweep_piece(n_total, chunk, B, 1040, kc, int8, cuda) == chunk
-    wide = ek.sweep_piece(n_total, chunk, B, 768, kc, int8, cuda)
-    assert wide % ek.SWEEP_PIECE == 0 and n_total % wide == 0
+    lib = ek._sweep_lib()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for d_pad in (384, 768):
+        assert lib.cozo_sweep_topk_rows(int(int8), d_pad, kc) == 64
+        assert lib.cozo_sweep_topk_cluster(int(int8), d_pad, kc) == 2
+        slots = lib.cozo_sweep_topk_slots(int(int8), d_pad, kc)
+        assert slots % 2 == 0 and 2 <= slots <= sms
+        wide = ek.sweep_piece(n_total, chunk, B, d_pad, kc, int8, cuda)
+        assert wide % ek.SWEEP_PIECE == 0 and n_total % wide == 0
+        assert wide >= min(n_total, max(chunk // 8, ek.SWEEP_PIECE))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_pad", [384, 768])
+@pytest.mark.parametrize("B,kc,int8", [(4_096, 26, False), (4_096, 10, False),
+                                       (4_096, 64, True), (4_096, 128, True),
+                                       (8_192, 97, False)])
+def test_the_wide_lanes_piece_fills_the_slots(cuda, d_pad, B, kc, int8):
+    """Phase 3b's chunk steps (a table of 2,097,152 rows in chunks of
+    131,072) at d_pad 384 and 768: the wide form's slots are whole pairs
+    on at least 120 of the card's SMs, and `sweep_piece` cuts pieces that
+    divide the table and whose blocks (64 query rows, in pairs, a block a
+    piece) fill SWEEP_FILL of the slots' waves."""
+    lib = ek._sweep_lib()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    slots = lib.cozo_sweep_topk_slots(int(int8), d_pad, kc)
+    assert slots % 2 == 0 and min(120, sms) <= slots <= sms
+    n_total = 2_097_152
+    piece = ek.sweep_piece(n_total, 131_072, B, d_pad, kc, int8, cuda)
+    assert piece % ek.SWEEP_PIECE == 0 and n_total % piece == 0
+    blocks = -(-B // 64) * (n_total // piece)  # B / 64 is even: whole pairs
+    assert blocks / (slots * -(-blocks // slots)) >= ek.SWEEP_FILL
 
 
 @pytest.mark.cuda

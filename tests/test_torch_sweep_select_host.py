@@ -37,3 +37,18 @@ def test_sweep_select_on_the_host_wide(lib_wide, i):
     64 rows), every case and sums past 2^22: values and ids bit-equal to
     the plain version."""
     host.check_case(lib_wide, MODE, i, wide=True)
+
+
+@pytest.fixture(scope="module")
+def lib_wide2(tmp_path_factory):
+    return host.build_wide(tmp_path_factory, MODE, consumers=2)
+
+
+@pytest.mark.parametrize("i", range(len(host.cases(MODE, wide=True))),
+                         ids=host.case_ids(MODE, wide=True))
+def test_sweep_select_on_the_host_wide_two_consumers(lib_wide2, i):
+    """The wide configuration with two consumers on the block's 64 rows,
+    selecting the piece's groups of tiles in turns (groups of 1, 2 or 8
+    tiles by case): values and ids bit-equal to the plain version."""
+    host.check_case(lib_wide2, MODE, i, wide=True,
+                    group=host.GROUPS[i % len(host.GROUPS)])
