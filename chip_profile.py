@@ -17,6 +17,12 @@ the beam-search kernel under the profiler, then the steps of
 `hnsw_search_device` re-enacted one by one in the same way (staging copy,
 launch, wait, unpack) at B = 1, 4, 16, 63.
 
+`--lanes f32 [--lanes ...]` profiles only those lanes (by their tags:
+fused+rerank, bf16+rerank, bf16-raw, i8+rerank, f32) and stops after
+them; `--events` also lists each lane's device events one by one in the
+order they ran (each product, selection, merge and copy with its own
+time, where the top kernels sum them by name).
+
 `--db` profiles the Db instead (`chip_smoke.py` phase 5's scripts):
 `Db("mem")` on the card, ingest and `::hnsw create` of `--n` rows, then
 the 4,096-query pivot join, the small join (B = 16) and the 2-hop, each
@@ -277,6 +283,11 @@ def main():
                     help="after the build, only the small-batch path: the "
                          "steps of a call and the graph-search recall curve "
                          "(host search beside the kernel)")
+    ap.add_argument("--lanes", action="append", default=None,
+                    help="profile only these lanes (tags as printed), then "
+                         "stop")
+    ap.add_argument("--events", action="store_true",
+                    help="list every device event of each lane in order")
     ap.add_argument("--db", action="store_true",
                     help="profile the Db's scripts (chip_smoke.py phase 5) "
                          "on an index of --n rows built through the Db")
@@ -315,15 +326,20 @@ def main():
                                 ("bf16-raw", "bf16", False, None),
                                 ("i8+rerank", "i8", True, 64),
                                 ("f32", "f32", False, None)):
+        if args.lanes and tag not in args.lanes:
+            continue
         sweep_search(index, qs, K, compute_dtype=cd, exact_rerank=rerank,
                      rerank_k=rk)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            sweep_search(index, qs, K, compute_dtype=cd, exact_rerank=rerank,
-                         rerank_k=rk)
-            wall_ms = (time.time() - t0) * 1e3
+        # with --events, two profiled calls and the second kept: a session
+        # can lose its first records
+        for _ in range(2 if args.events else 1):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.time()
+                sweep_search(index, qs, K, compute_dtype=cd,
+                             exact_rerank=rerank, rerank_k=rk)
+                wall_ms = (time.time() - t0) * 1e3
         # device-side events only (kernels, copies): the host ops that
         # launched them report the same device time again
         events = [e for e in prof.key_averages()
@@ -335,6 +351,21 @@ def main():
         for e in top:
             print(f"  {e.self_device_time_total / 1e3:9.2f} ms "
                   f"x{e.count:<4d} {e.key[:90]}", flush=True)
+        if args.events:
+            timeline = sorted((e for e in prof.events()
+                               if e.device_type == DeviceType.CUDA),
+                              key=lambda e: e.time_range.start)
+            t_first = timeline[0].time_range.start if timeline else 0
+            print(f"  its {len(timeline)} device events in order (start ms "
+                  f"from the first, ms, name):", flush=True)
+            for e in timeline:
+                print(f"    {(e.time_range.start - t_first) / 1e3:9.3f} "
+                      f"{e.time_range.elapsed_us() / 1e3:9.3f} {e.name[:80]}",
+                      flush=True)
+    if args.lanes:
+        subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], check=False)
+        return 0
 
     fused_lane_steps(index, qs)
     walls = []

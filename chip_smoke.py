@@ -47,7 +47,11 @@ Phases, each reported on its own line; any failure exits non-zero:
      slab from int8 products; ascending and descending keys and the best
      in the last columns at widths 512 and 131,072; the merges' widths 260
      and 970: values and ids bit-equal to the plain version, two runs
-     bit-identical;
+     bit-identical.  `sweep_topk` (`sweep_cases`): bf16 and int8 at every
+     row state, piece width, d_pad 16-1,024 and variant; its f32 kind
+     (`SWEEP_F32_CASES`: kc 1-256, d_pad 16-1,024, ragged B, dead columns,
+     +-0.0) within 1e-5 of the plain version (cuBLAS's f32 product and the
+     plain selection), the cases bit-equal to it counted;
   5. (run before phase 3) drive the Db through CozoScript, the script of
      `benches/bench_hybrid_1m.py` phases 1-4 at full size: `glove_like`
      data (seed 42), `Db("mem")` on the card, ingest by `:put` batches of
@@ -99,7 +103,9 @@ Phases, each reported on its own line; any failure exits non-zero:
   3. drive the index's main path through the user entry points on the
      index phase 5 built (the same data, `bulk_build(wave=8192)`): then
      `sweep_search` with the f32 lane as ground truth (its first call,
-     then 3 timed warm calls with the same ids) and the fused,
+     then 3 timed warm calls with the same ids; one launch of the f32
+     chunk step and the merge, held to the lane's two-step route on the
+     same queries: the rows that differ printed) and the fused,
      bf16+rerank, raw bf16 and i8+rerank lanes at B=16,384 (one warm call
      and `--reps` timed reps for the fused lane, 3 for the others),
      holding each lane's recall@10 to its bar; then `HnswIndex.search`
@@ -170,8 +176,12 @@ Phases, each reported on its own line; any failure exits non-zero:
      the merges' buffers as the lanes fill them: [16,384 x 260] kf 26,
      [16,384 x 100] kf 10, [16,384 x 640] bf16 kf 64, the build's [8,192
      x 970] kf 97 and its pool [8,192 x 97] kf 96, beside the plain
-     version (in row blocks) and `torch.topk` on the key slab; `sweep_topk`
-     at the main path's chunk steps, at phase 3b's (timed there, on its
+     version (in row blocks) and `torch.topk` on the key slab (the f32
+     lane's slab off the main path since its chunk step became a kernel,
+     kept as a yardstick); `sweep_topk`
+     at the main path's chunk steps (the f32 kind at kc 10 and 26, beside
+     the two-step route's products and selections, in turns, with the SM
+     clock under each), at phase 3b's (timed there, on its
      table) and, after phase 3b, at bf16 kc 26 and int8 kc 128 on a
      synthetic table of 3b's size 384 wide (`time_wide_384`); the graph kernels at phase 7's, `minhash` at phase
      8's first backfill chunk, with a chunk's upload and copy back) with
@@ -212,7 +222,9 @@ counted) and times `slab_topk` as phase 4 does, and prints none either;
 `--sweep-only` runs phases 1 and 2 (`sweep_topk`) and times `sweep_topk`
 as phase 4 does on a synthetic table of `--n` rows and at phase 3b's
 768-wide shapes on a synthetic table of its size (and two of them 384
-wide), and prints none either.
+wide), and prints none either; `--f32-only` runs phases 1 and 2's f32
+cases of `sweep_topk` and times its f32 kind as phase 4 does on a
+synthetic table of `--n` rows, and prints none either.
 """
 
 import argparse
@@ -1104,10 +1116,14 @@ def phase_topk_vs_plain(dev):
 
 
 TOPK_LAUNCHES = {}  # path -> slab_topk launches on it, each counted from 0
-SWEEP_LAUNCHES = {}  # path -> sweep_topk launches on it, each counted from 0
-# what the calls made since `topk_zero` must launch, by kernel, and the
-# calls of sweep_topk that would take its two-step route (none may)
-EXPECTED = {"slab_topk": 0, "sweep_topk": 0, "two_step": 0}
+# path -> sweep_topk's launches of csrc/sweep_topk.cu (bf16, int8) and of
+# csrc/sweep_topk_f32.cu (f32) on it, each counted from 0
+SWEEP_LAUNCHES = {}
+SWEEP_F32_LAUNCHES = {}
+# what the calls made since `topk_zero` must launch, by kernel (sweep_topk
+# all kinds, and its f32 kind apart), and the calls of sweep_topk that
+# would take its two-step route (none may)
+EXPECTED = {"slab_topk": 0, "sweep_topk": 0, "sweep_f32": 0, "two_step": 0}
 
 
 def _merges(n_chunks, kc, kf):
@@ -1115,16 +1131,17 @@ def _merges(n_chunks, kc, kf):
     return 0 if n_chunks * kc == kf else 1
 
 
-def _chunk_step(q, n_chunks, chunk, d_pad, kf, int8):
+def _chunk_step(q, n_chunks, chunk, d_pad, kf, kind):
     """(sweep_topk, two-step calls, slab_topk) launches of one call of a
-    lane's chunk step (`sweep_topk` on the piece `sweep_piece` picks, then
-    `merge_chunks`): one kernel, or one call of the two-step route and a
-    selection a piece; and the merge."""
+    lane's chunk step (`sweep_topk` of `kind`, as `sweep_piece` takes it,
+    on the piece `sweep_piece` picks, then `merge_chunks`): one kernel, or
+    one call of the two-step route and a selection a piece; and the
+    merge."""
     from cozo_tpu_torch.ops import exact_knn as ek
 
     n_total = n_chunks * chunk
     piece = ek.sweep_piece(n_total, chunk, q.shape[0], d_pad, min(kf, chunk),
-                           int8, q.device)
+                           kind, q.device)
     kc = min(kf, piece)
     merge = _merges(n_total // piece, kc, kf)
     if ek.sweep_route(d_pad, kc, piece) == "kernel":
@@ -1146,12 +1163,14 @@ def install_launch_ledger():
     from cozo_tpu_torch.ops import fused_sweep as fs
     from cozo_tpu_torch.ops import quant_knn as qk
 
-    def sweep(a):
+    def sweep(a):  # bf16, or f32 (its own kernel, counted apart too)
         n_chunks, chunk, d_pad = a["tbl"].shape
         kf = max(a["k"], a["rerank_k"])
-        if a["compute_dtype"] != "bf16":  # f32: a selection a chunk
-            return 0, 0, n_chunks + _merges(n_chunks, min(kf, chunk), kf)
-        return _chunk_step(a["qs"], n_chunks, chunk, d_pad, kf, False)
+        f32 = a["compute_dtype"] != "bf16"
+        sw, ts, sl = _chunk_step(a["qs"], n_chunks, chunk, d_pad, kf,
+                                 ek.SWEEP_F32 if f32 else 0)
+        EXPECTED["sweep_f32"] += sw if f32 else 0
+        return sw, ts, sl
 
     def sweep_i8(a):
         n_chunks, chunk, d_pad = a["tbl"].shape
@@ -1205,29 +1224,35 @@ def topk_zero():
 
     ek.select_topk.launches = 0
     ek.sweep_topk.launches = ek.sweep_topk.two_step = 0
-    EXPECTED.update(slab_topk=0, sweep_topk=0, two_step=0)
+    ek.sweep_topk.f32_launches = 0
+    EXPECTED.update(slab_topk=0, sweep_topk=0, sweep_f32=0, two_step=0)
 
 
 def topk_read(path, phase, sweep):
     """slab_topk's and sweep_topk's launches since `topk_zero`, kept as
-    `path`'s.  The phase fails unless each equals what the path's calls
-    imply (`install_launch_ledger`), sweep_topk launched where the path
-    runs a bf16 or i8 sweep or an f32-table build (`sweep` true) and never
+    `path`'s (sweep_topk's f32 kind, `csrc/sweep_topk_f32.cu`, apart).
+    The phase fails unless each equals what the path's calls imply
+    (`install_launch_ledger`), sweep_topk launched where the path runs an
+    f32, bf16 or i8 sweep or an f32-table build (`sweep` true) and never
     elsewhere, slab_topk launched on the other paths (their selections and
     merges), and sweep_topk's two-step route (rows past 1,024, kc past
     256) taken nowhere.  Returns slab_topk's count."""
     from cozo_tpu_torch.ops import exact_knn as ek
 
     n = TOPK_LAUNCHES[path] = ek.select_topk.launches
-    m = SWEEP_LAUNCHES[path] = ek.sweep_topk.launches
+    m = ek.sweep_topk.launches
+    f = SWEEP_F32_LAUNCHES[path] = ek.sweep_topk.f32_launches
+    SWEEP_LAUNCHES[path] = m - f
     t = ek.sweep_topk.two_step
     want = (EXPECTED["slab_topk"], EXPECTED["sweep_topk"],
-            EXPECTED["two_step"])
-    if (n, m, t) != want or (m >= 1) != sweep or not (sweep or n >= 1) or t:
+            EXPECTED["sweep_f32"], EXPECTED["two_step"])
+    if (n, m, f, t) != want or (m >= 1) != sweep or not (sweep or n >= 1) \
+            or t:
         raise SystemExit(
             f"{phase} failed on {path}: slab_topk launched {n} times, "
-            f"sweep_topk {m} and its two-step route {t}, where the calls "
-            f"imply {want[0]}, {want[1]} and {want[2]}")
+            f"sweep_topk {m} ({f} of them f32) and its two-step route {t}, "
+            f"where the calls imply {want[0]}, {want[1]} ({want[2]}) and "
+            f"{want[3]}")
     return n
 
 
@@ -1261,6 +1286,20 @@ SWEEP_WIDE_CASES = tuple((kind, 257, 8192, 2, d_pad, kc, variant)
     (kind, 257, piece, 3, d_pad, kc, ("random", "ties")[kc == 26])
     for piece in (256, 768) for d_pad in (384, 768) for kind in SWEEP_KINDS
     for kc in (10, 26))
+# the f32 kind (`csrc/sweep_topk_f32.cu`): every kc of its row states and
+# the lanes' (1, 10, 26, 64, 97, 128, 256) at d_pad 16, 128 (the lane's),
+# 256, 768 and 1,024 (query rows streamed past 128), B 1, 17, 130 and 257
+# (ragged query tiles), pieces of 256 and 4,096 rows x 1-3, the variants
+# in turn ("ties": +-0.0 and equal keys across piece edges; "dead": fewer
+# live columns than kc)
+SWEEP_F32_KCS = (1, 10, 26, 64, 97, 128, 256)
+SWEEP_F32_DS = (16, 128, 256, 768, 1024)
+SWEEP_F32_CASES = tuple(
+    ("f32", (1, 17, 130, 257)[(i + j) % 4],
+     4096 if kc > 256 or (i + j) % 2 else 256, 1 + (i + 2 * j) % 3, d_pad, kc,
+     SWEEP_VARIANTS[(i + j) % 4])
+    for i, d_pad in enumerate(SWEEP_F32_DS)
+    for j, kc in enumerate(SWEEP_F32_KCS))
 SWEEP_TOL = 1e-5  # bf16 route: |value - plain| <= SWEEP_TOL * max(1, |plain|)
 SWEEP_ID_SHARE = 0.999  # bf16 route: ids equal on at least this share
 
@@ -1270,7 +1309,8 @@ def sweep_cases():
     piece width at every kc up to it, both kinds, B, the number of pieces
     (1-3), d_pad and the variant in turn; then every variant of each kind
     at [17 x 2 pieces of 4,096], d_pad 128, kc 26 and 97; then
-    `sweep_edge_cases`; then SWEEP_WIDE_CASES (the kernel's wide form)."""
+    `sweep_edge_cases`; then SWEEP_WIDE_CASES (the kernel's wide form);
+    then SWEEP_F32_CASES (the f32 kind)."""
     cases = []
     for W in SWEEP_WIDTHS:
         for kc in SWEEP_KCS:
@@ -1285,7 +1325,8 @@ def sweep_cases():
         for variant in SWEEP_VARIANTS:
             for kc in (26, 97):
                 cases.append((kind, 17, 4096, 2, 128, kc, variant))
-    return cases + sweep_edge_cases() + list(SWEEP_WIDE_CASES)
+    return (cases + sweep_edge_cases() + list(SWEEP_WIDE_CASES)
+            + list(SWEEP_F32_CASES))
 
 
 def sweep_edge_cases():
@@ -1315,8 +1356,8 @@ def sweep_inputs(kind, B, piece, n_pieces, d_pad, variant, seed, dev):
     "ascending": keys that rise along the piece (a bias step past the
     scores' range); "random" past d_pad 128 also 8 table rows and 4 queries
     near a constant vector (every other query negated), whose int8 codes
-    are near +-127: sums past 2^22 at d_pad 768.  bf16, or int8 with the
-    lanes' max-abs scales."""
+    are near +-127: sums past 2^22 at d_pad 768.  bf16, f32, or int8 with
+    the lanes' max-abs scales."""
     import torch
 
     from cozo_tpu_torch.utils.device import quantize_i8
@@ -1356,6 +1397,8 @@ def sweep_inputs(kind, B, piece, n_pieces, d_pad, variant, seed, dev):
     bt = torch.from_numpy(bias).to(dev)
     if kind == "bf16":
         return qt.to(torch.bfloat16), tt.to(torch.bfloat16), {"bias": bt}
+    if kind == "f32":
+        return qt, tt, {"bias": bt}
     t_i8, cs = quantize_i8(tt, reciprocal=True)
     cs = torch.where(torch.isfinite(bt), cs, torch.zeros_like(cs))
     q_i8, rs = quantize_i8(qt, reciprocal=True)
@@ -1373,12 +1416,15 @@ def sweep_slab_keys(q, tbl, kw):
     if q.dtype == torch.int8:
         return ek.slab_key(int_mm(q, tbl), kw["col_scale"], kw["row_scale"],
                            kw["bias"], bf16=True)
+    if q.dtype == torch.float32:
+        return ek.slab_key(torch.mm(q, tbl.T), bias=kw["bias"])
     return ek.slab_key(mm_bf16(q, tbl), bias=kw["bias"])
 
 
 def sweep_agreement(got, want, keys):
     """The kernel's (values, ids) against the plain version's: for int8
-    bit-equality; for bf16 the values within SWEEP_TOL x max(1, |value|)
+    bit-equality; for bf16 and f32 the values within SWEEP_TOL x max(1,
+    |value|)
     at every rank, ids equal on >= SWEEP_ID_SHARE of (row, rank) entries,
     and every other entry a near-tie: the plain key of the kernel's id
     within that tolerance of the plain value at its rank.  Returns
@@ -1420,24 +1466,29 @@ def sweep_values_agree(got, want):
             and share >= SWEEP_ID_SHARE), share, err
 
 
-def phase_sweep_vs_plain(dev):
+def phase_sweep_vs_plain(dev, cases=None):
     """Phase 2 for `sweep_topk`: every case of `sweep_cases` against
-    `sweep_topk_plain` on the card (int8 bit-equal; bf16 by
-    `sweep_agreement`), two runs bit-identical, each call on the route
-    `sweep_route` names (every case here: the kernel's).  Launches here
-    are not counted on any path."""
+    `sweep_topk_plain` on the card (int8 bit-equal; bf16 and f32 by
+    `sweep_agreement`; f32's bit-equal cases counted), two runs
+    bit-identical, each call on the route `sweep_route` names (every case
+    here: the kernel's; `cases`: a subset).  Launches here are not counted
+    on any path."""
     import torch
 
     from cozo_tpu_torch.ops import exact_knn as ek
 
     t0 = time.time()
-    cases = sweep_cases()
-    worst = {"bf16": (1.0, 0.0), "int8": (1.0, 0.0)}
+    cases = list(cases or sweep_cases())
+    worst = {"bf16": (1.0, 0.0), "int8": (1.0, 0.0), "f32": (1.0, 0.0)}
+    f32_exact, f32_inexact = 0, []
     for i, (kind, B, W, n_p, d_pad, kc, variant) in enumerate(cases):
         q, tbl, kw = sweep_inputs(kind, B, W, n_p, d_pad, variant, i, dev)
         before = (ek.sweep_topk.launches, ek.sweep_topk.two_step)
-        got = ek.sweep_topk(q, tbl, W, kc, **kw)
-        again = ek.sweep_topk(q, tbl, W, kc, **kw)
+        # every other f32 case with its real width (the inputs' last 4
+        # columns are zero): the chains stop there
+        real = {"d_real": d_pad - 4} if kind == "f32" and i % 2 else {}
+        got = ek.sweep_topk(q, tbl, W, kc, **kw, **real)
+        again = ek.sweep_topk(q, tbl, W, kc, **kw, **real)
         want = ek.sweep_topk_plain(q, tbl, W, kc, **kw)
         torch.cuda.synchronize()
         two = ek.sweep_route(d_pad, kc, W) == "two_step"
@@ -1449,6 +1500,11 @@ def phase_sweep_vs_plain(dev):
         twice = topk_same(got, again)
         w = worst[kind]
         worst[kind] = (min(w[0], share), max(w[1], err))
+        if kind == "f32":
+            if topk_same(got, want):
+                f32_exact += 1
+            else:
+                f32_inexact.append(f"d_pad {d_pad} kc {kc} B {B} {variant}")
         if not (ok and twice and launched):
             say(f"phase 2 sweep_topk vs plain {kind} B={B} piece={W} x {n_p} "
                 f"d_pad={d_pad} kc={kc} {variant}: agree {ok} (ids equal "
@@ -1462,12 +1518,17 @@ def phase_sweep_vs_plain(dev):
         f"{list(SWEEP_VARIANTS)}; the edges: kc {SWEEP_EDGE_KCS}, B "
         f"{SWEEP_EDGE_BS}; {len(SWEEP_WIDE_CASES)} at the wide rows: d_pad "
         f"{SWEEP_WIDE_DS}, kc {SWEEP_WIDE_KCS}, B 257, 2 pieces of 8,192, "
-        f"{list(SWEEP_WIDE_VARIANTS)}, and 3 pieces of 256 and 768) in "
-        f"{time.time() - t0:.1f}s: int8 values "
+        f"{list(SWEEP_WIDE_VARIANTS)}, and 3 pieces of 256 and 768; "
+        f"{len(SWEEP_F32_CASES)} f32: d_pad {SWEEP_F32_DS}, kc "
+        f"{SWEEP_F32_KCS}) in {time.time() - t0:.1f}s: int8 values "
         f"and ids bit-equal; bf16 values within {SWEEP_TOL} x max(1, |v|) "
         f"(max err {worst['bf16'][1]:.3g}), ids equal on >= "
         f"{worst['bf16'][0]:.5f} of entries (bar {SWEEP_ID_SHARE}), every "
-        f"other a near-tie; two runs identical")
+        f"other a near-tie; f32 by the same measure (max err "
+        f"{worst['f32'][1]:.3g}, ids equal on >= {worst['f32'][0]:.5f}), "
+        f"{f32_exact} of {len(SWEEP_F32_CASES)} cases bit-equal to cuBLAS's "
+        f"product + the plain selection (not: {f32_inexact}); two runs "
+        f"identical")
 
 
 def recall(ids, gt):
@@ -1499,7 +1560,7 @@ def phase_main(index, qs, build_s, reps):
     topk_zero()
     gt, gt_d = sweep_search(index, qs, K, rt=1.0, compute_dtype="f32",
                             exact_rerank=False)
-    topk_read("index f32 (phase 3)", "phase 3", sweep=False)
+    topk_read("index f32 (phase 3)", "phase 3", sweep=True)
     first_s = time.time() - t0
     if gt.shape != (NQ, K) or not np.isfinite(gt_d).all() or (gt < 0).any():
         raise SystemExit("phase 3 failed: f32 lane returned bad rows")
@@ -1513,7 +1574,9 @@ def phase_main(index, qs, build_s, reps):
             raise SystemExit("phase 3 failed: f32 lane not reproducible")
     say(f"phase 3 f32 ground truth in {first_s:.2f}s (first call), warm "
         f"median {np.median(warm):.1f} ms a batch ({warm}; earlier, PERF.md "
-        f"section 5: {EARLIER_LANE_MS['f32']} ms a batch warm)")
+        f"section 5: {EARLIER_LANE_MS['f32']} ms a batch warm, the two-step "
+        f"route)")
+    f32_truth_vs_two_step(index, qs)
 
     lanes = {}
     # the int8 lane re-ranks 64 candidates, as the JAX package's bench
@@ -1563,6 +1626,47 @@ def phase_main(index, qs, build_s, reps):
         {"n": n, "nq": NQ, "build_s": build_s, "lanes": lanes,
          "beam_search": beam}))
     return launches, {"gt": gt, "raw_recall": lanes["bf16-raw"]["recall@10"]}
+
+
+def f32_truth_vs_two_step(index, qs):
+    """The f32 lane's answer on the card (`exact_knn._sweep`: the f32
+    chunk step's one launch, then the merge) against the lane as it ran
+    before its kernel on the same prepared queries: each chunk's product
+    (`torch.mm` in f32) and `select_topk`, then the same merge.  Prints the
+    rows whose ids or score bits differ; fails on any such row: the two
+    routes give the same bits, rank for rank (each score one f32 chain
+    over k ascending, the chain stopped at the real width adding only
+    +0.0; PERF.md section 6)."""
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+    from cozo_tpu_torch.utils.device import prepare_queries
+
+    st = index._sweep_table
+    n_chunks, chunk, d_pad = st.tbl.shape
+    q = prepare_queries(torch.from_numpy(np.ascontiguousarray(qs, np.float32))
+                        .to(st.tbl.device), index.distance, d_pad)
+    got = ek._sweep(st.tbl, st.bias, q, K, "f32", d_in=index.dim)
+    bufs = ek._chunk_buffers(q.shape[0], n_chunks, min(K, chunk),
+                             torch.float32, q.device)
+    ek.sweep_two_step(q, st.tbl.reshape(-1, d_pad), chunk, min(K, chunk),
+                      st.bias.reshape(-1), None, None, 0, bufs)
+    bs, bi = ek.merge_chunks(*bufs, K)
+    want = torch.cat([bi.to(torch.int32), bs.view(torch.int32)], dim=1)
+    ids_g, ids_w = got[:, :K], want[:, :K]
+    rows_ids = int((ids_g != ids_w).any(1).sum())
+    rows_bits = int((got != want).any(1).sum())
+    sets = float(np.mean([set(a) == set(b) for a, b in
+                          zip(ids_g.cpu().numpy(), ids_w.cpu().numpy())]))
+    err = float((got[:, K:].view(torch.float32)
+                 - want[:, K:].view(torch.float32)).abs().max())
+    say(f"phase 3 f32 lane against the two-step route (a chunk's torch.mm "
+        f"+ slab_topk, then the merge) on the same queries: {rows_bits} of "
+        f"{q.shape[0]} rows differ in ids or score bits ({rows_ids} in ids; "
+        f"ids equal as sets on {sets:.5f}; max |score diff| {err:.3g})")
+    if rows_bits:
+        raise SystemExit("phase 3 failed: the f32 lane's kernel and its "
+                         "two-step route disagree")
 
 
 def phase_quant_dispatch(index, qs, gt):
@@ -3472,15 +3576,15 @@ def piece_kw(kw, cols):
 def two_step_split(q, tbl, piece, kc, kw, reps):
     """(product ms, selection ms) of one call of `sweep_topk`'s two-step
     route, each the median over `reps` rounds after a warm one of its sum
-    over the pieces: CUDA events around each piece's product (`mm_bf16` or
-    `int_mm`) and its `select_topk`, as `exact_knn.sweep_two_step` runs
-    them; the last round's answer must agree with `sweep_topk`'s at the
-    same piece (`sweep_values_agree`: int8 bit-equal, bf16 within its
-    tolerance)."""
+    over the pieces: CUDA events around each piece's product (`mm_bf16`,
+    `int_mm` or f32 `torch.mm`) and its `select_topk`, as
+    `exact_knn.sweep_two_step` runs them; the last round's answer must
+    agree with `sweep_topk`'s at the same piece (`sweep_values_agree`: int8
+    bit-equal, bf16 and f32 within its tolerance)."""
     import torch
 
     from cozo_tpu_torch.ops import exact_knn as ek
-    from cozo_tpu_torch.utils.device import int_mm, mm_bf16
+    from cozo_tpu_torch.utils.device import int_mm
 
     int8 = q.dtype == torch.int8
     n_pieces = tbl.shape[0] // piece
@@ -3493,7 +3597,7 @@ def two_step_split(q, tbl, piece, kc, kw, reps):
             cols = slice(p * piece, (p + 1) * piece)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             ev[0].record()
-            slab = (int_mm if int8 else mm_bf16)(q, tbl[cols])
+            slab = (int_mm if int8 else ek._piece_product)(q, tbl[cols])
             ev[1].record()
             ek.select_topk(slab, kc, bf16=int8, offset=p * piece,
                            out=ek._cols(out, p, kc), **piece_kw(kw, cols))
@@ -4252,8 +4356,8 @@ def sweep_plain_blocks(q, tbl, piece, kc, kw, rows=None):
 
 def sweep_library(q, tbl, piece, kc, kw):
     """The yardstick, never called by the port: per piece one library
-    product (`torch.mm` to f32, or `torch._int_mm`), the key in PyTorch,
-    and `torch.topk`."""
+    product (`torch.mm` to f32, in f32 for f32 inputs, or
+    `torch._int_mm`), the key in PyTorch, and `torch.topk`."""
     import torch
 
     for p in range(tbl.shape[0] // piece):
@@ -4261,24 +4365,30 @@ def sweep_library(q, tbl, piece, kc, kw):
         if q.dtype == torch.int8:
             s = torch._int_mm(q, tbl[cols].T).float()
             s = s * kw["col_scale"][cols] * kw["row_scale"][:, None]
+        elif q.dtype == torch.float32:
+            s = torch.mm(q, tbl[cols].T)
         else:
             s = torch.mm(q, tbl[cols].T, out_dtype=torch.float32)
         torch.topk(s + kw["bias"][cols], kc)
         del s
 
 
-def time_sweep_shape(lane, q, tbl, chunk, kc, kw, reps, plain_rows=None):
+def time_sweep_shape(lane, q, tbl, chunk, kc, kw, reps, plain_rows=None,
+                     d_real=0):
     """Phase 4 for `sweep_topk` at one chunk step, at the piece
     `sweep_piece` gives the lane: the kernel against the plain version
     (in blocks of `plain_rows` query rows) over the whole table first
-    (int8 bit-equal, bf16 by `sweep_values_agree`), then its
+    (int8 bit-equal, bf16 and f32 by `sweep_values_agree`), then its
     time (CUDA events, a launch covers all the pieces), the two-step
     route's a chunk at a time (the product writes each chunk's slab,
     `slab_topk` reads it) in turns with it, the plain version's (row
     blocks) and the library yardstick's, beside the bound: the products at
     the tensor cores' peak (989 TFLOP/s bf16, 1,979 TOP/s int8) or the
-    bytes (the queries, the table and the vectors read once, the outputs
-    written once) at 3.35 TB/s, the larger.  Returns the shape's numbers."""
+    card's f32 peak outside them (67 TFLOP/s), or the bytes (the queries,
+    the table and the vectors read once, the outputs written once) at 3.35
+    TB/s, the larger.  `d_real`: the rows' real width, given to the
+    kernel (the f32 kind's chains stop there) and counted in the bound's
+    operations.  Returns the shape's numbers."""
     import torch
 
     from cozo_tpu_torch.ops import exact_knn as ek
@@ -4286,14 +4396,17 @@ def time_sweep_shape(lane, q, tbl, chunk, kc, kw, reps, plain_rows=None):
     B, d_pad = q.shape
     n_total = tbl.shape[0]
     int8 = q.dtype == torch.int8
-    piece = ek.sweep_piece(n_total, chunk, B, d_pad, kc, int8, q.device)
+    f32 = q.dtype == torch.float32
+    kind = ek.SWEEP_F32 if f32 else int(int8)
+    piece = ek.sweep_piece(n_total, chunk, B, d_pad, kc, kind, q.device)
     n_p = n_total // piece
-    got = ek.sweep_topk(q, tbl, piece, kc, **kw)
+    real = {"d_real": d_real} if d_real else {}
+    got = ek.sweep_topk(q, tbl, piece, kc, **kw, **real)
     t0 = time.time()
     want = sweep_plain_blocks(q, tbl, piece, kc, kw, plain_rows)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.time() - t0)
-    again = ek.sweep_topk(q, tbl, piece, kc, **kw)
+    again = ek.sweep_topk(q, tbl, piece, kc, **kw, **real)
     torch.cuda.synchronize()
     ok, share, err = sweep_values_agree(got, want)
     twice = topk_same(got, again)
@@ -4308,7 +4421,8 @@ def time_sweep_shape(lane, q, tbl, chunk, kc, kw, reps, plain_rows=None):
     kern, old = [], []
     for _ in range(SWEEP_TURNS):
         kern.append(cuda_ms(lambda: ek.sweep_topk(q, tbl, piece, kc,
-                                                  out=out, **kw), reps))
+                                                  out=out, **kw, **real),
+                            reps))
         old.append(cuda_ms(lambda: ek.sweep_two_step(
             q, tbl, chunk, kc, kw["bias"], kw.get("col_scale"),
             kw.get("row_scale"), 0, out_old), 1))
@@ -4316,8 +4430,8 @@ def time_sweep_shape(lane, q, tbl, chunk, kc, kw, reps, plain_rows=None):
     torch.cuda.empty_cache()
     library_ms = cuda_ms(lambda: sweep_library(q, tbl, chunk, kc, kw), 1)
     torch.cuda.empty_cache()
-    ops = 2.0 * B * n_total * d_pad
-    peak = PEAK_INT8 if int8 else PEAK_BF16
+    ops = 2.0 * B * n_total * (d_real or d_pad)
+    peak = PEAK_INT8 if int8 else PEAK_F32 if f32 else PEAK_BF16
     nbytes = (q.numel() * q.element_size() + tbl.numel() * tbl.element_size()
               + 4 * n_total * (2 if "col_scale" in kw else 1)
               + (4 * B if "row_scale" in kw else 0)
@@ -4326,15 +4440,19 @@ def time_sweep_shape(lane, q, tbl, chunk, kc, kw, reps, plain_rows=None):
     ms = float(np.median(kern))
     # the table's bytes out of L2 a launch: once a cluster of blocks that
     # share its chunks
-    lib = ek._sweep_lib()
-    rows = lib.cozo_sweep_topk_rows(int(int8), d_pad, kc)
-    cluster = lib.cozo_sweep_topk_cluster(int(int8), d_pad, kc)
+    kind = ek.SWEEP_F32 if f32 else int(int8)
+    lib = ek._sweep_f32_lib() if f32 else ek._sweep_lib()
+    rows = lib.cozo_sweep_topk_rows(kind, d_pad, kc)
+    cluster = lib.cozo_sweep_topk_cluster(kind, d_pad, kc)
     l2_bytes = (tbl.numel() * tbl.element_size()
                 * (-(-(-(-B // rows)) // cluster)))
     say(f"phase 4 sweep_topk ({lane}: [{B} x {n_total}] {q.dtype} in "
-        f"{n_p} piece(s) of {piece}, d_pad {d_pad}, kc {kc}): {ms:.3f} ms "
+        f"{n_p} piece(s) of {piece}, d_pad {d_pad}"
+        f"{f' (real width {d_real})' if d_real else ''}, kc {kc}): "
+        f"{ms:.3f} ms "
         f"a launch ({100 * bound / ms:.1f}% of the bound {bound:.3f} ms, "
-        f"{ops / 1e12:.2f} T{'OP' if int8 else 'FLOP'}, "
+        f"{ops / 1e12:.2f} T{'OP' if int8 else 'FLOP'}"
+        f"{' at the f32 rate' if f32 else ''}, "
         f"{nbytes / 1e9:.3f} GB; turns {[round(x, 3) for x in kern]}; "
         f"the table from L2 {l2_bytes / 1e9:.1f} GB), "
         f"the two-step route in chunks of {chunk} "
@@ -4345,7 +4463,8 @@ def time_sweep_shape(lane, q, tbl, chunk, kc, kw, reps, plain_rows=None):
         f"equal {share:.5f}, max err {err:.3g}, two runs identical {twice}")
     return {
         "B": B, "n_total": n_total, "piece": piece, "chunk": chunk,
-        "kc": kc, "d_pad": d_pad, "dtype": str(q.dtype), "ms": ms,
+        "kc": kc, "d_pad": d_pad, "d_real": d_real, "dtype": str(q.dtype),
+        "ms": ms,
         "ms_turns": kern, "two_step_ms": float(np.median(old)),
         "two_step_turns": old, "plain_ms": plain_ms,
         "library_ms": library_ms,
@@ -4388,17 +4507,135 @@ def time_sweep(st, qs, reps):
     }
 
 
+def f32_main_inputs(st, qs):
+    """The f32 lane's chunk step as `SweepTable.search` hands it to
+    `sweep_topk`: the queries prepared on the card in f32 (cosine
+    normalised, zero-padded: no f16 round), the flat f32 table (a view)
+    and its bias."""
+    import torch
+
+    from cozo_tpu_torch.utils.device import prepare_queries
+
+    dev = st.tbl.device
+    q = torch.from_numpy(np.ascontiguousarray(qs, np.float32)).to(dev)
+    d_pad = st.tbl.shape[2]
+    return (prepare_queries(q, "Cosine", d_pad).contiguous(),
+            st.tbl.reshape(-1, d_pad), st.bias.reshape(-1))
+
+
+def clock_under(fn, seconds=2.0):
+    """(median SM clock MHz, median power draw W) that `nvidia-smi` reads
+    while fn() runs back to back for about `seconds` (a sample every
+    call of nvidia-smi, ~0.1 s)."""
+    import threading
+
+    import torch
+
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, timeout=30)
+            try:
+                clk, pwr = out.stdout.strip().splitlines()[0].split(",")
+                samples.append((float(clk), float(pwr)))
+            except (ValueError, IndexError):
+                pass
+
+    fn()
+    torch.cuda.synchronize()
+    th = threading.Thread(target=sample)
+    th.start()
+    t0 = time.time()
+    while time.time() - t0 < seconds:
+        fn()
+        torch.cuda.synchronize()
+    stop.set()
+    th.join()
+    if not samples:
+        return None, None
+    return (float(np.median([c for c, _ in samples])),
+            float(np.median([p for _, p in samples])))
+
+
+def time_sweep_f32(st, qs, reps):
+    """Phase 4 for the f32 chunk step (`csrc/sweep_topk_f32.cu`) at the f32
+    lane's shape, [16,384 x 1,310,720] x 128 at kc 10 (the lane's) and 26:
+    `time_sweep_shape` (the plain version, the kernel in turns with the
+    two-step route a chunk at a time, `torch.mm` + `torch.topk` a chunk,
+    the bound at 67 TFLOP/s of the chains stopped at the real width);
+    then the two-step route split into its ten products and ten
+    selections (`two_step_split`); at kc 10 the SM clock and power under
+    the kernel and under cuBLAS's product (`clock_under`).  Returns the
+    `kernels` line's entry of the f32 kind (kc 10's numbers; both shapes
+    under "shapes")."""
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    q, tbl, bias = f32_main_inputs(st, qs)
+    chunk = st.tbl.shape[1]
+    shapes = {}
+    for kc in (10, 26):
+        lane = f"f32 lane kc {kc}"
+        shapes[lane] = sh = time_sweep_shape(lane, q, tbl, chunk, kc,
+                                             {"bias": bias}, reps,
+                                             d_real=D)
+        torch.cuda.empty_cache()
+        mm_ms, sel_ms = two_step_split(q, tbl, chunk, kc, {"bias": bias}, 3)
+        sh.update(two_step_products_ms=mm_ms, two_step_selections_ms=sel_ms)
+        torch.cuda.empty_cache()
+        if kc == 10:  # the clock each holds: this kernel, cuBLAS's product
+            out = ek._chunk_buffers(q.shape[0], tbl.shape[0] // sh["piece"],
+                                    kc, torch.float32, q.device)
+            sh["clock_mhz_power_w"] = clock_under(lambda: ek.sweep_topk(
+                q, tbl, sh["piece"], kc, bias, out=out, d_real=D))
+            del out
+            sh["two_step_clock_mhz_power_w"] = clock_under(
+                lambda: torch.mm(q, tbl[:chunk].T))
+            torch.cuda.empty_cache()
+            say(f"phase 4 sweep_topk[f32] SM clock and power (nvidia-smi, "
+                f"median): the kernel {sh['clock_mhz_power_w']}, cuBLAS's "
+                f"f32 product {sh['two_step_clock_mhz_power_w']} (MHz, W; "
+                f"67 TFLOP/s is 1,980 MHz)")
+        n_chunks = tbl.shape[0] // chunk
+        say(f"phase 4 sweep_topk[f32] ({lane}): the two-step route's "
+            f"{n_chunks} products {mm_ms:.3f} ms and selections "
+            f"{sel_ms:.3f} ms (a chunk: {mm_ms / n_chunks:.3f} + "
+            f"{sel_ms / n_chunks:.3f}); the kernel {sh['ms']:.3f} ms = "
+            f"{sh['ms'] / (mm_ms + sel_ms):.3f}x their sum")
+    main = shapes["f32 lane kc 10"]
+    return {
+        "name": "sweep_topk[f32]", "route": "cuda",
+        "source": "cozo_tpu_torch/csrc/sweep_topk_f32.cu",
+        "replaces": "cozo_tpu/ops/exact_knn.py:100-123",
+        "launches": 0, "launches_by_path": {},
+        "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],  # torch.mm + torch.topk a chunk
+        "two_step_ms": main["two_step_ms"],
+        "shape": {k: main[k] for k in ("B", "n_total", "piece", "chunk",
+                                       "kc", "d_pad")},
+        "shapes": shapes,
+    }
+
+
 # phase 3b's chunk steps at 768-wide rows, timed as phase 4's
 # (`time_wide_sweep`), added to sweep_topk's entry at the end of the run
 WIDE_SWEEP_SHAPES = {}
 
 
 def finish_topk_entry(kernels):
-    """slab_topk's and sweep_topk's entries gain the launches counted on
-    each path, sweep_topk's also phase 3b's wide shapes."""
+    """slab_topk's and sweep_topk's entries (its f32 kind's apart) gain the
+    launches counted on each path, sweep_topk's also phase 3b's wide
+    shapes."""
     for entry in kernels:
-        by = {"slab_topk": TOPK_LAUNCHES, "sweep_topk": SWEEP_LAUNCHES}.get(
-            entry["name"])
+        by = {"slab_topk": TOPK_LAUNCHES, "sweep_topk": SWEEP_LAUNCHES,
+              "sweep_topk[f32]": SWEEP_F32_LAUNCHES}.get(entry["name"])
         if by is not None:
             entry["launches_by_path"].update(by)
             entry["launches"] = sum(entry["launches_by_path"].values())
@@ -5408,7 +5645,7 @@ def topk_only(args, dev):
         sweep_search(index, qs, K, compute_dtype=cd, rerank_k=rk,
                      exact_rerank=cd != "f32")
         topk_read(f"lane {cd} (--topk-only)", "lanes",
-                  sweep=cd in ("bf16", "i8"))
+                  sweep=cd in ("f32", "bf16", "i8"))
         say(f"topk-only: lane {cd} B={NQ} first call {time.time() - t1:.2f}s")
     kernels = [time_topk(index, qs, args.reps)]
     finish_topk_entry(kernels)
@@ -5454,7 +5691,8 @@ def sweep_only(args, dev):
     phase_sweep_vs_plain(dev)
     say(f"[{time.time() - t0:.1f}s] phase 2 (sweep_topk) done")
     st, qs = synthetic_sweep_table(args.n, dev)
-    kernels = [time_sweep(st, qs, args.reps)]
+    kernels = [time_sweep(st, qs, args.reps),
+               time_sweep_f32(st, qs, args.reps)]
     del st, qs
     torch.cuda.empty_cache()
     time_wide_sweep(*synthetic_wide_table(dev))
@@ -5464,6 +5702,22 @@ def sweep_only(args, dev):
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
     say("sweep-only run: no verdict on the main path")
+    return 0
+
+
+def f32_only(args, dev):
+    """--f32-only: the loop for work on the f32 chunk step: phase 2's f32
+    cases, then phase 4's f32 timings on a synthetic table of --n rows
+    (the main path's shape, no index)."""
+    t0 = time.time()
+    phase_sweep_vs_plain(dev, SWEEP_F32_CASES)
+    say(f"[{time.time() - t0:.1f}s] phase 2 (sweep_topk f32) done")
+    st, qs = synthetic_sweep_table(args.n, dev)
+    kernels = [time_sweep_f32(st, qs, args.reps)]
+    say(f"total {time.time() - t0:.1f}s")
+    say(json.dumps({"kernels": kernels}))
+    say(smi_line())
+    say("f32-only run: no verdict on the main path")
     return 0
 
 
@@ -5504,6 +5758,11 @@ def main():
                          "version and time it on a synthetic table of --n "
                          "rows and at phase 3b's 768-wide shapes; no "
                          "verdict")
+    ap.add_argument("--f32-only", action="store_true",
+                    help="build the kernels, hold sweep_topk's f32 kind to "
+                         "its plain version (phase 2's f32 cases) and time "
+                         "it as phase 4 does on a synthetic table of --n "
+                         "rows; no verdict")
     ap.add_argument("--quality-main-draw", action="store_true",
                     help="with --hosts-only: the graph-quality check on "
                          "the first --n rows of the main path's draw and "
@@ -5543,6 +5802,8 @@ def main():
         return topk_only(args, dev)
     if args.sweep_only:
         return sweep_only(args, dev)
+    if args.f32_only:
+        return f32_only(args, dev)
     phase_minhash_vs_plain(dev)
     if args.lsh_only:
         return lsh_only(args)
@@ -5592,6 +5853,7 @@ def main():
         kernels.append(time_beam(index, qs, launches))
         kernels.append(time_topk(index, qs, args.reps))
         kernels.append(time_sweep(index._sweep_table, qs, args.reps))
+        kernels.append(time_sweep_f32(index._sweep_table, qs, args.reps))
         del main_inputs
         torch.cuda.empty_cache()
         lap("phases 3 and 4 (main path)")

@@ -8,7 +8,10 @@
 // (cozo_tpu/ops/exact_knn.py:100-123), `_sweep_fn_i8`'s
 // (cozo_tpu/ops/exact_knn.py:199-213) and `_build_step_fn`'s
 // (cozo_tpu/ops/bulk_build.py:137-147).  On the TPU `approx_max_k` fuses
-// into the dot that feeds it (PartialReduce).
+// into the dot that feeds it (PartialReduce).  The same body for the f32
+// lane (`_sweep_fn` at compute_dtype "f32": a true-f32 product, which no
+// tensor-core format gives bit for bit) is `sweep_topk_f32.cu`: FFMA
+// chains, with this file's selection half (`sweep_select.cuh`, KIND 0).
 //
 // Two products:
 //   * bf16:  Q [B, d_pad] bf16 . T [n_total, d_pad]^T bf16 -> f32

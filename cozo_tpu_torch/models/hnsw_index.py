@@ -41,10 +41,12 @@ DIST_COSINE = "Cosine"
 #   the mirror's neighbour lists, (m0 + levels x m) x 4 bytes  <= 1.75 T
 #     a row (448 at m = 16 with 5 upper levels) on up to twice
 #     the rows: as large as the rows themselves at d_pad = 128
-#   one batch's score slab at B = 16,384: [B, 131,072] f32 (or
-#     the i8 lane's int32 products) is 8 GiB; the selection
-#     (`ops/exact_knn.select_topk`) rescales, biases and rounds
-#     it as it reads it, so no second slab exists              8 GiB
+#   one batch's score slab at B = 16,384: [B, 131,072] f32 is
+#     8 GiB.  The f32, bf16 and i8 lanes write none (their chunk
+#     steps select inside `ops/exact_knn.sweep_topk`'s kernels);
+#     its two-step route (d_pad > 1,024 or kc > 256) writes one
+#     a chunk, which `select_topk` biases (and rescales) as it
+#     reads it: kept for that route                            8 GiB
 #   headroom: the products' library workspace, the allocator's
 #     cache and fragmentation, the merge and re-rank buffers   20 GiB
 # 5.5 T + 28 GiB <= 79.6 GiB gives T <= 9.3 GiB: the JAX package's 8 GiB

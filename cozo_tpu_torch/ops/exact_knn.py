@@ -7,15 +7,17 @@ with a score bias [n_chunks, CHUNK] (0 alive, -inf dead/padding).  Each
 chunk's scores (f32, or bf16 / int8 inputs with f32 / int32 results) give
 its top candidates; ONE top-k merges them, then an exact f32 re-rank of
 the over-fetched candidates.  Where the JAX version computes a chunk's
-product and its `lax.approx_max_k` in one scan body, the bf16 and i8
-lanes call `sweep_topk`, the hand kernel `csrc/sweep_topk.cu`: the
-product and an exact selection in one kernel, the score slab never in
-device memory.  The f32 lane's true-f32 product (which no tensor-core
-format gives bit for bit) writes its slab, and `select_topk`, the hand
-kernel `csrc/slab_topk.cu`, selects from it: an exact selection that
-takes the slab's bias (and the i8 lane's rescale and bf16 rounding) as
-it reads the slab.  Both follow `lax.top_k`'s tie rule (equal keys by
-ascending position, +0.0 above -0.0); the merges use `select_topk` too.
+product and its `lax.approx_max_k` in one scan body, the f32, bf16 and
+i8 lanes call `sweep_topk`: the product and an exact selection in one
+kernel, the score slab never in device memory (`csrc/sweep_topk.cu` for
+bf16 and int8 on the tensor cores; `csrc/sweep_topk_f32.cu` for the f32
+lane's true-f32 product, which no tensor-core format gives bit for bit:
+FFMA chains).  `select_topk`, the hand kernel `csrc/slab_topk.cu`, is an
+exact selection from a slab in device memory that takes the slab's bias
+(and the int8 rescale and bf16 rounding) as it reads it: the merges, the
+quant lane's and the int8 build's chunks, the fused lane's pick and
+`sweep_topk`'s two-step route.  Both follow `lax.top_k`'s tie rule
+(equal keys by ascending position, +0.0 above -0.0).
 Queries arrive as f16 (or f32) and unpadded, and results come back as one
 packed int32 array (ids | score bits), as in the JAX version, so both
 packages score the same inputs and return the same contract.
@@ -269,18 +271,28 @@ _SWEEP_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
                    + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
+_SWEEP_F32_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_longlong] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 3
+                       + [ctypes.c_longlong, ctypes.c_longlong,
+                          ctypes.c_void_p])
+SWEEP_F32 = 2  # `sweep_piece`'s kind of the f32 chunk step (0 bf16, 1 int8)
+
+
+def _bind_shape(lib: ctypes.CDLL) -> None:
+    """Both libraries' launch configuration: `cozo_sweep_topk_rows`,
+    `_cluster` and `_slots`, each (kind, d_pad, kc)."""
+    for name in ("rows", "cluster", "slots"):
+        fn = getattr(lib, "cozo_sweep_topk_" + name)
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
 
 
 def _bind_sweep(lib: ctypes.CDLL) -> ctypes.CDLL:
     if lib.cozo_sweep_topk.argtypes is None:
         lib.cozo_sweep_topk.argtypes = _SWEEP_ARGTYPES
         lib.cozo_sweep_topk.restype = ctypes.c_int
-        lib.cozo_sweep_topk_rows.argtypes = [ctypes.c_int] * 3
-        lib.cozo_sweep_topk_rows.restype = ctypes.c_int
-        lib.cozo_sweep_topk_cluster.argtypes = [ctypes.c_int] * 3
-        lib.cozo_sweep_topk_cluster.restype = ctypes.c_int
-        lib.cozo_sweep_topk_slots.argtypes = [ctypes.c_int] * 3
-        lib.cozo_sweep_topk_slots.restype = ctypes.c_int
+        _bind_shape(lib)
         lib.cozo_sweep_topk_counts.argtypes = [ctypes.c_void_p]
         lib.cozo_sweep_topk_counts.restype = ctypes.c_int
     return lib
@@ -288,6 +300,18 @@ def _bind_sweep(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _sweep_lib() -> ctypes.CDLL:
     return _bind_sweep(_build.load("sweep_topk"))
+
+
+def _bind_sweep_f32(lib: ctypes.CDLL) -> ctypes.CDLL:
+    if lib.cozo_sweep_topk_f32.argtypes is None:
+        lib.cozo_sweep_topk_f32.argtypes = _SWEEP_F32_ARGTYPES
+        lib.cozo_sweep_topk_f32.restype = ctypes.c_int
+        _bind_shape(lib)
+    return lib
+
+
+def _sweep_f32_lib() -> ctypes.CDLL:
+    return _bind_sweep_f32(_build.load("sweep_topk_f32"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -304,7 +328,7 @@ def _sweep_block_shape(lib, device_index: int, kind: int, d_pad: int,
 
 
 def sweep_piece(n_total: int, chunk: int, B: int, d_pad: int, kc: int,
-                int8: bool, device, lib=None) -> int:
+                kind: int, device, lib=None) -> int:
     """The piece width the lanes hand `sweep_topk` for a table of n_total
     rows in chunks of `chunk`: the top kf of the whole table is the top kf
     of any pieces' top kf, so the piece is free.  On the CPU, and on the
@@ -317,14 +341,17 @@ def sweep_piece(n_total: int, chunk: int, B: int, d_pad: int, kc: int,
     query rows, the tiles rounded up to its cluster (the blocks that share
     each table tile); its slots are the blocks the card holds at once:
     whole clusters on the SMs, as the occupancy query counts them (asked
-    once a configuration).  `lib`: the kernel's library (default: this
-    checkout's build)."""
+    once a configuration).  `kind`: 0 (or False) bf16, 1 (or True) int8,
+    SWEEP_F32 f32.  `lib`: the kernel's library (default: this checkout's
+    build of the kind's source)."""
     if device.type != "cuda" or sweep_route(d_pad, kc, chunk) != "kernel":
         return chunk
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
+    kind = int(kind)
     rows, cluster, slots = _sweep_block_shape(
-        lib or _sweep_lib(), index, int(int8), d_pad, kc)
+        lib or (_sweep_f32_lib() if kind == SWEEP_F32 else _sweep_lib()),
+        index, kind, d_pad, kc)
     n_qt = -(-B // rows)
     n_qt = -(-n_qt // cluster) * cluster
     units = n_total // SWEEP_PIECE
@@ -357,9 +384,10 @@ def _check_sweep(q, tbl, piece, kc, bias, col_scale, row_scale, out):
         raise ValueError(f"sweep_topk: q {tuple(q.shape)} / tbl "
                          f"{tuple(tbl.shape)} must be [B, d_pad] / "
                          f"[n_total, d_pad]")
-    if q.dtype != tbl.dtype or q.dtype not in (torch.bfloat16, torch.int8):
-        raise TypeError(f"sweep_topk: q and tbl must both be bf16 or both "
-                        f"int8, got {q.dtype} / {tbl.dtype}")
+    if q.dtype != tbl.dtype or q.dtype not in (torch.bfloat16, torch.int8,
+                                               torch.float32):
+        raise TypeError(f"sweep_topk: q and tbl must both be bf16, both int8 "
+                        f"or both f32, got {q.dtype} / {tbl.dtype}")
     int8 = q.dtype == torch.int8
     B, d_pad = q.shape
     n_total = tbl.shape[0]
@@ -371,7 +399,7 @@ def _check_sweep(q, tbl, piece, kc, bias, col_scale, row_scale, out):
             f"n_total={n_total}, piece={piece}, kc={kc})")
     if int8 != (col_scale is not None) or int8 != (row_scale is not None):
         raise ValueError("sweep_topk: int8 inputs take col_scale and "
-                         "row_scale, bf16 inputs neither")
+                         "row_scale, bf16 and f32 inputs neither")
     for name, v, n in (("bias", bias, n_total), ("col_scale", col_scale,
                                                  n_total),
                        ("row_scale", row_scale, B)):
@@ -395,9 +423,10 @@ def sweep_topk_plain(q: torch.Tensor, tbl: torch.Tensor, piece: int,
                      kc: int, bias: torch.Tensor, col_scale=None,
                      row_scale=None, offset: int = 0, out=None):
     """Plain version of `sweep_topk`: per piece the product (`mm_bf16`,
-    or `int_mm` for int8), then `select_topk_plain` of its slab with the
-    piece's bias (and scales, and the bf16 rounding for int8), ids offset
-    by the piece's first row.  Returns (values, ids), [B, n_pieces * kc]."""
+    `int_mm` for int8, `torch.mm` in f32 for f32), then `select_topk_plain`
+    of its slab with the piece's bias (and scales, and the bf16 rounding
+    for int8), ids offset by the piece's first row.  Returns (values, ids),
+    [B, n_pieces * kc]."""
     int8 = q.dtype == torch.int8
     if out is None:
         out = _chunk_buffers(q.shape[0], tbl.shape[0] // piece, kc,
@@ -411,7 +440,7 @@ def sweep_topk_plain(q: torch.Tensor, tbl: torch.Tensor, piece: int,
                 row_scale=row_scale, bias=bias[cols], bf16=True,
                 offset=offset + p * piece)
         else:
-            vals, ids = select_topk_plain(mm_bf16(q, tbl[cols]), kc,
+            vals, ids = select_topk_plain(_piece_product(q, tbl[cols]), kc,
                                           bias=bias[cols],
                                           offset=offset + p * piece)
         dst = _cols(out, p, kc)
@@ -420,11 +449,18 @@ def sweep_topk_plain(q: torch.Tensor, tbl: torch.Tensor, piece: int,
     return out
 
 
+def _piece_product(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The f32 slab of a bf16 or f32 piece: `mm_bf16`, or `torch.mm` in
+    f32 (TF32 off, `utils/device.default_device`)."""
+    return torch.mm(q, t.T) if q.dtype == torch.float32 else mm_bf16(q, t)
+
+
 def sweep_two_step(q, tbl, piece, kc, bias, col_scale, row_scale, offset,
                    out):
     """`sweep_topk`'s two-step route on checked arguments: per piece the
-    product (`mm_bf16` or `int_mm`) writes its slab, then `select_topk`
-    selects from it into the piece's columns of `out`."""
+    product (`mm_bf16`, `int_mm` or `torch.mm` in f32) writes its slab,
+    then `select_topk` selects from it into the piece's columns of
+    `out`."""
     for p in range(tbl.shape[0] // piece):
         cols = slice(p * piece, (p + 1) * piece)
         if q.dtype == torch.int8:
@@ -432,37 +468,47 @@ def sweep_two_step(q, tbl, piece, kc, bias, col_scale, row_scale, offset,
                         row_scale=row_scale, bias=bias[cols], bf16=True,
                         offset=offset + p * piece, out=_cols(out, p, kc))
         else:
-            select_topk(mm_bf16(q, tbl[cols]), kc, bias=bias[cols],
+            select_topk(_piece_product(q, tbl[cols]), kc, bias=bias[cols],
                         offset=offset + p * piece, out=_cols(out, p, kc))
     return out
 
 
 def sweep_topk(q: torch.Tensor, tbl: torch.Tensor, piece: int, kc: int,
                bias: torch.Tensor, col_scale=None, row_scale=None,
-               offset: int = 0, out=None):
-    """The chunk step of the bf16 and int8 sweeps: for each row of q and
-    each piece of `piece` table rows, the kc largest keys of the row's
-    scores against the piece, as `select_topk` selects them from the
-    slab (descending, equal keys by ascending position, +0.0 above -0.0).
+               offset: int = 0, out=None, d_real: int = 0):
+    """The chunk step of the sweeps: for each row of q and each piece of
+    `piece` table rows, the kc largest keys of the row's scores against the
+    piece, as `select_topk` selects them from the slab (descending, equal
+    keys by ascending position, +0.0 above -0.0).
 
       - bf16: q [B, d_pad] and tbl [n_total, d_pad] bf16, scores f32 sums
         of the bf16 products, key = score + bias[j], values f32;
       - int8: q and tbl int8, exact int32 products, key = bf16(((s *
-        col_scale[j]) * row_scale[i]) + bias[j]), values bf16.
+        col_scale[j]) * row_scale[i]) + bias[j]), values bf16;
+      - f32: q and tbl f32, scores true-f32 sums (one `fmaf` chain over k
+        ascending from +0.0 on the card), key = score + bias[j], values
+        f32.  `d_real`: the rows' real width where every column past it
+        is +0.0 in q and tbl (0: unknown); the card's chains stop there,
+        with the padded chains' bits.
 
     Returns (values, ids = position in tbl + offset, int64), [B, n_pieces
     * kc], piece p in columns [p kc, (p + 1) kc): the merge buffer of
     `_chunk_buffers`, or `out` (two such views with one row stride).
     CUDA tensors: the route `sweep_route(d_pad, kc, piece)` names, chosen
-    before any launch: "kernel" launches `csrc/sweep_topk.cu` once on the
-    current stream for every piece (counted in `sweep_topk.launches`),
-    with no slab in device memory (rows past 128 wide in its wide form:
-    query rows in shared memory, the table's 128-byte K-chunks through
-    its ring); "two_step" (d_pad > 1,024, kc > 256 or a piece that is not
-    a multiple of 256) runs each piece's product and `select_topk`
-    (counted in `sweep_topk.two_step`).
+    before any launch: "kernel" launches one kernel on the current stream
+    for every piece (counted in `sweep_topk.launches`, the f32 kind's also
+    in `sweep_topk.f32_launches`), with no slab in device memory: bf16 and
+    int8 `csrc/sweep_topk.cu` (rows past 128 wide in its wide form: query
+    rows in shared memory, the table's 128-byte K-chunks through its
+    ring), f32 `csrc/sweep_topk_f32.cu` (FFMA on register fragments, the
+    table's K-slices through a `cp.async` ring); "two_step" (d_pad >
+    1,024, kc > 256 or a piece that is not a multiple of 256) runs each
+    piece's product and `select_topk` (counted in `sweep_topk.two_step`).
     CPU tensors run `sweep_topk_plain`."""
     _check_sweep(q, tbl, piece, kc, bias, col_scale, row_scale, out)
+    if not 0 <= d_real <= q.shape[1]:
+        raise ValueError(f"sweep_topk: d_real {d_real} past d_pad "
+                         f"{q.shape[1]}")
     if q.device.type == "cpu":
         return sweep_topk_plain(q, tbl, piece, kc, bias, col_scale,
                                 row_scale, offset, out)
@@ -481,20 +527,31 @@ def sweep_topk(q: torch.Tensor, tbl: torch.Tensor, piece: int, kc: int,
         sweep_topk.two_step += 1
         return out
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    ldo = out[0].stride(0) if B > 1 else n_pieces * kc
+    f32 = q.dtype == torch.float32
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        lib = _sweep_lib()
-        err = lib.cozo_sweep_topk(
-            q.data_ptr(), tbl.data_ptr(), int(int8), B, tbl.shape[0], d_pad,
-            piece, kc, bias.data_ptr(), ptr(col_scale), ptr(row_scale),
-            out[0].data_ptr(), out[1].data_ptr(),
-            out[0].stride(0) if B > 1 else n_pieces * kc, offset, stream)
+        if f32:
+            lib = _sweep_f32_lib()
+            err = lib.cozo_sweep_topk_f32(
+                q.data_ptr(), tbl.data_ptr(), B, tbl.shape[0], d_pad, d_real,
+                piece, kc, bias.data_ptr(), out[0].data_ptr(),
+                out[1].data_ptr(), ldo, offset, stream)
+        else:
+            lib = _sweep_lib()
+            err = lib.cozo_sweep_topk(
+                q.data_ptr(), tbl.data_ptr(), int(int8), B, tbl.shape[0],
+                d_pad, piece, kc, bias.data_ptr(), ptr(col_scale),
+                ptr(row_scale), out[0].data_ptr(), out[1].data_ptr(), ldo,
+                offset, stream)
     _build.check(lib, err, "sweep_topk launch")
     sweep_topk.launches += 1
+    sweep_topk.f32_launches += f32
     return out
 
 
 sweep_topk.launches = 0
+sweep_topk.f32_launches = 0
 sweep_topk.two_step = 0
 
 
@@ -522,35 +579,30 @@ def _cols(bufs, c: int, kc: int):
 
 def _sweep(tbl: torch.Tensor, bias: torch.Tensor, qs: torch.Tensor,
            k: int, compute_dtype: str, rerank_k: int = 0,
-           metric: str = "IP", tbl16: Optional[torch.Tensor] = None
-           ) -> torch.Tensor:
+           metric: str = "IP", tbl16: Optional[torch.Tensor] = None,
+           d_in: int = 0) -> torch.Tensor:
     """Counterpart of `_sweep_fn`; `qs` [B, d_pad] f32 as
-    `prepare_queries` gives them.  bf16: every chunk's product and
-    selection in `sweep_topk` (`tbl16`, the flat bf16 table, is made from
-    `tbl` where not given); f32: a chunk's true-f32 product, then
-    `select_topk`.  rerank_k > 0: over-fetch rerank_k candidates in the
-    scan, then re-score them in true f32 (L2 in the cancellation-free
-    diff form) and return the exact top-k.  Returns the packed int32
-    [B, 2k'] (ids | score bits)."""
+    `prepare_queries` gives them.  Every chunk's product and selection in
+    `sweep_topk`, on the piece `sweep_piece` picks: bf16 (`tbl16`, the
+    flat bf16 table, is made from `tbl` where not given) or true f32
+    (the flat f32 table, a view; `d_in`, the rows' real width with
+    zeros past it in `qs` and `tbl`, lets its chains stop there); then one
+    merge.  rerank_k > 0:
+    over-fetch rerank_k candidates in the scan, then re-score them in true
+    f32 (L2 in the cancellation-free diff form) and return the exact top-k.
+    Returns the packed int32 [B, 2k'] (ids | score bits)."""
     n_chunks, chunk, d_pad = tbl.shape
     kf = max(k, rerank_k)
-    kc = min(kf, chunk)
     if compute_dtype == "bf16":
         if tbl16 is None:
             tbl16 = tbl.reshape(-1, d_pad).to(torch.bfloat16)
-        piece = sweep_piece(tbl16.shape[0], chunk, qs.shape[0], d_pad, kc,
-                            False, qs.device)
-        kc = min(kf, piece)
-        bufs = sweep_topk(qs.to(torch.bfloat16), tbl16, piece, kc,
-                          bias.reshape(-1))
+        q, flat, kind = qs.to(torch.bfloat16), tbl16, 0
     else:
-        bufs = _chunk_buffers(qs.shape[0], n_chunks, kc, torch.float32,
-                              qs.device)
-        for c in range(n_chunks):
-            s = qs @ tbl[c].T
-            select_topk(s, kc, bias=bias[c], offset=c * chunk,
-                        out=_cols(bufs, c, kc))
-            del s  # free the [B, chunk] slab before the next chunk's
+        q, flat, kind = qs.contiguous(), tbl.reshape(-1, d_pad), SWEEP_F32
+    piece = sweep_piece(flat.shape[0], chunk, qs.shape[0], d_pad,
+                        min(kf, chunk), kind, qs.device)
+    bufs = sweep_topk(q, flat, piece, min(kf, piece), bias.reshape(-1),
+                      d_real=d_in if kind == SWEEP_F32 else 0)
     bs, bi = merge_chunks(*bufs, kf)
     if rerank_k <= 0:
         return torch.cat([bi.to(torch.int32), bs.view(torch.int32)], dim=1)
@@ -771,6 +823,7 @@ class SweepTable:
             packed_d = _sweep(
                 self.tbl, self.bias, prepared, k, compute_dtype,
                 rerank_k=rerank_k, metric=index.distance, tbl16=tbl16,
+                d_in=index.dim,
             )
         packed = packed_d.cpu().numpy()
         kk = packed.shape[1] // 2

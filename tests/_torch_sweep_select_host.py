@@ -212,24 +212,31 @@ def build_wide(tmp_path_factory, mode, consumers=1):
 GROUPS = (1, 2, 8)
 
 
-def build_lib(tmp_path_factory, mode, defines=()):
-    """The harness of row state `mode` compiled with g++ (with the extra -D
-    flags `defines`) into a fresh directory; skips where there is no g++
-    with C++20."""
+def compile_harness(tmp_path_factory, mode, defines=(), harness=HARNESS):
+    """`harness` (the selection's, or another over `csrc/` headers) for
+    row state `mode` compiled with g++ (with the extra -D flags `defines`)
+    into a fresh directory and loaded; skips where there is no g++ with
+    C++20."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the selection for the host")
     work = tmp_path_factory.mktemp("sweep_select_host")
     (work / "cuda_runtime.h").write_text(SHIM + EXTRA + SELECT_EXTRA)
     (work / "cuda_bf16.h").write_text(BF16)
-    (work / "harness.cpp").write_text(HARNESS)
+    (work / "harness.cpp").write_text(harness)
     proc = subprocess.run(
         [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
          f"-DSEL_MODE={mode}", *defines, f"-I{work}", f"-I{_build.CSRC}", "-o",
          str(work / "harness.so"), str(work / "harness.cpp")],
         capture_output=True, text=True, timeout=COMPILE_TIMEOUT_S)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    lib = ctypes.CDLL(str(work / "harness.so"))
+    return ctypes.CDLL(str(work / "harness.so"))
+
+
+def build_lib(tmp_path_factory, mode, defines=()):
+    """The selection's harness of row state `mode` (with the extra -D flags
+    `defines`), its entries bound."""
+    lib = compile_harness(tmp_path_factory, mode, defines)
     lib.run_select.argtypes = ([ctypes.c_int, ctypes.c_void_p,
                                   ctypes.c_longlong] + [ctypes.c_int] * 3
                                  + [ctypes.c_void_p] * 5
@@ -325,3 +332,162 @@ def check_case(lib, mode, i, wide=False, group=1):
     want = plain(kind, prod, kc, bias, cs, rs)
     assert topk_same(got, want), (
         f"{int((got[1] != want[1]).sum())} ids differ of {want[1].numel()}")
+
+
+# ---- the f32 chunk step (`csrc/sweep_f32.cuh`): the FFMA product too -------
+
+# The f32 kernel's block loop (`f32_block`) as the card runs it, but for
+# the copies into shared memory: plain copies (zeros past the query rows)
+# where the card has `cp.async`, so a step's slices are in place when the
+# copy returns.
+F32_HARNESS = r'''
+#include <cuda_runtime.h>
+#include <cmath>
+#include "sweep_f32.cuh"
+using namespace cozo_f32;
+
+struct HostCopy {
+  static void copy16(void* dst, const void* src, bool in) {
+    if (in) memcpy(dst, src, 16); else memset(dst, 0, 16);
+  }
+  static void commit() {}
+  static void wait(int) {}
+};
+
+template <int MODE>
+__global__ void walk(const float* q, const float* tbl, Args a, Layout L) {
+  f32_block<MODE, HostCopy>(SHIM_SMEM, q, tbl, a, L, (int)blockIdx.x);
+}
+
+extern "C" {
+// The kernel's launch of `cozo_sweep_topk_f32` on host arrays.  Returns 1
+// if kc is not this build's row state, 2 if the layout does not fit.
+int run_f32(const float* q, const float* tbl, long long n_total, int d_pad, int d_real, int B,
+            int piece, int kc, const float* bias, float* out_v, long long* out_i, long long ldo,
+            long long id_off) {
+  if (mode_of(kc) != SEL_MODE) return 1;
+  typedef F32Cfg<SEL_MODE> F;
+  const Layout L = layout_of<SEL_MODE>(d_pad, d_real);
+  if (L.stages < 2) return 2;
+  Args a;
+  a.bias = bias;
+  a.col_scale = a.row_scale = nullptr;
+  a.out_v = out_v;
+  a.out_i = out_i;
+  a.ldo = ldo;
+  a.id_off = id_off;
+  a.B = B;
+  a.piece = piece;
+  a.kc = kc;
+  a.n_qt = a.n_qt_c = (B + F::RB - 1) / F::RB;
+  a.stride = stride_of(piece / TN);
+  const unsigned blocks = (unsigned)((n_total / piece) * a.n_qt);
+  shim::launch(dim3(blocks), F::NT, L.bytes, &walk<SEL_MODE>)(q, tbl, a, L);
+  return 0;
+}
+// threads a block, query rows a block, fragments a thread, the ring's
+// stages and whether the query rows stay resident at d_pad
+void shape_of(int d_pad, int* out) {
+  typedef F32Cfg<SEL_MODE> F;
+  const Layout L = layout_of<SEL_MODE>(d_pad);
+  out[0] = F::NT;
+  out[1] = F::RB;
+  out[2] = F::RV;
+  out[3] = L.stages;
+  out[4] = L.resident;
+}
+}
+'''
+
+# d_pad: a slice of 16 alone, 32 + 16, the lane's 128 (rows resident), 144
+# (rows streamed, a last slice of 16), 256 (streamed, whole slices)
+F32_DS = (16, 48, 128, 144, 256)
+F32_VARIANTS = ("random", "ties", "zeros", "dead", "rising")
+
+
+def build_f32(tmp_path_factory, mode):
+    """The f32 kernel's harness of row state `mode`, its entries bound."""
+    lib = compile_harness(tmp_path_factory, mode, harness=F32_HARNESS)
+    lib.run_f32.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                            + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+                            + [ctypes.c_longlong] * 2)
+    lib.run_f32.restype = ctypes.c_int
+    lib.shape_of.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.shape_of.restype = None
+    return lib
+
+
+def f32_shape(lib, d_pad):
+    """(threads, rows, fragments a thread, stages, resident) of a build."""
+    out = (ctypes.c_int * 5)()
+    lib.shape_of(d_pad, out)
+    return tuple(out)
+
+
+def f32_cases(mode):
+    """(kc, variant, d_pad, B, d_real) of a row state: every kc and
+    variant, d_pad and B (70, 130: a ragged last query tile) in turn, the
+    real width (the inputs' d_pad - 4 nonzero columns) given to every
+    other case (0: the chain over d_pad)."""
+    out = []
+    for kc in KCS[mode]:
+        for variant in F32_VARIANTS:
+            i = len(out)
+            d_pad = F32_DS[i % len(F32_DS)]
+            out.append((kc, variant, d_pad, (70, 130)[i % 2],
+                        (0, d_pad - 4)[(i // len(F32_DS)) % 2]))
+    return out
+
+
+def f32_case_ids(mode):
+    return [f"kc{kc}-{v}-d{d}-B{B}" + (f"-real{r}" if r else "")
+            for kc, v, d, B, r in f32_cases(mode)]
+
+
+def f32_inputs(B, d_pad, variant, seed):
+    """(q [B, d_pad], tbl [n, d_pad], bias) f32 of small integers (every
+    sum exact in any order), the variant's structure planted as
+    `inputs` plants it; the last 4 columns zero (the lanes' padding)."""
+    rng = np.random.default_rng(seed)
+    n = PIECE * N_PIECES
+    d = max(1, d_pad - 4)
+    q = np.zeros((B, d_pad), np.float32)
+    t = np.zeros((n, d_pad), np.float32)
+    q[:, :d] = rng.integers(-3, 4, (B, d))
+    t[:, :d] = rng.integers(-3, 4, (n, d))
+    bias = -rng.integers(0, 9, n).astype(np.float32) * 0.25
+    bias[rng.random(n) < 0.02] = -np.inf
+    if variant == "ties":
+        bias[np.isfinite(bias)] = 0.0
+        t[64:128] = t[:64]
+    elif variant == "zeros":
+        zero = rng.choice(n, n // 4, replace=False)
+        t[zero] = 0.0
+        bias[zero] = rng.choice(np.float32([0.0, -0.0]), len(zero))
+        q[0] = 0.0
+    elif variant == "dead":
+        bias[:] = -np.inf
+        for p in range(N_PIECES):
+            bias[p * PIECE + rng.choice(PIECE, 3, replace=False)] = 0.0
+    elif variant == "rising":
+        t[:, :d] = rng.integers(-1, 2, (n, d))
+        bias = (np.arange(n) % PIECE).astype(np.float32) * 0.25
+    return torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(bias)
+
+
+def check_f32_case(lib, mode, i):
+    """Case i of the row state: the f32 kernel's values and ids bit-equal
+    to `sweep_topk_plain`'s (`torch.mm` in f32 over d_pad, then
+    `select_topk_plain` a piece), whether its chains run over d_pad or
+    stop at the real width."""
+    kc, variant, d_pad, B, d_real = f32_cases(mode)[i]
+    q, t, bias = f32_inputs(B, d_pad, variant, 100 + i)
+    vals = torch.full((B, N_PIECES * kc), 7.0, dtype=torch.float32)
+    ids = torch.full((B, N_PIECES * kc), -5, dtype=torch.int64)
+    err = lib.run_f32(q.data_ptr(), t.data_ptr(), t.shape[0], d_pad, d_real,
+                      B, PIECE, kc, bias.data_ptr(), vals.data_ptr(),
+                      ids.data_ptr(), N_PIECES * kc, ID_OFF)
+    assert err == 0
+    want = ek.sweep_topk_plain(q, t, PIECE, kc, bias, offset=ID_OFF)
+    assert topk_same((vals, ids), want), (
+        f"{int((ids != want[1]).sum())} ids differ of {want[1].numel()}")

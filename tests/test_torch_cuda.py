@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA card (marker `cuda`): each CUDA
 kernel (`fused_sweep`, `beam_search`, the three graph kernels, `minhash`,
-`slab_topk`, `sweep_topk`) against its plain PyTorch version, the graph rules' entry points and a
+`slab_topk`, `sweep_topk`'s two, bf16 / int8 and f32) against its plain
+PyTorch version, the graph rules' entry points and a
 MinHash-LSH Db on the card against the same calls on the CPU, the
 MinHash dispatch's own pinned buffers,
 the lanes end to end through the kernels, the staging buffers of a
@@ -701,11 +702,11 @@ def test_slab_topk_refuses_tensors_off_the_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cd", ["f32", "bf16", "i8", "fused"])
 def test_bf16_and_i8_lanes_launch_sweep_topk_the_others_slab_topk(cuda, cd):
-    """A lane's search launches its selection kernel (the f32 lane
-    `slab_topk` once per chunk and the merge, the fused lane once over its
-    packed array; the bf16 and i8 lanes `sweep_topk` once for all the
-    pieces `sweep_piece` cuts, and `slab_topk` at most once, to merge
-    them) and returns the CPU's ids."""
+    """A lane's search launches its selection kernel (the fused lane
+    `slab_topk` once over its packed array; the f32, bf16 and i8 lanes
+    `sweep_topk` once for all the pieces `sweep_piece` cuts, the f32 lane
+    on its own kernel, counted in `sweep_topk.f32_launches` too, and
+    `slab_topk` at most once, to merge them) and returns the CPU's ids."""
     rng = np.random.default_rng(4)
     data = rng.standard_normal((3000, 24)).astype(np.float32)
     qs = rng.standard_normal((64, 24)).astype(np.float32)
@@ -714,15 +715,18 @@ def test_bf16_and_i8_lanes_launch_sweep_topk_the_others_slab_topk(cuda, cd):
         idx = HnswIndex(dim=24, m=8, ef_construction=32, distance="Cosine",
                         device=dev)
         idx.bulk_build(data, wave=1024)
-        before = (ek.select_topk.launches, ek.sweep_topk.launches)
+        before = (ek.select_topk.launches, ek.sweep_topk.launches,
+                  ek.sweep_topk.f32_launches)
         got[dev] = sweep_search(idx, qs, 5, compute_dtype=cd)[0]
         if dev == "cuda":
-            after = (ek.select_topk.launches, ek.sweep_topk.launches)
-            if cd in ("bf16", "i8"):
+            after = (ek.select_topk.launches, ek.sweep_topk.launches,
+                     ek.sweep_topk.f32_launches)
+            if cd in ("f32", "bf16", "i8"):
                 assert after[1] == before[1] + 1
+                assert after[2] == before[2] + (cd == "f32")
                 assert after[0] - before[0] in (0, 1)
             else:
-                assert after[0] > before[0] and after[1] == before[1]
+                assert after[0] > before[0] and after[1:] == before[1:]
     assert np.mean(got["cpu"] == got["cuda"]) > 0.99
 
 
@@ -861,6 +865,83 @@ def test_sweep_topk_block_shape_and_slots(cuda, kc, int8):
         assert cluster == 2 if d_pad > 128 else cluster in (1, 2)
         slots = lib.cozo_sweep_topk_slots(int(int8), d_pad, kc)
         assert cluster <= slots <= sms and slots % cluster == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["L2", "IP", "Cosine"])
+def test_f32_lane_is_the_two_step_route_on_the_card(cuda, metric):
+    """The f32 lane (`_sweep` at compute_dtype "f32": one launch of the f32
+    kernel, then the merge) against the lane as it ran before it had a
+    kernel, a chunk's `torch.mm` in f32 and `select_topk`, on the same
+    inputs (4 chunks of 131,072 rows, 300 queries, d 100 padded to 128,
+    dead rows): ids and score bits equal, the kernel's chain and cuBLAS's
+    being the same sums in the same order (phase 3 of `chip_smoke.py` says
+    how many rows differ at the main shape if they are not)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n_chunks, chunk, d_pad = 4, 131_072, 128
+    tbl = torch.zeros((n_chunks * chunk, d_pad), device=cuda)
+    tbl[:, :100] = torch.randn((n_chunks * chunk, 100), generator=g,
+                               device=cuda)
+    bias = torch.zeros(n_chunks * chunk, device=cuda)
+    if metric == "Cosine":
+        tbl = torch.nn.functional.normalize(tbl, dim=1)
+    elif metric == "L2":
+        bias -= (tbl * tbl).sum(1)
+        tbl *= 2.0
+    bias[torch.randperm(n_chunks * chunk, generator=g, device=cuda)[:500]] = \
+        float("-inf")
+    q = torch.zeros((300, d_pad), device=cuda)
+    q[:, :100] = torch.randn((300, 100), generator=g, device=cuda)
+    before = (ek.sweep_topk.launches, ek.sweep_topk.f32_launches,
+              ek.sweep_topk.two_step)
+    got = ek._sweep(tbl.view(n_chunks, chunk, d_pad),
+                    bias.view(n_chunks, chunk), q, 10, "f32", metric=metric)
+    assert (ek.sweep_topk.launches, ek.sweep_topk.f32_launches,
+            ek.sweep_topk.two_step) == (before[0] + 1, before[1] + 1,
+                                        before[2])
+    bufs = ek._chunk_buffers(300, n_chunks, 10, torch.float32, cuda)
+    ek.sweep_two_step(q, tbl, chunk, 10, bias, None, None, 0, bufs)
+    bs, bi = ek.merge_chunks(*bufs, 10)
+    want = torch.cat([bi.to(torch.int32), bs.view(torch.int32)], dim=1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_sweep_topk_f32_raises_where_it_cannot_launch(cuda):
+    """No fallback: queries 4 bytes off a 16-byte boundary (contiguous, so
+    the wrapper's checks pass) make the kernel's entry refuse, and the
+    wrapper raises; nothing is counted."""
+    q, tbl, kw = sweep_inputs("f32", 4, 256, 1, 64, "random", 2, cuda)
+    off = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    off.copy_(q)
+    before = (ek.sweep_topk.launches, ek.sweep_topk.f32_launches)
+    with pytest.raises(RuntimeError):
+        ek.sweep_topk(off, tbl, 256, 10, **kw)
+    assert (ek.sweep_topk.launches, ek.sweep_topk.f32_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kc", [1, 32, 33, 64, 65, 128, 129, 256])
+def test_sweep_topk_f32_block_shape_and_slots(cuda, kc):
+    """The f32 kernel's query rows a block (128 with the lists, kc <= 64;
+    64 past), no clusters, and the blocks the card holds at once: at
+    least one an SM with the lists at d_pad 128 (two with the lists of
+    8), at most four an SM; `sweep_piece` cuts pieces that divide the
+    lane's table and fill the slots."""
+    lib = ek._sweep_f32_lib()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for d_pad in (16, 128, 256, 768, 1024):
+        assert lib.cozo_sweep_topk_rows(ek.SWEEP_F32, d_pad, kc) == (
+            128 if kc <= 64 else 64)
+        assert lib.cozo_sweep_topk_cluster(ek.SWEEP_F32, d_pad, kc) == 1
+        slots = lib.cozo_sweep_topk_slots(ek.SWEEP_F32, d_pad, kc)
+        assert 1 <= slots <= 4 * sms
+        if d_pad == 128 and kc <= 32:
+            assert slots >= 2 * sms
+    n_total = 10 * 131_072
+    piece = ek.sweep_piece(n_total, 131_072, 16_384, 128, kc, ek.SWEEP_F32,
+                           cuda)
+    assert piece % ek.SWEEP_PIECE == 0 and n_total % piece == 0
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The sweep lanes' chunk step (`cozo_tpu_torch/ops/exact_knn.py`:
 `sweep_topk`, its plain version `sweep_topk_plain` and `sweep_route`; the
-kernel is `csrc/sweep_topk.cu`) on the CPU, where the wrapper runs the
+kernels are `csrc/sweep_topk.cu`, bf16 and int8, and
+`csrc/sweep_topk_f32.cu`, f32) on the CPU, where the wrapper runs the
 plain version.
 
 * The plain version over 1, 2, 3 and 7 pieces, merged by `merge_chunks`,
@@ -22,11 +23,19 @@ plain version.
   and selection mask); each at d_pad 128 and at 768 (the kernel's wide
   form on the card), the i8 lane there with rows whose int8 sums pass
   2^22.
+* The f32 kind: the plain version merged is one selection of the slab
+  (above, small integers: no tolerance), is the old two-step lane
+  bit for bit, and `_sweep`'s f32 lane through the wrapper matches
+  `_sweep_fn(compute_dtype="f32", rt=1.0)` for L2, IP and Cosine, raw and
+  re-ranked, with dead rows, a ragged last chunk, ties across chunk edges
+  and +-0.0 (small integers: ids and score bits equal; normal rows: ids
+  equal but at f32 ties, scores within 1e-5), and at 768-wide rows.
 * The wrapper refuses what the kernel cannot take, and the route by
   shape is the one its docstring names.
 
-The kernel itself runs on the card alone (`tests/test_torch_cuda.py`,
-`chip_smoke.py` phase 2): no emulation of `wgmma` here.
+The kernels themselves run on the card alone (`tests/test_torch_cuda.py`,
+`chip_smoke.py` phase 2): no emulation of `wgmma` here; the f32 kernel's
+block loop runs on the host in `tests/test_torch_sweep_select_host_f32*.py`.
 """
 
 import numpy as np
@@ -73,7 +82,8 @@ def chunk_inputs(B, n_pieces, d, kind, variant, seed):
             live = p * PIECE + rng.choice(PIECE, 3, replace=False)
             bias[live] = -rng.integers(0, 3, 3)
             cs[live] = 0.5
-    dtype = torch.bfloat16 if kind == "bf16" else torch.int8
+    dtype = {"bf16": torch.bfloat16, "int8": torch.int8,
+             "f32": torch.float32}[kind]
     kw = {"bias": torch.from_numpy(bias)}
     if kind == "int8":
         kw["col_scale"] = torch.from_numpy(cs)
@@ -85,10 +95,12 @@ def whole_slab(q, tbl, kc, kw):
     """One `select_topk_plain` over the whole [B, n_total] slab."""
     if q.dtype == torch.int8:
         return ek.select_topk_plain(int_mm(q, tbl), kc, bf16=True, **kw)
+    if q.dtype == torch.float32:
+        return ek.select_topk_plain(q @ tbl.T, kc, **kw)
     return ek.select_topk_plain(mm_bf16(q, tbl), kc, **kw)
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
 @pytest.mark.parametrize("variant", ["random", "ties", "dead"])
 @pytest.mark.parametrize("n_pieces", [1, 2, 3, 7])
 @pytest.mark.parametrize("kc", [1, 10, PIECE])
@@ -99,6 +111,7 @@ def test_pieces_merged_equal_one_selection_of_the_slab(kind, variant,
     vals, ids = ek.sweep_topk_plain(q, tbl, PIECE, kc, **kw)
     assert vals.shape == ids.shape == (5, n_pieces * kc)
     assert vals.dtype == (torch.bfloat16 if kind == "int8" else torch.float32)
+    assert ids.dtype == torch.int64
     merged = ek.merge_chunks(vals, ids, kc)
     assert topk_same(merged, whole_slab(q, tbl, kc, kw))
     # each piece's columns are its own selection, ids offset by its start
@@ -152,7 +165,12 @@ def _bad_calls():
     q, tbl, kw = chunk_inputs(4, 2, 32, "bf16", "random", seed=1)
     qi, ti, kwi = chunk_inputs(4, 2, 32, "int8", "random", seed=1)
     b = kw["bias"]
-    yield "f32 inputs", (q.float(), tbl.float(), PIECE, 10), kw
+    # f32 inputs take the bias alone, as bf16 inputs do
+    yield "f32 inputs", (q.float(), tbl.float(), PIECE, 10), kwi
+    yield "f16 inputs", (q.half(), tbl.half(), PIECE, 10), kw
+    yield "a real width past d_pad", (q.float(), tbl.float(), PIECE, 10), {
+        **kw, "d_real": 33}
+    yield "f32 queries, bf16 table", (q.float(), tbl, PIECE, 10), kw
     yield "mixed kinds", (q, ti, PIECE, 10), kw
     yield "piece 0", (q, tbl, 0, 10), kw
     yield "piece not dividing the table", (q, tbl[:384], PIECE, 10), \
@@ -269,6 +287,127 @@ def _bf16_lanes_match_jax(counted, rerank_k, table, d_pad, d):
                                atol=1e-5)
 
 
+def _f32_table(seed, metric, variant, d_pad=D_PAD, d=D, n_live=None):
+    """(table [N_CHUNKS, CHUNK, d_pad], bias, queries [96, d_pad]) in the
+    sweep table's form for `metric` (`SweepTable._prep_rows`: L2 rows 2 v
+    with bias -||v||^2, IP rows as they are, Cosine unit rows), the rows
+    past n_live dead and zero (a ragged last chunk), 40 dead rows among
+    the live.  "random": normal rows; "ints": small integers (every f32
+    sum exact in any order), each chunk's last 8 rows repeated at the next
+    chunk's start, a quarter of the rows zero with a +-0.0 bias (IP) and
+    a zero query (equal keys across chunk edges, +-0.0)."""
+    rng = np.random.default_rng(seed)
+    n = N_CHUNKS * CHUNK
+    n_live = n if n_live is None else n_live
+    if variant == "ints":
+        v = rng.integers(-3, 4, (n, d)).astype(np.float32)
+        q = rng.integers(-3, 4, (96, d)).astype(np.float32)
+        for c in range(1, N_CHUNKS):
+            v[c * CHUNK:c * CHUNK + 8] = v[c * CHUNK - 8:c * CHUNK]
+        q[0] = 0.0
+    else:
+        v = rng.standard_normal((n, d)).astype(np.float32)
+        q = rng.standard_normal((96, d)).astype(np.float32)
+    bias = np.zeros(n, np.float32)
+    if variant == "ints":
+        zero = rng.choice(n, n // 4, replace=False)
+        v[zero] = 0.0
+        bias[zero] = rng.choice(np.float32([0.0, -0.0]), len(zero))
+    if metric == "Cosine":
+        nrm = np.linalg.norm(v, axis=1, keepdims=True)
+        v = v / np.where(nrm > 0, nrm, 1.0)
+        q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
+    elif metric == "L2":
+        bias = bias - np.einsum("nd,nd->n", v, v)
+        v = 2.0 * v
+    bias[rng.choice(n_live, 40, replace=False)] = -np.inf
+    bias[n_live:] = -np.inf
+    v[n_live:] = 0.0
+    tbl = np.zeros((n, d_pad), np.float32)
+    tbl[:, :d] = v
+    qp = np.zeros((96, d_pad), np.float32)
+    qp[:, :d] = q
+    return (tbl.reshape(N_CHUNKS, CHUNK, d_pad),
+            bias.astype(np.float32).reshape(N_CHUNKS, CHUNK), qp)
+
+
+@pytest.mark.parametrize("metric", ["L2", "IP", "Cosine"])
+@pytest.mark.parametrize("variant", ["random", "ints"])
+@pytest.mark.parametrize("rerank_k", [0, 26])
+def test_sweep_f32_lane_matches_jax(counted, metric, variant, rerank_k):
+    """The f32 lane (`_sweep` at compute_dtype "f32": `sweep_topk` once, on
+    the plain version here, then one merge) against `_sweep_fn(...,
+    compute_dtype="f32", rt=1.0)` on the same inputs, the last chunk
+    ragged (its last 300 rows dead).  Tolerance: on small integers (exact
+    sums) ids and score bits equal rank for rank; on normal rows the same
+    ids as sets on >= 99.9% of rows (they may differ only by f32 ties, as
+    `tests/test_torch_exact_knn.py::test_sweep_lanes_match_jax` states
+    it) and sorted scores within 1e-5."""
+    import jax.numpy as jnp
+
+    k = 10
+    seed = {"L2": 21, "IP": 22, "Cosine": 23}[metric] + 10 * rerank_k
+    tbl, bias, qp = _f32_table(seed, metric, variant,
+                               n_live=N_CHUNKS * CHUNK - 300)
+    got = ek._sweep(torch.from_numpy(tbl), torch.from_numpy(bias),
+                    torch.from_numpy(qp), k, "f32", rerank_k=rerank_k,
+                    metric=metric).numpy()
+    assert counted == [max(k, rerank_k)]
+    want = np.asarray(_sweep_fn(N_CHUNKS, CHUNK, D_PAD, k, 1.0, "f32",
+                                rerank_k, metric)(
+        jnp.asarray(tbl), jnp.asarray(bias), jnp.asarray(qp)))
+    (ids_t, s_t), (ids_j, s_j) = _unpack(got), _unpack(want)
+    if variant == "ints" and rerank_k == 0:
+        assert np.array_equal(ids_t, ids_j)
+        assert np.array_equal(s_t.view(np.int32), s_j.view(np.int32))
+        return
+    if variant == "ints":  # the re-rank keeps any of the k-th score's ties
+        ids_t = [i[s > s.min()] for i, s in zip(ids_t, s_t)]
+        ids_j = [i[s > s.min()] for i, s in zip(ids_j, s_j)]
+    same = np.mean([set(ids_t[b]) == set(ids_j[b])
+                    for b in range(len(ids_t))])
+    assert same >= 0.999, same
+    np.testing.assert_allclose(np.sort(s_t, 1), np.sort(s_j, 1), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_sweep_f32_lane_matches_jax_at_768(counted):
+    """The f32 lane at 768-wide rows (the f32 kernel streams the query rows
+    there on the card), Cosine, raw: as the test above."""
+    import jax.numpy as jnp
+
+    k = 10
+    tbl, bias, qp = _f32_table(24, "Cosine", "random", d_pad=768, d=768)
+    got = ek._sweep(torch.from_numpy(tbl), torch.from_numpy(bias),
+                    torch.from_numpy(qp), k, "f32", metric="Cosine").numpy()
+    assert counted == [k]
+    want = np.asarray(_sweep_fn(N_CHUNKS, CHUNK, 768, k, 1.0, "f32", 0,
+                                "Cosine")(
+        jnp.asarray(tbl), jnp.asarray(bias), jnp.asarray(qp)))
+    (ids_t, s_t), (ids_j, s_j) = _unpack(got), _unpack(want)
+    same = np.mean([set(ids_t[b]) == set(ids_j[b])
+                    for b in range(len(ids_t))])
+    assert same >= 0.999, same
+    np.testing.assert_allclose(np.sort(s_t, 1), np.sort(s_j, 1), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_sweep_f32_plain_is_the_old_two_step_lane():
+    """`sweep_topk_plain` on f32 inputs is what the f32 lane computed before
+    it had a kernel: a chunk's `qs @ tbl[c].T`, then `select_topk_plain`
+    with the chunk's bias: values and ids bit-equal, a piece a chunk."""
+    tbl, bias, qp = _f32_table(25, "L2", "random")
+    q, t = torch.from_numpy(qp), torch.from_numpy(tbl)
+    b = torch.from_numpy(bias)
+    vals, ids = ek.sweep_topk_plain(q, t.reshape(-1, D_PAD), CHUNK, 26,
+                                    b.reshape(-1))
+    for c in range(N_CHUNKS):
+        want = ek.select_topk_plain(q @ t[c].T, 26, bias=b[c],
+                                    offset=c * CHUNK)
+        got = (vals[:, c * 26:(c + 1) * 26], ids[:, c * 26:(c + 1) * 26])
+        assert topk_same(got, want)
+
+
 def test_sweep_i8_matches_jax(counted):
     """The i8 lane: the port's table, scales and quantised queries (bit-
     equal to the JAX package's, `tests/test_torch_i8.py`) through both."""
@@ -354,18 +493,29 @@ def _build_step_matches_jax(counted, seed, P, D_PAD, D):
 
 
 def test_ctypes_signature_matches_the_source():
-    """`_SWEEP_ARGTYPES` follows the C entry in `csrc/sweep_topk.cu`:
-    pointers as void*, ints as int, 64-bit ints as long long, in order."""
+    """`_SWEEP_ARGTYPES` follows the C entry in `csrc/sweep_topk.cu`, and
+    `_SWEEP_F32_ARGTYPES` the one in `csrc/sweep_topk_f32.cu`:
+    pointers as void*, ints as int, 64-bit ints as long long, in order.
+    Both sources define the launch configuration's three queries alike,
+    (kind, d_pad, kc), as `_bind_shape` binds them."""
     import ctypes
+    import os
+    import re
 
+    from cozo_tpu_torch.ops import _build
     from tests.test_torch_fused_routes import _extern_c_functions
 
     funcs = _extern_c_functions()
     assert funcs["cozo_sweep_topk"] == ek._SWEEP_ARGTYPES
-    assert funcs["cozo_sweep_topk_rows"] == [ctypes.c_int] * 3
-    assert funcs["cozo_sweep_topk_cluster"] == [ctypes.c_int] * 3
-    assert funcs["cozo_sweep_topk_slots"] == [ctypes.c_int] * 3
     assert funcs["cozo_sweep_topk_counts"] == [ctypes.c_void_p]
+    assert funcs["cozo_sweep_topk_f32"] == ek._SWEEP_F32_ARGTYPES
+    for source in ("sweep_topk.cu", "sweep_topk_f32.cu"):
+        with open(os.path.join(_build.CSRC, source)) as f:
+            src = f.read()
+        for name in ("rows", "cluster", "slots"):
+            sig = re.findall(rf"^int cozo_sweep_topk_{name}\(([^)]*)\)",
+                             src, re.M)
+            assert sig == ["int kind, int d_pad, int kc"], (source, name)
 
 
 def test_the_lanes_piece_is_the_chunk_on_the_cpu():
