@@ -48,8 +48,8 @@ Phases, each reported on its own line; any failure exits non-zero:
      in the last columns at widths 512 and 131,072; the merges' widths 260
      and 970: values and ids bit-equal to the plain version, two runs
      bit-identical.  `sweep_topk` (`sweep_cases`): bf16 and int8 at every
-     row state, piece width, d_pad 16-1,024 and variant; its f32 kind
-     (`SWEEP_F32_CASES`: kc 1-256, d_pad 16-1,024, ragged B, dead columns,
+     row state, piece width, d_pad 16-4,096 and variant; its f32 kind
+     (`SWEEP_F32_CASES`: kc 1-256, d_pad 16-4,096, ragged B, dead columns,
      +-0.0) within 1e-5 of the plain version (cuBLAS's f32 product and the
      plain selection), the cases bit-equal to it counted;
   5. (run before phase 3) drive the Db through CozoScript, the script of
@@ -127,6 +127,22 @@ Phases, each reported on its own line; any failure exits non-zero:
      on the kernel in turns with the two-step route, and phase 4's
      timings of the chunk step at those rows (bf16 kc 26 and 10, int8 kc
      64 and 128, the build's kc 97);
+  3d. 1,536-wide rows: a draw of VectorDBBench's Performance1536D500K
+     shape (OpenAI's text-embedding-ada-002 embeddings of C4: 500,000 x
+     1,536 unit rows, cosine; `glove_like` of that shape, seed 44, made
+     beside phase 2) under the f32 budget through the bf16+rerank,
+     i8+rerank and f32 lanes at B = 4,096, k = 10, on `sweep_topk`'s wide
+     form and its f32 kind's streamed rows (one launch a lane a batch, no
+     two-step call; recall bars 0.999 / 0.998 against `brute_force_knn`
+     on the first 1,024 queries; the f32 lane's ids equal to its two-step
+     route's on the same queries but where the 10th and 11th scores lie
+     within 1e-5), each lane's chunk step at its kc and at kc 116
+     (VectorDBBench's top-100 + 16) timed in turns with the two-step
+     route's products and selections, beside `torch.mm` + `torch.topk` a
+     chunk, the SM clock under the kernel and under the route's product;
+     then phase 4's timings at these rows (bf16 kc 26 / 10, int8 kc 64 /
+     128, the build's kc 97, the f32 kind's kc 10); prints an `openai`
+     line;
   9. (run after phase 4 times the main path's kernels) the device mesh
      (`cozo_tpu_torch/parallel/mesh.py`): a `ShardedSweep` over phase 3's
      index on [cuda:0] and on [cuda:0, cuda:0] at B = 16,384, k = 10
@@ -183,7 +199,8 @@ Phases, each reported on its own line; any failure exits non-zero:
      the two-step route's products and selections, in turns, with the SM
      clock under each), at phase 3b's (timed there, on its
      table) and, after phase 3b, at bf16 kc 26 and int8 kc 128 on a
-     synthetic table of 3b's size 384 wide (`time_wide_384`); the graph kernels at phase 7's, `minhash` at phase
+     synthetic table of 3b's size 384 wide (`time_wide_384`), at phase
+     3d's (timed there); the graph kernels at phase 7's, `minhash` at phase
      8's first backfill chunk, with a chunk's upload and copy back) with
      CUDA events, beside its bound and its plain version, and the fused
      routes and PageRank beside a one-call PyTorch yardstick (for
@@ -200,12 +217,12 @@ Phases, each reported on its own line; any failure exits non-zero:
      engines of phase 10), the card's name and power limit, and as the
      last line {"ok": true, "device": {...}}.
 
-Beside phase 2, three threads of the host (`HostJob`) make phase 3b's
-draw and phase 7's graphs and build phase 11 (f)'s baseline, each mostly
+Beside phase 2, four threads of the host (`HostJob`) make phase 3b's and
+3d's draws and phase 7's graphs and build phase 11 (f)'s baseline, each mostly
 outside the GIL; the phase that takes a job's result prints its seconds
 and those it still waited for.
 
-`--kernels-only` skips phases 3-3c, times the fused main-path route on a
+`--kernels-only` skips phases 3-3d, times the fused main-path route on a
 random table of the main-path shape and `beam_search` (kernel and call) on
 a built index of 262,144 rows: a quick check of the kernels alone, which
 prints no `{"ok": ...}` line.  `--graph-only` runs phases 1, 2 (the graph
@@ -222,7 +239,8 @@ counted) and times `slab_topk` as phase 4 does, and prints none either;
 `--sweep-only` runs phases 1 and 2 (`sweep_topk`) and times `sweep_topk`
 as phase 4 does on a synthetic table of `--n` rows and at phase 3b's
 768-wide shapes on a synthetic table of its size (and two of them 384
-wide), and prints none either; `--f32-only` runs phases 1 and 2's f32
+wide), and at phase 3d's 1,536-wide shapes on a synthetic table of its
+size, and prints none either; `--f32-only` runs phases 1 and 2's f32
 cases of `sweep_topk` and times its f32 kind as phase 4 does on a
 synthetic table of `--n` rows, and prints none either.
 """
@@ -262,6 +280,15 @@ QUANT_N, QUANT_D, QUANT_NQ, QUANT_GT = 2_097_152, 768, 4096, 1024
 # positions, so 64 cut true neighbours (the phase prints both)
 WIDE_I8_RERANK = 128
 I8_BUILD_N = 262_144
+# phase 3d: VectorDBBench's Performance1536D500K shape (OpenAI's
+# text-embedding-ada-002 on C4, 500,000 x 1,536, cosine): a draw of unit
+# rows of that shape (glove_like, seed OPENAI_SEED), 4,096 queries, the
+# ground truth on the first 1,024
+OPENAI_N, OPENAI_D, OPENAI_NQ, OPENAI_GT = 500_000, 1536, 4096, 1024
+OPENAI_SEED = 44
+# VectorDBBench's top-100 plus the lanes' 16 over-fetched: the chunk step
+# phase 3d times beside each lane's own
+TOP100_KC = 116
 
 
 def say(msg):
@@ -1235,7 +1262,7 @@ def topk_read(path, phase, sweep):
     (`install_launch_ledger`), sweep_topk launched where the path runs an
     f32, bf16 or i8 sweep or an f32-table build (`sweep` true) and never
     elsewhere, slab_topk launched on the other paths (their selections and
-    merges), and sweep_topk's two-step route (rows past 1,024, kc past
+    merges), and sweep_topk's two-step route (rows past 4,096, kc past
     256) taken nowhere.  Returns slab_topk's count."""
     from cozo_tpu_torch.ops import exact_knn as ek
 
@@ -1267,17 +1294,22 @@ SWEEP_VARIANTS = ("random", "ties", "dead", "ascending")
 SWEEP_EDGE_KCS = (32, 33, 64, 65, 96, 97, 256)  # each row state's edges
 SWEEP_EDGE_BS = (1, 17, 129, 257)
 # the wide rows (the kernel's wide form past d_pad 128): the narrowest,
-# 144, 256, 384 (the small sentence encoders), phase 3b's 768 and the
-# widest, 1,024; every row state's kc (and the lanes' 10, 26, 64, 97, 128),
-# both kinds, "random" (with rows whose int8 sums pass 2^22), "ties" (+-0.0
-# among them) and "ascending" (rising keys); B = 257 (5 query tiles of 64
-# rows: a pair that ends with a block past the rows), 2 pieces of 8,192
-# rows; then pieces of 256 and 768 rows (1 and 3 groups of the lists of
-# 8's 4 tiles: the second consumer of a block selects nothing, or one
-# group fewer than the first)
-SWEEP_WIDE_DS = (144, 256, 384, 768, 1024)
+# 144, 256, 384 (the small sentence encoders), phase 3b's 768, 1,024,
+# phase 3d's 1,536 (OpenAI's) and the widest, 4,096 (the 7B-LLM
+# embedders); every row state's kc (and the lanes' 10, 26, 64, 97, 128),
+# both kinds, "random" (with rows whose int8 sums pass 2^22, and past
+# d_pad 1,040 2^24), "ties" (+-0.0 among them) and "ascending" (rising
+# keys); B = 257 (5 query tiles of 64 rows: a pair that ends with a block
+# past the rows), 2 pieces of 8,192 rows; then pieces of 256 and 768 rows
+# (1 and 3 groups of the lists of 8's 4 tiles: the second consumer of a
+# block selects nothing, or one group fewer than the first); then 2,048
+# and 3,072 (OpenAI's text-embedding-3-large) at the bf16 lane's kc 26 and
+# at TOP100_KC
+SWEEP_WIDE_DS = (144, 256, 384, 768, 1024, 1536, 4096)
 SWEEP_WIDE_KCS = (10, 26, 64, 97, 128, 256)
 SWEEP_WIDE_VARIANTS = ("random", "ties", "ascending")
+SWEEP_WIDER = tuple((d_pad, kc) for d_pad in (2048, 3072)
+                    for kc in (26, TOP100_KC))
 SWEEP_WIDE_CASES = tuple((kind, 257, 8192, 2, d_pad, kc, variant)
                          for d_pad in SWEEP_WIDE_DS
                          for kc in SWEEP_WIDE_KCS
@@ -1285,15 +1317,17 @@ SWEEP_WIDE_CASES = tuple((kind, 257, 8192, 2, d_pad, kc, variant)
                          for variant in SWEEP_WIDE_VARIANTS) + tuple(
     (kind, 257, piece, 3, d_pad, kc, ("random", "ties")[kc == 26])
     for piece in (256, 768) for d_pad in (384, 768) for kind in SWEEP_KINDS
-    for kc in (10, 26))
+    for kc in (10, 26)) + tuple(
+    (kind, 257, 8192, 2, d_pad, kc, variant) for d_pad, kc in SWEEP_WIDER
+    for kind in SWEEP_KINDS for variant in SWEEP_WIDE_VARIANTS)
 # the f32 kind (`csrc/sweep_topk_f32.cu`): every kc of its row states and
 # the lanes' (1, 10, 26, 64, 97, 128, 256) at d_pad 16, 128 (the lane's),
-# 256, 768 and 1,024 (query rows streamed past 128), B 1, 17, 130 and 257
-# (ragged query tiles), pieces of 256 and 4,096 rows x 1-3, the variants
-# in turn ("ties": +-0.0 and equal keys across piece edges; "dead": fewer
-# live columns than kc)
+# 256, 768, 1,024, 1,536 and 4,096 (query rows streamed past 128), B 1,
+# 17, 130 and 257 (ragged query tiles), pieces of 256 and 4,096 rows x
+# 1-3, the variants in turn ("ties": +-0.0 and equal keys across piece
+# edges; "dead": fewer live columns than kc)
 SWEEP_F32_KCS = (1, 10, 26, 64, 97, 128, 256)
-SWEEP_F32_DS = (16, 128, 256, 768, 1024)
+SWEEP_F32_DS = (16, 128, 256, 768, 1024, 1536, 4096)
 SWEEP_F32_CASES = tuple(
     ("f32", (1, 17, 130, 257)[(i + j) % 4],
      4096 if kc > 256 or (i + j) % 2 else 256, 1 + (i + 2 * j) % 3, d_pad, kc,
@@ -1347,6 +1381,11 @@ def sweep_edge_cases():
     return cases
 
 
+# rows wider than this are drawn on the card: a host draw of 16,384 x
+# 4,096 normals takes a second, and phase 2 has some eighty such cases
+SWEEP_HOST_DRAW_D = 1024
+
+
 def sweep_inputs(kind, B, piece, n_pieces, d_pad, variant, seed, dev):
     """(q, tbl, keyword arguments of `sweep_topk`) of a phase-2 case: unit
     rows zero-padded past d_pad - 4 (as the lanes' 100 -> 128), a few dead
@@ -1356,8 +1395,10 @@ def sweep_inputs(kind, B, piece, n_pieces, d_pad, variant, seed, dev):
     "ascending": keys that rise along the piece (a bias step past the
     scores' range); "random" past d_pad 128 also 8 table rows and 4 queries
     near a constant vector (every other query negated), whose int8 codes
-    are near +-127: sums past 2^22 at d_pad 768.  bf16, f32, or int8 with
-    the lanes' max-abs scales."""
+    are near +-127: sums past 2^22 at d_pad 768, past 2^24 beyond 1,040.
+    The normal draws come from numpy's generator seeded with `seed`, past
+    SWEEP_HOST_DRAW_D from the card's; everything else from numpy's.
+    bf16, f32, or int8 with the lanes' max-abs scales."""
     import torch
 
     from cozo_tpu_torch.utils.device import quantize_i8
@@ -1365,16 +1406,25 @@ def sweep_inputs(kind, B, piece, n_pieces, d_pad, variant, seed, dev):
     rng = np.random.default_rng(seed)
     n = piece * n_pieces
     d = max(1, d_pad - 4)
-    q = np.zeros((B, d_pad), np.float32)
-    t = np.zeros((n, d_pad), np.float32)
-    q[:, :d] = rng.standard_normal((B, d))
-    t[:, :d] = rng.standard_normal((n, d))
+    if d_pad > SWEEP_HOST_DRAW_D:
+        g = torch.Generator(device=dev).manual_seed(seed)
+
+        def normal(rows):
+            return torch.randn((rows, d), generator=g, device=dev)
+    else:
+        def normal(rows):
+            return torch.from_numpy(rng.standard_normal((rows, d)).astype(
+                np.float32)).to(dev)
+    q = torch.zeros((B, d_pad), device=dev)
+    t = torch.zeros((n, d_pad), device=dev)
+    q[:, :d] = normal(B)
+    t[:, :d] = normal(n)
     if variant == "random" and d_pad > 128:
         for m, rows in ((t, 8), (q, min(4, B))):
-            m[:rows, :d] = 1.0 + 0.03 * rng.standard_normal((rows, d))
+            m[:rows, :d] = 1.0 + 0.03 * normal(rows)
         q[1:4:2] *= -1.0
-    q /= np.linalg.norm(q, axis=1, keepdims=True)
-    t /= np.linalg.norm(t, axis=1, keepdims=True)
+    q /= q.norm(dim=1, keepdim=True)
+    t /= t.norm(dim=1, keepdim=True)
     bias = np.zeros(n, np.float32)
     bias[rng.random(n) < 0.02] = -np.inf
     if variant == "ties":
@@ -1382,7 +1432,7 @@ def sweep_inputs(kind, B, piece, n_pieces, d_pad, variant, seed, dev):
             t[p * piece:p * piece + 8] = t[p * piece - 8:p * piece]
             bias[p * piece:p * piece + 8] = bias[p * piece - 8:p * piece]
         zero = rng.choice(n, n // 4, replace=False)
-        t[zero] = 0.0
+        t[torch.from_numpy(zero).to(dev)] = 0.0
         bias[zero] = rng.choice(np.float32([0.0, -0.0]), len(zero))
         q[0] = 0.0
     elif variant == "dead":
@@ -1392,16 +1442,14 @@ def sweep_inputs(kind, B, piece, n_pieces, d_pad, variant, seed, dev):
     elif variant == "ascending":
         t *= 1e-3
         bias = (np.arange(n) % piece).astype(np.float32) * 0.25
-    qt = torch.from_numpy(q).to(dev)
-    tt = torch.from_numpy(t).to(dev)
     bt = torch.from_numpy(bias).to(dev)
     if kind == "bf16":
-        return qt.to(torch.bfloat16), tt.to(torch.bfloat16), {"bias": bt}
+        return q.to(torch.bfloat16), t.to(torch.bfloat16), {"bias": bt}
     if kind == "f32":
-        return qt, tt, {"bias": bt}
-    t_i8, cs = quantize_i8(tt, reciprocal=True)
+        return q, t, {"bias": bt}
+    t_i8, cs = quantize_i8(t, reciprocal=True)
     cs = torch.where(torch.isfinite(bt), cs, torch.zeros_like(cs))
-    q_i8, rs = quantize_i8(qt, reciprocal=True)
+    q_i8, rs = quantize_i8(q, reciprocal=True)
     return q_i8, t_i8, {"bias": bt, "col_scale": cs.contiguous(),
                         "row_scale": rs.contiguous()}
 
@@ -1421,17 +1469,28 @@ def sweep_slab_keys(q, tbl, kw):
     return ek.slab_key(mm_bf16(q, tbl), bias=kw["bias"])
 
 
-def sweep_agreement(got, want, keys):
+# past this d_pad cuBLAS's f32 product may sum in another order than the
+# f32 kind's one chain a score (split K): its ids are then held by the
+# near-tie test alone, the measure phase 3d holds its lane to
+F32_CHAIN_ORDER_D = 1024
+
+
+def sweep_agreement(got, want, keys, order_free=False):
     """The kernel's (values, ids) against the plain version's: for int8
     bit-equality; for bf16 and f32 the values within SWEEP_TOL x max(1,
     |value|)
     at every rank, ids equal on >= SWEEP_ID_SHARE of (row, rank) entries,
     and every other entry a near-tie: the plain key of the kernel's id
-    within that tolerance of the plain value at its rank.  Returns
-    (ok, share of equal ids, max |value error| over finite values)."""
+    within that tolerance of the plain value at its rank.  `order_free`
+    (the f32 kind past F32_CHAIN_ORDER_D): the near-tie test without the
+    share (a B = 1 case has 10-200 entries, and one swap of two keys
+    within 2e-6 of each other, the two orders' sums near 1.0, is 1-4% of
+    them).  Returns (ok, share of equal ids, max |value error| over
+    finite values)."""
     import torch
 
-    ok, share, err = sweep_values_agree(got, want)
+    ok, share, err = sweep_values_agree(got, want, share_bar=(
+        0.0 if order_free else SWEEP_ID_SHARE))
     if got[0].dtype == torch.bfloat16:
         return ok, share, err
     gv, gi = got
@@ -1446,12 +1505,12 @@ def sweep_agreement(got, want, keys):
     return ok, share, err
 
 
-def sweep_values_agree(got, want):
+def sweep_values_agree(got, want, share_bar=SWEEP_ID_SHARE):
     """`sweep_agreement` without the near-tie test (which needs the whole
-    slab): int8 bit-equal; bf16 values within the tolerance at every rank
-    (-inf where the plain version's is) and ids equal on >=
-    SWEEP_ID_SHARE.  (ok, share of equal ids, max |value error| over
-    finite values)."""
+    slab): int8 bit-equal; bf16 and f32 values within the tolerance at
+    every rank (-inf where the plain version's is) and ids equal on >=
+    `share_bar` of entries.  (ok, share of equal ids, max |value error|
+    over finite values)."""
     import torch
 
     share = float((got[1] == want[1]).float().mean())
@@ -1463,7 +1522,7 @@ def sweep_values_agree(got, want):
     same_inf = bool(torch.equal(got[0][~fin], want[0][~fin]))
     err = float(diff[fin].max()) if bool(fin.any()) else 0.0
     return (bool((diff[fin] <= tol[fin]).all()) and same_inf
-            and share >= SWEEP_ID_SHARE), share, err
+            and share >= share_bar), share, err
 
 
 def phase_sweep_vs_plain(dev, cases=None):
@@ -1496,7 +1555,9 @@ def phase_sweep_vs_plain(dev, cases=None):
                     ek.sweep_topk.two_step - before[1]) == (
             (0, 2) if two else (2, 0))
         ok, share, err = sweep_agreement(got, want,
-                                         sweep_slab_keys(q, tbl, kw))
+                                         sweep_slab_keys(q, tbl, kw),
+                                         kind == "f32"
+                                         and d_pad > F32_CHAIN_ORDER_D)
         twice = topk_same(got, again)
         w = worst[kind]
         worst[kind] = (min(w[0], share), max(w[1], err))
@@ -1518,13 +1579,15 @@ def phase_sweep_vs_plain(dev, cases=None):
         f"{list(SWEEP_VARIANTS)}; the edges: kc {SWEEP_EDGE_KCS}, B "
         f"{SWEEP_EDGE_BS}; {len(SWEEP_WIDE_CASES)} at the wide rows: d_pad "
         f"{SWEEP_WIDE_DS}, kc {SWEEP_WIDE_KCS}, B 257, 2 pieces of 8,192, "
-        f"{list(SWEEP_WIDE_VARIANTS)}, and 3 pieces of 256 and 768; "
+        f"{list(SWEEP_WIDE_VARIANTS)}, 3 pieces of 256 and 768, and (d_pad, "
+        f"kc) {list(SWEEP_WIDER)}; "
         f"{len(SWEEP_F32_CASES)} f32: d_pad {SWEEP_F32_DS}, kc "
         f"{SWEEP_F32_KCS}) in {time.time() - t0:.1f}s: int8 values "
         f"and ids bit-equal; bf16 values within {SWEEP_TOL} x max(1, |v|) "
         f"(max err {worst['bf16'][1]:.3g}), ids equal on >= "
         f"{worst['bf16'][0]:.5f} of entries (bar {SWEEP_ID_SHARE}), every "
-        f"other a near-tie; f32 by the same measure (max err "
+        f"other a near-tie; f32 by the same measure, past d_pad "
+        f"{F32_CHAIN_ORDER_D} by the near-tie test alone (max err "
         f"{worst['f32'][1]:.3g}, ids equal on >= {worst['f32'][0]:.5f}), "
         f"{f32_exact} of {len(SWEEP_F32_CASES)} cases bit-equal to cuBLAS's "
         f"product + the plain selection (not: {f32_inexact}); two runs "
@@ -1628,15 +1691,20 @@ def phase_main(index, qs, build_s, reps):
     return launches, {"gt": gt, "raw_recall": lanes["bf16-raw"]["recall@10"]}
 
 
-def f32_truth_vs_two_step(index, qs):
+def f32_truth_vs_two_step(index, qs, phase="phase 3", tie_tol=None):
     """The f32 lane's answer on the card (`exact_knn._sweep`: the f32
     chunk step's one launch, then the merge) against the lane as it ran
     before its kernel on the same prepared queries: each chunk's product
-    (`torch.mm` in f32) and `select_topk`, then the same merge.  Prints the
-    rows whose ids or score bits differ; fails on any such row: the two
-    routes give the same bits, rank for rank (each score one f32 chain
-    over k ascending, the chain stopped at the real width adding only
-    +0.0; PERF.md section 6)."""
+    (`torch.mm` in f32) and `select_topk`, then the same merge (of the top
+    K + 1, for the gap after the K-th).  Prints the rows whose ids or
+    score bits differ.  `tie_tol` None (phase 3): fails on any such row,
+    the two routes giving the same bits, rank for rank (each score one f32
+    chain over k ascending, the chain stopped at the real width adding
+    only +0.0; PERF.md section 6).  Else (phase 3d's 1,536-wide rows,
+    where cuBLAS may sum in another order): fails on a row whose ids
+    differ unless the route's K-th and (K + 1)-th scores lie within
+    `tie_tol`.  Returns (rows differing in ids, in score bits, near-tie
+    rows)."""
     import torch
 
     from cozo_tpu_torch.ops import exact_knn as ek
@@ -1647,26 +1715,37 @@ def f32_truth_vs_two_step(index, qs):
     q = prepare_queries(torch.from_numpy(np.ascontiguousarray(qs, np.float32))
                         .to(st.tbl.device), index.distance, d_pad)
     got = ek._sweep(st.tbl, st.bias, q, K, "f32", d_in=index.dim)
-    bufs = ek._chunk_buffers(q.shape[0], n_chunks, min(K, chunk),
-                             torch.float32, q.device)
-    ek.sweep_two_step(q, st.tbl.reshape(-1, d_pad), chunk, min(K, chunk),
+    kc = min(K + 1, chunk)
+    bufs = ek._chunk_buffers(q.shape[0], n_chunks, kc, torch.float32,
+                             q.device)
+    ek.sweep_two_step(q, st.tbl.reshape(-1, d_pad), chunk, kc,
                       st.bias.reshape(-1), None, None, 0, bufs)
-    bs, bi = ek.merge_chunks(*bufs, K)
-    want = torch.cat([bi.to(torch.int32), bs.view(torch.int32)], dim=1)
+    bs, bi = ek.merge_chunks(*bufs, K + 1)
+    want = torch.cat([bi[:, :K].to(torch.int32),
+                      bs[:, :K].view(torch.int32)], dim=1)
     ids_g, ids_w = got[:, :K], want[:, :K]
-    rows_ids = int((ids_g != ids_w).any(1).sum())
+    row_ids = (ids_g != ids_w).any(1)
+    rows_ids = int(row_ids.sum())
     rows_bits = int((got != want).any(1).sum())
+    near = (bs[:, K - 1] - bs[:, K]).abs() <= (tie_tol or 0.0)
+    rows_near = int(near.sum())
     sets = float(np.mean([set(a) == set(b) for a, b in
                           zip(ids_g.cpu().numpy(), ids_w.cpu().numpy())]))
     err = float((got[:, K:].view(torch.float32)
                  - want[:, K:].view(torch.float32)).abs().max())
-    say(f"phase 3 f32 lane against the two-step route (a chunk's torch.mm "
+    unexplained = rows_bits if tie_tol is None else int(
+        (row_ids & ~near).sum())
+    say(f"{phase} f32 lane against the two-step route (a chunk's torch.mm "
         f"+ slab_topk, then the merge) on the same queries: {rows_bits} of "
         f"{q.shape[0]} rows differ in ids or score bits ({rows_ids} in ids; "
-        f"ids equal as sets on {sets:.5f}; max |score diff| {err:.3g})")
-    if rows_bits:
-        raise SystemExit("phase 3 failed: the f32 lane's kernel and its "
-                         "two-step route disagree")
+        f"ids equal as sets on {sets:.5f}; max |score diff| {err:.3g})"
+        + ("" if tie_tol is None else
+           f"; {rows_near} rows whose {K}th and {K + 1}th scores lie within "
+           f"{tie_tol:g}, {unexplained} rows differing in ids outside them"))
+    if unexplained:
+        raise SystemExit(f"{phase} failed: the f32 lane's kernel and its "
+                         f"two-step route disagree")
+    return rows_ids, rows_bits, rows_near
 
 
 def phase_quant_dispatch(index, qs, gt):
@@ -3608,8 +3687,8 @@ def two_step_split(q, tbl, piece, kc, kw, reps):
         rounds.append((sum(a.elapsed_time(b) for a, b, _ in marks),
                        sum(b.elapsed_time(c) for _, b, c in marks)))
     if not sweep_values_agree(out, ek.sweep_topk(q, tbl, piece, kc, **kw))[0]:
-        raise SystemExit("phase 3b failed: the split two-step route differs "
-                         "from sweep_topk's")
+        raise SystemExit("the split two-step route differs from "
+                         "sweep_topk's")
     return (float(np.median([r[0] for r in rounds[1:]])),
             float(np.median([r[1] for r in rounds[1:]])))
 
@@ -3631,139 +3710,231 @@ def key_ties(q, tbl, piece, kc, kw):
     return float(c.median()), int(c.max())
 
 
-def phase_wide_lanes(data, norms, qs, gt):
-    """Phase 3b's draw under the f32 budget, through the code
-    `HnswIndex.search` runs for a batch of B >= 64 there (`sweep_search` ->
-    `SweepTable.search` -> `sweep_topk`, its wide form at d_pad 768): the
-    bf16+rerank and i8+rerank lanes (the latter at WIDE_I8_RERANK
-    re-ranked; its recall at phase 3's 64 printed beside, with the ties of
-    bf16 keys that cut it), each held to its bar against `brute_force_knn`
-    on the first QUANT_GT queries, its launches gated at what the calls
-    imply (sweep_topk, no two-step call), a batch timed on the host clock,
-    its chunk step timed on the kernel in turns with the two-step route
-    split into product and selection ms; then phase 4's timings of the
-    chunk steps at these rows (`time_wide_sweep`)."""
+# the lanes phases 3b and 3d serve: (compute dtype, re-ranked)
+WIDE_LANES = {"bf16+rerank": ("bf16", None),
+              "i8+rerank": ("i8", WIDE_I8_RERANK),
+              "f32": ("f32", None)}
+
+
+def lane_chunk_step(st, cd, qs, d):
+    """(q, tbl, keyword arguments, d_real) of the chunk step a lane hands
+    `sweep_topk` on sweep table `st` of rows d wide for queries `qs` (on
+    the card): bf16 and int8 queries as `prepare_queries` rounds them, f32
+    exact (its chains stop at d); the flat table of the lane's kind and its
+    vectors."""
+    import torch
+
+    from cozo_tpu_torch.utils.device import prepare_queries
+
+    d_pad = st.d_pad
+    bias = {"bias": st.bias.reshape(-1)}
+    if cd == "f32":
+        return (prepare_queries(qs, "Cosine", d_pad).contiguous(),
+                st.tbl.reshape(-1, d_pad), bias, d)
+    if cd == "i8":
+        _, q8, rs8 = prepare_queries(qs, "Cosine", d_pad, half=True,
+                                     quantize=True, reciprocal=True)
+        return (q8, st.tbl_i8.reshape(-1, d_pad),
+                {**bias, "col_scale": st.scale_i8.reshape(-1),
+                 "row_scale": rs8}, 0)
+    q16 = prepare_queries(qs, "Cosine", d_pad, half=True,
+                          reciprocal=True).to(torch.bfloat16)
+    return q16, st.tbl_bf16, bias, 0
+
+
+def step_in_turns(q, tbl, chunk, kc, kw, d_real, clocks):
+    """One chunk step on the kernel (the piece `sweep_piece` picks), in
+    SWEEP_TURNS turns with the two-step route a chunk at a time split into
+    its products and selections (`two_step_split`), `torch.mm` (or
+    `torch._int_mm`) + `torch.topk` a chunk (`sweep_library`), the bound
+    (the products at their kind's peak) and, with `clocks`, the SM clock
+    and power under the kernel and under one chunk's product of the route
+    (`clock_under`).  Returns its numbers."""
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+    from cozo_tpu_torch.utils.device import int_mm
+
+    B, d_pad = q.shape
+    int8, f32 = q.dtype == torch.int8, q.dtype == torch.float32
+    kind = ek.SWEEP_F32 if f32 else int(int8)
+    n_total = tbl.shape[0]
+    piece = ek.sweep_piece(n_total, chunk, B, d_pad, kc, kind, q.device)
+    real = {"d_real": d_real} if f32 and d_real else {}
+    buf = ek._chunk_buffers(B, n_total // piece, kc,
+                            torch.bfloat16 if int8 else torch.float32,
+                            q.device)
+    kern, split = [], []
+    for _ in range(SWEEP_TURNS):
+        kern.append(cuda_ms(lambda: ek.sweep_topk(q, tbl, piece, kc, out=buf,
+                                                  **kw, **real),
+                            OTHER_LANE_REPS))
+        split.append(two_step_split(q, tbl, chunk, kc, kw, 1))
+    out = {"piece": piece, "pieces": n_total // piece, "kc": kc,
+           "route": ek.sweep_route(d_pad, kc, piece),
+           "kernel_ms": float(np.median(kern)), "kernel_turns": kern,
+           "product_ms": float(np.median([x[0] for x in split])),
+           "selection_ms": float(np.median([x[1] for x in split])),
+           "two_step_turns": split,
+           "library_ms": cuda_ms(lambda: sweep_library(q, tbl, chunk, kc, kw),
+                                 1),
+           "bound_ms": 2.0 * B * n_total * (d_real or d_pad) / (
+               PEAK_INT8 if int8 else PEAK_F32 if f32 else PEAK_BF16) * 1e3}
+    if clocks:
+        out["clock_mhz_power_w"] = clock_under(
+            lambda: ek.sweep_topk(q, tbl, piece, kc, out=buf, **kw, **real))
+        mm = int_mm if int8 else ek._piece_product
+        out["two_step_clock_mhz_power_w"] = clock_under(
+            lambda: mm(q, tbl[:chunk]))
+    del buf
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_line(s):
+    """The printed form of `step_in_turns`'s numbers."""
+    k = s["kernel_ms"]
+    two = s["product_ms"] + s["selection_ms"]
+    return (f"kc {s['kc']} on the kernel ({s['route']} route, "
+            f"{s['pieces']} piece(s)) {k:.3f} ms ({100 * s['bound_ms'] / k:.1f}% "
+            f"of the products' bound {s['bound_ms']:.3f} ms; turns "
+            f"{[round(x, 3) for x in s['kernel_turns']]}), the two-step route "
+            f"in turns with it product {s['product_ms']:.3f} ms + selection "
+            f"{s['selection_ms']:.3f} ms ({two / k:.2f}x the kernel's), "
+            f"torch mm + topk a chunk {s['library_ms']:.3f} ms"
+            + (f", SM clock and power (MHz, W) under the kernel "
+               f"{s['clock_mhz_power_w']}, under a chunk's product "
+               f"{s['two_step_clock_mhz_power_w']}"
+               if "clock_mhz_power_w" in s else ""))
+
+
+def phase_wide_lanes(data, norms, qs, gt, phase, lanes, more_kcs=(),
+                     clocks=False):
+    """A wide draw (`phase`: 3b's 768, 3d's 1,536) under the f32 budget,
+    through the code `HnswIndex.search` runs for a batch of B >= 64 there
+    (`sweep_search` -> `SweepTable.search` -> `sweep_topk`, its wide form
+    and its f32 kind's streamed rows): each of `lanes` (WIDE_LANES:
+    bf16+rerank, i8+rerank at WIDE_I8_RERANK re-ranked, its recall at
+    phase 3's 64 printed beside with the ties of bf16 keys that cut it;
+    f32 exact), the first two held to their bars against
+    `brute_force_knn` on the first len(gt) queries, f32 to its two-step
+    route on the same queries (`f32_truth_vs_two_step`, ids equal but at
+    near-ties), its launches gated at what the calls imply (sweep_topk,
+    the f32 kind apart, no two-step call), a batch timed on the host
+    clock, its chunk step and one at each of `more_kcs` timed on the
+    kernel in turns with the two-step route (`step_in_turns`, the SM
+    clock with `clocks`); then phase 4's timings of the chunk steps at
+    these rows (`time_wide_sweep`, the f32 kind's kc 10 where the f32
+    lane is served).  Returns each lane's numbers."""
     import torch
 
     from cozo_tpu_torch import sweep_search
     from cozo_tpu_torch.models.hnsw_index import f32_table_budget
     from cozo_tpu_torch.ops import exact_knn as ek
-    from cozo_tpu_torch.utils.device import prepare_queries, to_device
+    from cozo_tpu_torch.utils.device import to_device
 
     index = wide_index(data, norms)
-    d_pad = -(-QUANT_D // 128) * 128
-    if QUANT_N * d_pad * 4 > f32_table_budget():
-        raise SystemExit("phase 3b failed: the draw is past the f32 budget, "
-                         "so HnswIndex.search would not take the sweep")
+    n, d = data.shape
+    nq = len(qs)
+    d_pad = -(-d // 128) * 128
+    if n * d_pad * 4 > f32_table_budget():
+        raise SystemExit(f"{phase} failed: the draw is past the f32 budget, "
+                         f"so HnswIndex.search would not take the sweep")
     t0 = time.time()
     sweep_search(index, qs[:64], K)  # the table's refresh, from the host
     torch.cuda.synchronize()
-    say(f"phase 3b sweep table {QUANT_N} x {d_pad} f32 on the device "
-        f"(refresh {time.time() - t0:.1f}s)")
     st = index._sweep_table
+    say(f"{phase} sweep table {n} x {d_pad} f32 on the device, "
+        f"{st.n_chunks} chunks of {st.chunk} (refresh "
+        f"{time.time() - t0:.1f}s)")
     qd = to_device(np.ascontiguousarray(qs), st.device)
-    q16 = prepare_queries(qd, "Cosine", d_pad, half=True,
-                          reciprocal=True).to(torch.bfloat16)
-    _, q8, rs8 = prepare_queries(qd, "Cosine", d_pad, half=True,
-                                 quantize=True, reciprocal=True)
-    del qd
     out = {}
-    for tag, cd, rk in (("bf16+rerank", "bf16", None),
-                        ("i8+rerank", "i8", WIDE_I8_RERANK)):
+    for tag in lanes:
+        cd, rk = WIDE_LANES[tag]
+        f32 = cd == "f32"
+        lane = {"rt": 1.0, "compute_dtype": cd, "exact_rerank": not f32,
+                "rerank_k": rk}
         topk_zero()
-        sweep_search(index, qs, K, compute_dtype=cd, rerank_k=rk)  # warm
+        sweep_search(index, qs, K, **lane)  # warm
         ms = []
         for _ in range(OTHER_LANE_REPS):
             t0 = time.time()
-            ids, dists = sweep_search(index, qs, K, compute_dtype=cd,
-                                      rerank_k=rk)
+            ids, dists = sweep_search(index, qs, K, **lane)
             ms.append(1e3 * (time.time() - t0))
-        path = f"wide {tag} (phase 3b)"
-        slab = topk_read(path, "phase 3b", sweep=True)
+        path = f"wide {tag} ({phase})"
+        slab = topk_read(path, phase, sweep=True)
         two_calls = ek.sweep_topk.two_step  # 0: the gate holds it there
-        r = recall(ids[:QUANT_GT], gt)
-        ok = (ids.shape == (QUANT_NQ, K) and np.isfinite(dists).all()
-              and r >= BARS[tag])
+        r = recall(ids[:len(gt)], gt)
+        ok = (ids.shape == (nq, K) and np.isfinite(dists).all()
+              and (f32 or r >= BARS[tag]))
         # the chunk step as the lane hands it to sweep_topk
-        kf = max(rk or 0, K + 16)  # as `SweepTable.search` widens it
-        if cd == "i8":
-            q, tbl = q8, st.tbl_i8.reshape(-1, d_pad)
-            kw = {"bias": st.bias.reshape(-1), "col_scale":
-                  st.scale_i8.reshape(-1), "row_scale": rs8}
-        else:
-            q, tbl = q16, st.tbl_bf16
-            kw = {"bias": st.bias.reshape(-1)}
-        piece = ek.sweep_piece(tbl.shape[0], st.chunk, QUANT_NQ, d_pad,
-                               min(kf, st.chunk), cd == "i8", q.device)
-        kc = min(kf, piece)
-        route = ek.sweep_route(d_pad, kc, piece)
-        # the kernel's launch and the two-step route's split, in turns
-        buf = ek._chunk_buffers(QUANT_NQ, QUANT_N // piece, kc,
-                                torch.bfloat16 if cd == "i8"
-                                else torch.float32, q.device)
-        kern, split = [], []
-        for _ in range(SWEEP_TURNS):
-            kern.append(cuda_ms(lambda: ek.sweep_topk(q, tbl, piece, kc,
-                                                      out=buf, **kw),
-                                OTHER_LANE_REPS))
-            split.append(two_step_split(q, tbl, st.chunk, kc, kw, 1))
-        del buf
-        kernel_ms = float(np.median(kern))
-        product_ms = float(np.median([x[0] for x in split]))
-        select_ms = float(np.median([x[1] for x in split]))
-        # the least time of the chunk step's products (operations bound)
-        bound_ms = 2.0 * QUANT_NQ * QUANT_N * d_pad / (
-            PEAK_INT8 if cd == "i8" else PEAK_BF16) * 1e3
+        kf = K if f32 else max(rk or 0, K + 16)  # as `SweepTable.search`
+        q, tbl, kw, d_real = lane_chunk_step(st, cd, qd, d)
+        steps = [step_in_turns(q, tbl, st.chunk, min(kc, st.chunk), kw,
+                               d_real, clocks and kc == kf)
+                 for kc in (kf, *more_kcs)]
+        res = {"ms_a_batch": float(np.median(ms)), "per_rep_ms": ms,
+               "recall@10": r, "rerank_k": kf, **steps[0],
+               "more_kcs": steps[1:],
+               "sweep_topk": SWEEP_LAUNCHES[path] + SWEEP_F32_LAUNCHES[path],
+               "slab_topk": slab, "two_step_calls": two_calls}
         if cd == "i8":  # the overfetch phase 3 gives the lane, 64
             ids64, _ = sweep_search(index, qs, K, compute_dtype=cd,
                                     rerank_k=64)
-            r64 = recall(ids64[:QUANT_GT], gt)
+            r64 = recall(ids64[:len(gt)], gt)
             ties = key_ties(q, tbl, st.chunk, 64, kw)
-            say(f"phase 3b lane {tag} with phase 3's 64 re-ranked: recall@10 "
+            res.update(recall_at_64=r64, key_ties_at_64=ties)
+            if r < BARS[tag]:  # the ties at the lane's own overfetch
+                res["key_ties_at_rerank"] = key_ties(q, tbl, st.chunk, kf, kw)
+            say(f"{phase} lane {tag} with phase 3's 64 re-ranked: recall@10 "
                 f"{r64:.5f} (bar {BARS[tag]}); bf16 keys equal to a "
                 f"{st.chunk}-row chunk's 64th key: median {ties[0]:.0f}, max "
                 f"{ties[1]} (ROADMAP.md section 3: the lane re-ranks {rk} "
-                f"here)")
+                f"here)" + (f"; at {kf}: {res['key_ties_at_rerank']}"
+                            if "key_ties_at_rerank" in res else ""))
+        if f32:
+            res["vs_two_step"] = dict(zip(
+                ("rows_ids", "rows_bits", "rows_near_tie"),
+                f32_truth_vs_two_step(index, qs, phase, tie_tol=1e-5)))
         del q, tbl, kw
-        out[tag] = {"ms_a_batch": float(np.median(ms)), "per_rep_ms": ms,
-                    "recall@10": r, "rerank_k": kf, "kernel_ms": kernel_ms,
-                    "kernel_turns": kern, "product_ms": product_ms,
-                    "selection_ms": select_ms, "two_step_turns": split,
-                    "bound_ms": bound_ms, "route": route,
-                    "pieces": QUANT_N // piece, "kc": kc,
-                    "sweep_topk": SWEEP_LAUNCHES[path], "slab_topk": slab,
-                    "two_step_calls": two_calls}
-        if cd == "i8":
-            out[tag].update(recall_at_64=r64, key_ties_at_64=ties)
-        say(f"phase 3b lane {tag} at d_pad {d_pad} ({kf} re-ranked, "
-            f"sweep_topk's {route} route, {QUANT_N // piece} piece(s), kc "
-            f"{kc}): B={QUANT_NQ} median {np.median(ms):.1f} ms a batch "
-            f"({ms}); the chunk step on the kernel {kernel_ms:.2f} ms "
-            f"({100 * bound_ms / kernel_ms:.1f}% of the products' bound "
-            f"{bound_ms:.2f} ms; turns {[round(x, 3) for x in kern]}), on the "
-            f"two-step route in turns with it (chunks of {st.chunk}) product "
-            f"{product_ms:.2f} ms + selection {select_ms:.2f} ms "
-            f"({(product_ms + select_ms) / kernel_ms:.2f}x the kernel's); "
-            f"sweep_topk {SWEEP_LAUNCHES[path]} launches, slab_topk {slab} "
-            f"(the merges), two-step calls {two_calls}; "
-            f"recall@10 {r:.5f} on {QUANT_GT} queries against "
-            f"brute_force_knn (bar {BARS[tag]}) {'ok' if ok else 'FAIL'}")
+        out[tag] = res
+        say(f"{phase} lane {tag} at d_pad {d_pad} ({kf} "
+            f"{'selected' if f32 else 're-ranked'}): B={nq} median "
+            f"{np.median(ms):.1f} ms a batch ({ms}); the chunk step "
+            + "; ".join(step_line(x) for x in steps)
+            + f"; sweep_topk {res['sweep_topk']} launches, slab_topk {slab} "
+            f"(the merges), two-step calls {two_calls}; recall@10 {r:.5f} on "
+            f"{len(gt)} queries against brute_force_knn "
+            f"({'no bar: held to its two-step route' if f32 else f'bar {BARS[tag]}'}) "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit(f"phase 3b failed: lane {tag} at d_pad {d_pad}")
-    time_wide_sweep(st.tbl_bf16, st.tbl_i8.reshape(-1, d_pad),
-                    st.scale_i8.reshape(-1), st.bias.reshape(-1), st.chunk,
-                    q16, q8, rs8)
-    del index, st, q16, q8, rs8
+            raise SystemExit(f"{phase} failed: lane {tag} at d_pad {d_pad}")
+    time_wide_sweep(*lane_inputs(st, qd, d, "f32" in lanes),
+                    tag="" if d_pad == QUANT_D else f" at d_pad {d_pad}")
+    del index, st, qd
     torch.cuda.empty_cache()
     return out
 
 
-def sweep_wide_shapes(tbl16, tbl8, scale8, bias, chunk, q16, q8, rs8):
-    """The chunk steps at phase 3b's 768-wide rows, as `sweep_main_shapes`
-    yields them: [4,096 x 2,097,152] bf16 kc 26 (the bf16 lane + its
-    re-rank) and 10 (raw), int8 kc 64 and WIDE_I8_RERANK (the i8 lane),
-    and the f32-table build's kc 97 for a wave of 8,192 of the table's
-    rows."""
+def lane_inputs(st, qd, d, f32):
+    """`sweep_wide_shapes`'s inputs from a wide sweep table of rows d
+    wide and its queries on the card (`lane_chunk_step`'s; with `f32`,
+    where its f32 lane was served, the f32 table and queries too)."""
+    q16, tbl16, kw, _ = lane_chunk_step(st, "bf16", qd, d)
+    q8, tbl8, kw8, _ = lane_chunk_step(st, "i8", qd, d)
+    q32, tbl32 = (lane_chunk_step(st, "f32", qd, d)[:2] if f32
+                  else (None, None))
+    return (tbl16, tbl8, kw8["col_scale"], kw["bias"], st.chunk, q16, q8,
+            kw8["row_scale"], tbl32, q32)
+
+
+def sweep_wide_shapes(tbl16, tbl8, scale8, bias, chunk, q16, q8, rs8,
+                      tbl32=None, q32=None):
+    """The chunk steps at wide rows (phase 3b's 768, 3d's 1,536), as
+    `sweep_main_shapes` yields them: [4,096 x n_total] bf16 kc 26 (the
+    bf16 lane + its re-rank) and 10 (raw), int8 kc 64 and WIDE_I8_RERANK
+    (the i8 lane), the f32-table build's kc 97 for a wave of 8,192 of the
+    table's rows, and where the f32 table is given the f32 lane's kc 10."""
     i8 = {"bias": bias, "col_scale": scale8, "row_scale": rs8}
     yield "wide bf16 lane", q16, tbl16, chunk, 26, {"bias": bias}
     yield "wide bf16 raw", q16, tbl16, chunk, 10, {"bias": bias}
@@ -3772,44 +3943,51 @@ def sweep_wide_shapes(tbl16, tbl8, scale8, bias, chunk, q16, q8, rs8):
            WIDE_I8_RERANK, i8)
     yield ("wide build step", tbl16[:8192].contiguous(), tbl16, chunk, 97,
            {"bias": bias})
+    if tbl32 is not None:
+        yield "wide f32 lane", q32, tbl32, chunk, 10, {"bias": bias}
 
 
-def synthetic_wide_table(dev, seed=43, d=QUANT_D):
-    """`sweep_wide_shapes`'s inputs at phase 3b's shape, made on the card
-    without an index: QUANT_N random unit rows of d (QUANT_D, phase 3b's
-    768, or 384; bf16, and int8 with their column scales as `quantize_tbl`
-    makes them), all alive, in chunks of 131,072, and QUANT_NQ random unit
-    queries as `prepare_queries` makes them (bf16; int8 with their row
-    scales)."""
+def synthetic_wide_table(dev, seed=43, d=QUANT_D, n=QUANT_N, f32=False):
+    """`sweep_wide_shapes`'s inputs at a wide shape, made on the card
+    without an index: n (QUANT_N, phase 3b's) random unit rows of d
+    (QUANT_D, phase 3b's 768, or 384, or 3d's 1,536; bf16, and int8 with
+    their column scales as `quantize_tbl` makes them; with `f32` the f32
+    table too), all alive, in chunks of 131,072 (the last past n dead),
+    and QUANT_NQ random unit queries as `prepare_queries` makes them
+    (bf16; int8 with their row scales; f32)."""
     import torch
 
-    from cozo_tpu_torch.ops.exact_knn import quantize_tbl
+    from cozo_tpu_torch.ops.exact_knn import _chunking, quantize_tbl
     from cozo_tpu_torch.utils.device import prepare_queries
 
-    chunk = 131_072
+    chunk, n_chunks = _chunking(n)
     g = torch.Generator(device=dev).manual_seed(seed)
-    tbl = torch.nn.functional.normalize(
-        torch.randn((QUANT_N, d), generator=g, device=dev), dim=1)
-    bias = torch.zeros(QUANT_N, device=dev)
+    tbl = torch.zeros((n_chunks * chunk, d), device=dev)
+    tbl[:n] = torch.nn.functional.normalize(
+        torch.randn((n, d), generator=g, device=dev), dim=1)
+    bias = torch.zeros(n_chunks * chunk, device=dev)
+    bias[n:] = -np.inf
     tbl8, scale8 = quantize_tbl(tbl.view(-1, chunk, d),
                                 bias.view(-1, chunk))
     tbl16 = tbl.to(torch.bfloat16)
-    del tbl
     q = torch.nn.functional.normalize(
         torch.randn((QUANT_NQ, d), generator=g, device=dev), dim=1)
     q16 = prepare_queries(q, "Cosine", d, half=True,
                           reciprocal=True).to(torch.bfloat16)
     _, q8, rs8 = prepare_queries(q, "Cosine", d, half=True,
                                  quantize=True, reciprocal=True)
+    f32 = ((tbl, prepare_queries(q, "Cosine", d).contiguous()) if f32
+           else (None, None))
+    del tbl
     return (tbl16, tbl8.reshape(-1, d), scale8.reshape(-1), bias, chunk,
-            q16, q8, rs8)
+            q16, q8, rs8, *f32)
 
 
 def time_wide_sweep(*inputs, lanes=None, tag=""):
-    """Phase 4's timings (`time_sweep_shape`) of the chunk steps at phase
-    3b's wide rows (`sweep_wide_shapes` of `inputs`; `lanes`: only those),
-    the plain version over the whole table in blocks of WIDE_PLAIN_ROWS
-    query rows.  Kept in WIDE_SWEEP_SHAPES under the lane's name + `tag`."""
+    """Phase 4's timings (`time_sweep_shape`) of the chunk steps at wide
+    rows (`sweep_wide_shapes` of `inputs`; `lanes`: only those), the plain
+    version over the whole table in blocks of WIDE_PLAIN_ROWS query rows.
+    Kept in WIDE_SWEEP_SHAPES under the lane's name + `tag`."""
     import torch
 
     for lane, q, tbl, chunk, kc, kw in sweep_wide_shapes(*inputs):
@@ -3837,11 +4015,30 @@ def time_wide_384(dev):
     torch.cuda.empty_cache()
 
 
-def wide_draw():
-    """Phase 3b's draw: glove_like(QUANT_N + QUANT_NQ, QUANT_D, seed 43)."""
+def time_wide_1536(dev):
+    """`time_wide_sweep` of every wide chunk step, the f32 kind's kc 10
+    among them, on a synthetic table of phase 3d's shape: [4,096 x
+    524,288] x 1,536 (OPENAI_N rows in chunks of 131,072)."""
+    import torch
+
+    time_wide_sweep(*synthetic_wide_table(dev, seed=OPENAI_SEED, d=OPENAI_D,
+                                          n=OPENAI_N, f32=True),
+                    tag=f" at d_pad {OPENAI_D}")
+    torch.cuda.empty_cache()
+
+
+def wide_draw(n, d, seed, unit=False):
+    """A wide draw: glove_like(n, d, seed) (phase 3b's: QUANT_N +
+    QUANT_NQ x QUANT_D, seed 43; 3d's: OPENAI_N + OPENAI_NQ x OPENAI_D,
+    OPENAI_SEED, `unit`: each row scaled to norm 1, as OpenAI's
+    embeddings are)."""
     from cozo_tpu_torch.utils.datasets import glove_like
 
-    return glove_like(QUANT_N + QUANT_NQ, QUANT_D, seed=43)
+    data = glove_like(n, d, seed=seed)
+    if unit:
+        for blk in np.array_split(data, 16):
+            blk /= np.linalg.norm(blk, axis=1, keepdims=True)
+    return data
 
 
 def phase_quant_wide(draw=None):
@@ -3855,7 +4052,8 @@ def phase_quant_wide(draw=None):
     from cozo_tpu_torch.ops.quant_knn import QuantSweepTable, quant_search
 
     say(f"quant cut: {QUANT_N:,} rows instead of 10,000,000")
-    data, gen_s, waited_s = host_result(draw, wide_draw)
+    data, gen_s, waited_s = host_result(draw, wide_draw, QUANT_N + QUANT_NQ,
+                                        QUANT_D, 43)
     qs, data = data[QUANT_N:], data[:QUANT_N]
     say(f"phase 3b datagen {QUANT_N} + {QUANT_NQ} x {QUANT_D} in "
         f"{gen_s:.1f}s, {waited_s:.1f}s of it waited for here")
@@ -3874,7 +4072,7 @@ def phase_quant_wide(draw=None):
     topk_read("quant (phase 3b)", "phase 3b", sweep=False)
     scan_s, rerank_s = quant_search.last_timing
     del table
-    norms, gt = wide_truth(data, qs)
+    norms, gt = wide_truth(data, qs, QUANT_GT)
     torch.cuda.empty_cache()
     r = recall(ids[:QUANT_GT], gt)
     ok = (ids.shape == (QUANT_NQ, K) and np.isfinite(dists).all()
@@ -3889,19 +4087,41 @@ def phase_quant_wide(draw=None):
         raise SystemExit("phase 3b failed: quant lane")
     return {"quant": {"qps_median": float(np.median(qps)), "recall@10": r,
                       "scan_s": scan_s, "rerank_s": rerank_s},
-            **phase_wide_lanes(data, norms, qs, gt)}
+            **phase_wide_lanes(data, norms, qs, gt, "phase 3b",
+                               ("bf16+rerank", "i8+rerank"))}
 
 
-def wide_truth(data, qs):
+def phase_openai(draw=None):
+    """Phase 3d: OPENAI_N x OPENAI_D unit rows, cosine (VectorDBBench's
+    Performance1536D500K shape; `draw`: the `HostJob` of `wide_draw`;
+    None: made here) under the f32 budget through the bf16+rerank,
+    i8+rerank and f32 lanes on the chunk step's kernels at d_pad 1,536
+    (`phase_wide_lanes`, each lane's chunk step also at TOP100_KC, the SM
+    clock under each).  Returns the `openai` numbers."""
+    data, gen_s, waited_s = host_result(draw, wide_draw, OPENAI_N + OPENAI_NQ,
+                                        OPENAI_D, OPENAI_SEED, True)
+    qs, data = data[OPENAI_N:], data[:OPENAI_N]
+    say(f"phase 3d datagen {OPENAI_N} + {OPENAI_NQ} x {OPENAI_D} unit rows "
+        f"in {gen_s:.1f}s, {waited_s:.1f}s of it waited for here")
+    t0 = time.time()
+    norms, gt = wide_truth(data, qs, OPENAI_GT)
+    say(f"phase 3d ground truth of {OPENAI_GT} queries (brute_force_knn) in "
+        f"{time.time() - t0:.1f}s")
+    return phase_wide_lanes(data, norms, qs, gt, "phase 3d",
+                            ("bf16+rerank", "i8+rerank", "f32"),
+                            more_kcs=(TOP100_KC,), clocks=True)
+
+
+def wide_truth(data, qs, n_gt):
     """(the rows' squared norms, `brute_force_knn`'s ids of the first
-    QUANT_GT queries) of phase 3b's draw."""
+    n_gt queries) of a wide draw."""
     from cozo_tpu_torch.ops.vector_search import brute_force_knn
 
     norms = np.concatenate([
         np.einsum("nd,nd->n", blk, blk) for blk in np.array_split(data, 16)])
     gt = np.concatenate([
         brute_force_knn(data, norms, qs[b0:b0 + 512], K, "Cosine")[0]
-        for b0 in range(0, QUANT_GT, 512)])
+        for b0 in range(0, n_gt, 512)])
     return norms, gt
 
 
@@ -4624,23 +4844,27 @@ def time_sweep_f32(st, qs, reps):
     }
 
 
-# phase 3b's chunk steps at 768-wide rows, timed as phase 4's
-# (`time_wide_sweep`), added to sweep_topk's entry at the end of the run
+# phase 3b's chunk steps at 768-wide rows and 3d's at 1,536, timed as
+# phase 4's (`time_wide_sweep`), added to sweep_topk's entry (the f32
+# kind's to its own) at the end of the run
 WIDE_SWEEP_SHAPES = {}
 
 
 def finish_topk_entry(kernels):
     """slab_topk's and sweep_topk's entries (its f32 kind's apart) gain the
-    launches counted on each path, sweep_topk's also phase 3b's wide
-    shapes."""
+    launches counted on each path, sweep_topk's and its f32 kind's also
+    the wide shapes of phases 3b and 3d."""
     for entry in kernels:
         by = {"slab_topk": TOPK_LAUNCHES, "sweep_topk": SWEEP_LAUNCHES,
               "sweep_topk[f32]": SWEEP_F32_LAUNCHES}.get(entry["name"])
         if by is not None:
             entry["launches_by_path"].update(by)
             entry["launches"] = sum(entry["launches_by_path"].values())
-        if entry["name"] == "sweep_topk":
-            entry["shapes"].update(WIDE_SWEEP_SHAPES)
+        if entry["name"] in ("sweep_topk", "sweep_topk[f32]"):
+            f32 = entry["name"] == "sweep_topk[f32]"
+            entry["shapes"].update(
+                (k, v) for k, v in WIDE_SWEEP_SHAPES.items()
+                if (v["dtype"] == "torch.float32") == f32)
             entry["max_abs_err"] = max(v["max_abs_err"]
                                        for v in entry["shapes"].values())
 
@@ -5683,8 +5907,8 @@ def sweep_only(args, dev):
     """--sweep-only: the loop for work on the chunk-step kernel: phase 2's
     sweep_topk cases, then phase 4's sweep_topk timings on a synthetic
     table of --n rows (the main path's shape, no index), at phase 3b's
-    768-wide shapes on a synthetic table of its size and at two of them
-    384 wide (`time_wide_384`)."""
+    768-wide shapes on a synthetic table of its size, at two of them 384
+    wide (`time_wide_384`) and at phase 3d's shape (`time_wide_1536`)."""
     import torch
 
     t0 = time.time()
@@ -5697,6 +5921,7 @@ def sweep_only(args, dev):
     torch.cuda.empty_cache()
     time_wide_sweep(*synthetic_wide_table(dev))
     time_wide_384(dev)
+    time_wide_1536(dev)
     finish_topk_entry(kernels)
     say(f"total {time.time() - t0:.1f}s")
     say(json.dumps({"kernels": kernels}))
@@ -5809,7 +6034,10 @@ def main():
         return lsh_only(args)
     jobs = {}
     if not args.kernels_only:  # the host's work of later phases, beside 2
-        jobs = {"wide": HostJob(wide_draw), "graphs": HostJob(scale_graphs),
+        jobs = {"wide": HostJob(wide_draw, QUANT_N + QUANT_NQ, QUANT_D, 43),
+                "openai": HostJob(wide_draw, OPENAI_N + OPENAI_NQ, OPENAI_D,
+                                  OPENAI_SEED, True),
+                "graphs": HostJob(scale_graphs),
                 "baseline": HostJob(baseline_graph, QUALITY_N)}
     phase_kernel_vs_plain(dev)
     phase_topk_vs_plain(dev)
@@ -5871,6 +6099,10 @@ def main():
         lap("phases 3b and 3c")
         time_wide_384(dev)
         lap("phase 4's sweep_topk at d_pad 384")
+        openai = phase_openai(jobs["openai"])
+        openai["card"] = smi_line()
+        say("openai " + json.dumps(openai))
+        lap("phase 3d (1,536-wide rows) and its phase 4 timings")
         (graph_kernels, graph_launches["scale (phase 7)"],
          mesh["graph"]) = phase_graph_scale(dev, args.reps, db_timings,
                                             jobs["graphs"])

@@ -28,7 +28,10 @@
 // instruction meets fall in distinct banks.  The table streams in K-slices
 // of 32 floats of each of a tile's 64 rows (a ring of `stages` slices,
 // `cp.async`); the query rows stay resident where d_pad <= 128 and stream
-// beside the table's slices past it (RB rows x 1,024 floats do not fit).
+// beside the table's slices past it, to MAX_D (RB rows of d_pad floats
+// fill a block's shared memory past a few hundred: 64 KB at 128, 2 MB at
+// 4,096).  A stage is one K-slice whatever d_pad is, so nothing else
+// depends on the width but the slices a tile (n_ks, 128 at MAX_D).
 // A slice of 16 ends a row whose d_pad is an odd multiple of 16: the chain
 // is exactly d_pad long, with no padding term.  Where the caller gives the
 // rows' real width d_real (the columns past it +0.0 in the queries and in
@@ -62,7 +65,9 @@ constexpr int UNROLL = 4;
 constexpr unsigned SMEM_MAX = 232448; // a block's shared memory on sm_90
 constexpr unsigned SMEM_SM = 233472;  // an SM's, 1 KB of it reserved a block
 constexpr int RESIDENT_D = 128;       // query rows resident up to this d_pad
+constexpr int MAX_D = 4096;           // the widest row (d_pad) the entry takes
 static_assert((KS / 4) % UNROLL == 0, "whole slices");
+static_assert(MAX_D % 16 == 0 && RESIDENT_D <= MAX_D, "rows streamed past RESIDENT_D");
 
 // The block of row state MODE: C the selection's configuration (its RB
 // rows), RV fragments a thread, NT threads, MINB blocks an SM (asked of

@@ -329,9 +329,10 @@ __device__ __forceinline__ void write_entry(const Args& a, long long o, u64 cv, 
 // The selection state of one consumer thread (KIND 0: bf16, 1: int8) and
 // its steps: `init` once, then for every tile `pass1` (after which the
 // tile's slot may be freed), `need` and, where it says so, `select`; then
-// `finish`.  WIDE: the int8 sums may pass 2^22 (d_pad > 128), converted to
-// f32 by round-to-nearest; below (d_pad <= 128: |s| <= 128 127^2 < 2^22)
-// by the cheaper magic number, exact there.
+// `finish`.  WIDE: the int8 sums may pass 2^22 (d_pad > 128) and 2^24 (d_pad
+// > 1,040; 4,096 127^2 at the widest), converted to f32 by round-to-nearest
+// even; below (d_pad <= 128: |s| <= 128 127^2 < 2^22) by the cheaper magic
+// number, exact there.
 template <class C, int KIND, bool WIDE = false>
 struct Select {
   static constexpr bool ROUND = KIND == 1;
@@ -428,8 +429,9 @@ struct Select {
 #pragma unroll
           for (int e2 = 0; e2 < 2; ++e2) {
             const int i = 4 * j + 2 * h + e2;
-            // WIDE: `s32.astype(f32)`, exact below 2^24 (d_pad <= 1,040);
-            // else |s| < 2^22: s + 1.5 2^23 is exact in f32, and so is the
+            // WIDE: `s32.astype(f32)`, exact below 2^24 (d_pad <= 1,040),
+            // past it rounded to nearest even as `.float()` rounds; else
+            // |s| < 2^22: s + 1.5 2^23 is exact in f32, and so is the
             // difference
             const float f =
                 WIDE ? __int2float_rn((int)d[i])

@@ -98,8 +98,11 @@
 //   2. The int8 route is bit-equal to `int_mm` + `select_topk_plain`: exact
 //      s32 sums, s32 -> f32 as `.float()` rounds (|s| <= 128 127^2 < 2^22
 //      at d_pad <= 128: the magic-number conversion, exact; the wide
-//      kernel's sums reach 1,024 127^2 > 2^22: `__int2float_rn`, exact
-//      below 2^24), `__fmul_rn` / `__fadd_rn`, `__float2bfloat16_rn`.
+//      kernel's sums reach 4,096 127^2 = 66,064,384 > 2^24:
+//      `__int2float_rn`, exact below 2^24 (d_pad <= 1,040), past it
+//      rounded to nearest even, as `.float()` and the JAX package's
+//      `s32.astype(jnp.float32)` round), `__fmul_rn` / `__fadd_rn`,
+//      `__float2bfloat16_rn`.
 //      The bf16 route's f32 sums follow the tensor core's order, not
 //      cuBLAS's: its callers compare with a tolerance.
 //   3. Rows past B in the last query tile read zeros (TMA fills out of
@@ -476,44 +479,50 @@ sweep_topk_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // ---- the wide rows: 128 < d_pad <= WIDE_MAX_D ------------------------------
 //
-// The same chunk step at rows of up to 2,048 bytes (bf16 d_pad 1,024), where
-// the narrow kernel's design does not fit: its consumers hold the query
-// rows' A fragments in registers (192 a thread at bf16 d_pad 768) and its
-// ring holds whole tiles (96 KB at bf16 d_pad 768).  Here:
+// The same chunk step at rows of up to 8,192 bytes (bf16 d_pad 4,096: the
+// 7B-LLM embedders; 1,536 and 3,072 are OpenAI's), where the narrow
+// kernel's design does not fit: its consumers hold the query rows' A
+// fragments in registers (192 a thread at bf16 d_pad 768) and its ring
+// holds whole tiles (96 KB at bf16 d_pad 768).  Here:
 //   * 64 query rows a block, every row state, and blocks in pairs sharing
 //     each table tile by multicast (each loads 32 rows);
 //   * `wgmma` with A from shared memory (SS form; A from registers, read
 //     once a chunk for two tiles, was slower: PERF.md §6) and the ring's
 //     stages one 128-byte K-chunk of a 64-row tile (8 KB): a tile's
-//     products are kcn = ceil(d_pad bytes / 128) chunks of four k-steps,
-//     for `wide_tiles` tiles at once (a group: 4 with the lists of 8, 2
-//     past), chunk by chunk, into as many accumulator sets.  bf16: the
-//     group's stages of a chunk lie side by side (the stages a multiple of
-//     the group), so each chunk is one product of N = 128 / 256
+//     products are kcn = ceil(d_pad bytes / 128) chunks of four k-steps
+//     (kcn 2-64), for `wide_tiles` tiles at once (a group: 4 with the lists
+//     of 8, 2 past), chunk by chunk, into as many accumulator sets.  bf16:
+//     the group's stages of a chunk lie side by side (the stages a multiple
+//     of the group), so each chunk is one product of N = 128 / 256
 //     (`wide_merge`), one in flight past the one issued; int8: one product
 //     a tile, the tiles in turns (their chains: one kept the tensor cores
 //     at 26-27% of their peak at bf16 d_pad 768, two 39%, four 43%;
 //     splitting a tile's chunks over two sets moved its sums off cuBLAS's
 //     order).  A chunk's stages are freed once a later product is issued
-//     and it is done (the CUTLASS main loop's shape);
-//   * two consumer warpgroups on the block's 64 rows where the query rows
-//     stay resident beside the row state (`wide_two`: the lists always,
-//     the heads where they fit), one where the heads' state streams them.
-//     Consumer c takes the groups c, c + 2, ...: while one selects its
-//     group, the other multiplies the next.  A consumer starts a group's
-//     products only once the other has waited for every chunk of the group
-//     before (`pturn`): the ring is shorter than a group, and a wait on a
-//     stage whose earlier chunk has not landed would pass on the parity of
-//     the round before.  The lists are each consumer's (registers),
-//     merged through the ring at the end; the heads and tails in shared
-//     memory are one state, selected in turns (named barriers 1 and 2),
-//     each consumer reading the other's raised t first (`sync_t`);
+//     and it is done (the CUTLASS main loop's shape).  Nothing here depends
+//     on kcn but the length of a group's sequence (G kcn chunks, 256 at
+//     bf16 4,096 with the lists of 8, 16 times the ring);
+//   * two consumer warpgroups on the block's 64 rows for the lists, and
+//     for the heads where the query rows stay resident beside their state
+//     (`wide_two`), one where the heads' state streams them.  Consumer c
+//     takes the groups c, c + 2, ...: while one selects its group, the
+//     other multiplies the next.  A consumer starts a group's products only
+//     once the other has waited for every chunk of the group before
+//     (`pturn`): the ring is shorter than a group, and a wait on a stage
+//     whose earlier chunk has not landed would pass on the parity of the
+//     round before.  So each consumer waits for the ring's stages in the
+//     sequence's order, however long a group is.  The lists are each
+//     consumer's (registers), merged through the ring at the end; the heads
+//     and tails in shared memory are one state, selected in turns (named
+//     barriers 1 and 2), each consumer reading the other's raised t first
+//     (`sync_t`);
 //   * the query rows resident in shared memory (kcn boxes of 64 x 128 B,
 //     loaded once) where that leaves MIN_WIDE_STAGES stages (and two
 //     products' worth) beside the row state, else streamed: a box with the
 //     first stage of each product, in a ring of their own beside the
-//     table's -- the heads' configurations, whose state is 128-160 KB a
-//     block;
+//     table's (a product's A chunk is freed with its stages) -- the heads'
+//     configurations, whose state is 128-160 KB a block, and past 128 KB
+//     of rows (bf16 past d_pad 1,024, int8 past 2,048) every row state;
 //   * the tiles' bias (and column scales) go through a ring of their own,
 //     `wide_vecs` slots with their own barriers, each freed after its tile's
 //     selection (held in a chunk's stage, they would pin it while the next
@@ -528,10 +537,12 @@ sweep_topk_kernel(const __grid_constant__ CUtensorMap map_q,
 // in turns); L2 misses cost 4-5 ms where the pairs of a piece drift apart.
 // Traffic: the table leaves L2 once a pair of blocks, table x B / 128
 // bytes a launch (103.1 GB at bf16 kc 26 there, 51.5 GB int8, 206.2 GB
-// for the build's 8,192 rows), and where A is streamed, A once a product;
-// the ring alone here streamed 6.8 TB/s out of L2 (15.1 ms of bf16 kc 26's
-// 103.1 GB), `chip_ubench.py`'s pairs 4.6-4.8 TB/s.  Clusters of 4 (a chunk
-// out of L2 once for 256 rows) lost 1.3-2.1x: fewer fit on the card.
+// for the build's 8,192 rows), and where A is streamed, A once a product
+// (a quarter more with the lists of 8, a half more past them, in bf16;
+// as much again as the table in int8); the ring alone here streamed 6.8
+// TB/s out of L2 (15.1 ms of bf16 kc 26's 103.1 GB), `chip_ubench.py`'s
+// pairs 4.6-4.8 TB/s.  Clusters of 4 (a chunk out of L2 once for 256 rows)
+// lost 1.3-2.1x: fewer fit on the card.
 // Shared memory of a block (232,448 bytes; `wide_layout`'s map; a stage 8
 // KB, and 8 KB of A a product where A is streamed; the vectors' ring 1-8
 // KB; A resident at d_pad 768 / 1,024: bf16 96 / 128 KB, int8 48 / 64 KB),
@@ -544,11 +555,17 @@ sweep_topk_kernel(const __grid_constant__ CUtensorMap map_q,
 //     and two streaming consumers lost 1.17x at 768);
 //   * head 256 (160.3 KB): one consumer, A streamed (int8: two, resident, to
 //     d_pad 256).
+// At d_pad 1,536 (and to 4,096) the lists stream A in bf16 (two consumers,
+// 16 / 14 stages); int8 keeps them resident to 2,048 (1,536: 15 / 11
+// stages) and streams past; the heads as at 768 (int8 head 128 one
+// consumer, streamed, past 768).  `wide_fits` holds every configuration to
+// a block's shared memory at every d_pad to WIDE_MAX_D at compile time.
 // What bounds it: operations (bf16 2 B n d_pad at 989 TFLOP/s, int8 at
 // 1,979 TOP/s); beside it the L2 stream above.
-constexpr int WIDE_MAX_D = 1024;
+constexpr int WIDE_MAX_D = 4096;
 constexpr int MIN_WIDE_STAGES = 5;   // with A resident; else A streamed
 constexpr int MAX_WIDE_STAGES = 16;  // 128 KB of chunks: past the L2 latency
+static_assert(WIDE_MAX_D % 16 == 0, "`wide_fits` steps d_pad to WIDE_MAX_D by 16");
 // Tiles whose products a wide block keeps in flight at once, by row state:
 // four with the lists of 8 (their state is in registers already), two past.
 __host__ __device__ constexpr int wide_tiles(int mode) { return mode == LIST8 ? 4 : 2; }
@@ -573,12 +590,12 @@ struct Wide {
 };
 
 template <int KIND, class C>
-Wide wide_layout(int d_pad) {
+constexpr Wide wide_layout(int d_pad) {
   constexpr uint32_t sel_bytes = C::SEL_BYTES;
   constexpr int WIDE_VECS = wide_vecs(C::MODE, C::NC);
   constexpr int MG = wide_merge(KIND, C::MODE);
   constexpr uint32_t VEC = TN * 4 * (KIND == 1 ? 2 : 1);
-  Wide w;
+  Wide w{};
   w.kcn = (d_pad * (KIND == 0 ? 2 : 1) + ROW - 1) / ROW;
   // the selection, the vectors' slots and barriers, q_full, the alignment
   const uint32_t fixed = sel_bytes + 16 + WIDE_VECS * (VEC + 16) + 8 + 1024;
@@ -601,6 +618,46 @@ Wide wide_layout(int d_pad) {
   w.bytes = w.bar + 8 * (1 + 2 * w.stages + 2 * WIDE_VECS + C::NC) + 1024;
   return w;
 }
+
+// Whether the launch takes the layout: two products' stages at least (and
+// three), the two consumers' lists' merge (64 rows of 4 L entries) within
+// the ring, the whole within a block's shared memory.
+template <int KIND, class C>
+constexpr bool wide_ok(const Wide& w) {
+  constexpr int MG = wide_merge(KIND, C::MODE);
+  constexpr int least = 2 * MG > 3 ? 2 * MG : 3;
+  constexpr uint32_t merge_bytes = C::NC > 1 && C::LISTS ? 64u * 4 * C::L * 8 : 0u;
+  return w.stages >= least && (uint32_t)w.stages * T_BOX >= merge_bytes && w.bytes <= SMEM_MAX;
+}
+
+// The wide configuration of (KIND, MODE) at d_pad: two consumers for the
+// lists, and for the heads where the query rows stay resident beside their
+// state; one where the heads' state streams them (two lost there: PERF.md
+// section 6).
+template <int KIND, int MODE>
+constexpr bool wide_two(int d_pad) {
+  return MODE <= LIST16 || !wide_layout<KIND, WideCfg<MODE, 2>>(d_pad).stream;
+}
+
+// Every d_pad of the wide form, 144 to WIDE_MAX_D, takes (KIND, MODE)'s
+// configuration: asserted below for the eight, so that no width the entry
+// accepts is refused at launch for want of shared memory.
+template <int KIND, int MODE>
+constexpr bool wide_fits() {
+  for (int d = 144; d <= WIDE_MAX_D; d += 16) {
+    const bool ok = wide_two<KIND, MODE>(d)
+                        ? wide_ok<KIND, WideCfg<MODE, 2>>(wide_layout<KIND, WideCfg<MODE, 2>>(d))
+                        : wide_ok<KIND, WideCfg<MODE, 1>>(wide_layout<KIND, WideCfg<MODE, 1>>(d));
+    if (!ok) return false;
+  }
+  return true;
+}
+static_assert(wide_fits<0, LIST8>() && wide_fits<0, LIST16>() && wide_fits<0, HEAD128>() &&
+                  wide_fits<0, HEAD256>(),
+              "bf16: every wide configuration to WIDE_MAX_D fits a block");
+static_assert(wide_fits<1, LIST8>() && wide_fits<1, LIST16>() && wide_fits<1, HEAD128>() &&
+                  wide_fits<1, HEAD256>(),
+              "int8: every wide configuration to WIDE_MAX_D fits a block");
 
 #define COZO_REGS64 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
@@ -1139,10 +1196,8 @@ template <int KIND, class C>
 int launch_wide(const void* q, const void* tbl, long long n_total, int d_pad, Args a,
                 cudaStream_t stream) {
   const Wide w = wide_layout<KIND, C>(d_pad);
-  const int least = 2 * wide_merge(KIND, C::MODE) > 3 ? 2 * wide_merge(KIND, C::MODE) : 3;
-  // two consumers' lists meet in the ring at the end: 64 rows of 4 L
-  const uint32_t merge_bytes = C::NC > 1 && C::LISTS ? 64u * 4 * C::L * 8 : 0u;
-  if (w.stages < least || (uint32_t)w.stages * T_BOX < merge_bytes)
+  // a piece's chunks are counted in int (the ring's sequence)
+  if (!wide_ok<KIND, C>(w) || (long long)(a.piece / TN) * w.kcn > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
   a.n_qt = (a.B + C::RB - 1) / C::RB;
   a.n_qt_c = (a.n_qt + C::CLUSTER - 1) / C::CLUSTER * C::CLUSTER;
@@ -1171,15 +1226,6 @@ int slots_wide(int d_pad) {
   int n = 0;
   if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   return e == cudaSuccess ? n * C::CLUSTER : -(int)e;
-}
-
-// The wide configuration of (KIND, MODE) at d_pad: two consumers where the
-// query rows stay resident beside their state (the lists always, the heads
-// where they fit), one where the heads' state streams them (two lost
-// there: PERF.md section 6).
-template <int KIND, int MODE>
-bool wide_two(int d_pad) {
-  return MODE <= LIST16 || !wide_layout<KIND, WideCfg<MODE, 2>>(d_pad).stream;
 }
 
 template <int KIND, int MODE>
@@ -1231,7 +1277,7 @@ extern "C" {
 // (null for bf16).  out_v (f32, or bf16 for int8) and out_i (int64) hold
 // B rows `ldo` apart; piece p writes its kc columns from p kc on, ids =
 // p piece + position + id_off.  Needs B >= 1, d_pad % 16 == 0, d_pad <=
-// 1,024, piece % 256 == 0, n_total % piece == 0, 1 <= kc <= min(256, piece),
+// WIDE_MAX_D (4,096), piece % 256 == 0, n_total % piece == 0, 1 <= kc <= min(256, piece),
 // ldo >= kc n_total / piece.  d_pad <= 128 runs the narrow kernel, wider
 // rows the wide one.  Returns 0 when the kernel was launched, else
 // a cudaError_t (> 0) or a negated CUresult (< 0).

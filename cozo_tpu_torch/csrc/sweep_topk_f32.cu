@@ -78,7 +78,9 @@ int launch(const float* q, const float* tbl, long long n_total, int d_pad, int d
            cudaStream_t stream) {
   typedef F32Cfg<MODE> F;
   const Layout L = layout_of<MODE>(d_pad, d_real);
-  if (L.stages < 2) return (int)cudaErrorInvalidValue;
+  // a piece's steps are counted in int
+  if (L.stages < 2 || (long long)(a.piece / TN) * L.n_ks > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
   a.n_qt = a.n_qt_c = (a.B + F::RB - 1) / F::RB;
   const long long blocks = (n_total / a.piece) * (long long)a.n_qt;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
@@ -121,14 +123,14 @@ extern "C" {
 // from p kc on, ids = p piece + position + id_off.  d_real (0: d_pad): the
 // rows' real width, every column past it +0.0 in q and in tbl; the chains
 // stop there (`sweep_f32.cuh`: the same bits).  Needs B >= 1, d_pad % 16 ==
-// 0, d_pad <= 1,024, 0 <= d_real <= d_pad, piece % 256 == 0, n_total %
+// 0, d_pad <= MAX_D (4,096), 0 <= d_real <= d_pad, piece % 256 == 0, n_total %
 // piece == 0, 1 <= kc <= min(256, piece), ldo >= kc n_total / piece.
 // Returns 0 when the kernel was launched, else a cudaError_t.  Allocates
 // nothing, does not synchronise.
 int cozo_sweep_topk_f32(const void* q, const void* tbl, int B, long long n_total, int d_pad,
                         int d_real, int piece, int kc, const void* bias, void* out_v,
                         void* out_i, long long ldo, long long id_off, void* stream) {
-  if (B < 1 || d_pad < 16 || d_pad % 16 || d_pad > 1024 || d_real < 0 || d_real > d_pad ||
+  if (B < 1 || d_pad < 16 || d_pad % 16 || d_pad > MAX_D || d_real < 0 || d_real > d_pad ||
       piece < PIECE_ALIGN ||
       piece % PIECE_ALIGN || n_total < piece || n_total % piece || kc < 1 || kc > MAX_KC ||
       kc > piece || ldo < (long long)kc * (n_total / piece) || !bias || !aligned16(q) ||

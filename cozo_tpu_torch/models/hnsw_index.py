@@ -42,11 +42,14 @@ DIST_COSINE = "Cosine"
 #     a row (448 at m = 16 with 5 upper levels) on up to twice
 #     the rows: as large as the rows themselves at d_pad = 128
 #   one batch's score slab at B = 16,384: [B, 131,072] f32 is
-#     8 GiB.  The f32, bf16 and i8 lanes write none (their chunk
-#     steps select inside `ops/exact_knn.sweep_topk`'s kernels);
-#     its two-step route (d_pad > 1,024 or kc > 256) writes one
-#     a chunk, which `select_topk` biases (and rescales) as it
-#     reads it: kept for that route                            8 GiB
+#     16,384 x 131,072 x 4 B = 8 GiB.  The f32, bf16 and i8
+#     lanes write none (their chunk steps select inside
+#     `ops/exact_knn.sweep_topk`'s kernels, to d_pad 4,096);
+#     its two-step route (d_pad > 4,096, or kc > 256: a k or a
+#     re-rank past 256 at any width) writes one a chunk, which
+#     `select_topk` biases (and rescales) as it reads it.  The
+#     slab's size does not depend on d_pad, and kc > 256 still
+#     reaches the route at every width: kept for that route     8 GiB
 #   headroom: the products' library workspace, the allocator's
 #     cache and fragmentation, the merge and re-rank buffers   20 GiB
 # 5.5 T + 28 GiB <= 79.6 GiB gives T <= 9.3 GiB: the JAX package's 8 GiB

@@ -263,7 +263,8 @@ def _topk_run(lib, x, kf, col_scale, row_scale, bias, bf16, offset, out,
 
 # -- the chunk step: csrc/sweep_topk.cu ---------------------------------------
 
-SWEEP_MAX_D = 1024    # the kernel's widest row (d_pad; past 128 its wide form)
+SWEEP_MAX_D = 4096    # the kernels' widest row (d_pad; past 128 the wide form
+                      # of csrc/sweep_topk.cu, the f32 kind's streamed rows)
 SWEEP_MAX_KC = 256    # its largest kc
 SWEEP_PIECE = 256     # a piece is a multiple of this many table rows
 SWEEP_FILL = 0.9      # `sweep_piece`: the share of the SMs' waves enough
@@ -333,7 +334,8 @@ def sweep_piece(n_total: int, chunk: int, B: int, d_pad: int, kc: int,
     rows in chunks of `chunk`: the top kf of the whole table is the top kf
     of any pieces' top kf, so the piece is free.  On the CPU, and on the
     card's two-step route (whose slab is a piece wide), the chunk.  On the
-    kernel's route, where fewer and wider pieces mean fewer selections
+    kernel's route (d_pad to SWEEP_MAX_D, kc to SWEEP_MAX_KC), where fewer
+    and wider pieces mean fewer selections
     and a tighter threshold, the widest piece (n_total / d for d dividing
     n_total / SWEEP_PIECE, at least `chunk` / 8 rows) whose blocks fill
     the card's slots to SWEEP_FILL of their waves, or the one that fills
@@ -501,9 +503,12 @@ def sweep_topk(q: torch.Tensor, tbl: torch.Tensor, piece: int, kc: int,
     int8 `csrc/sweep_topk.cu` (rows past 128 wide in its wide form: query
     rows in shared memory, the table's 128-byte K-chunks through its
     ring), f32 `csrc/sweep_topk_f32.cu` (FFMA on register fragments, the
-    table's K-slices through a `cp.async` ring); "two_step" (d_pad >
-    1,024, kc > 256 or a piece that is not a multiple of 256) runs each
-    piece's product and `select_topk` (counted in `sweep_topk.two_step`).
+    table's K-slices through a `cp.async` ring), each to d_pad 4,096
+    (OpenAI's 1,536 and 3,072, the 7B-LLM embedders' 4,096); "two_step"
+    (d_pad > 4,096, kc > 256 or a piece that is not a multiple of 256)
+    runs each piece's product and `select_topk` (counted in
+    `sweep_topk.two_step`).  A launch the kernel refuses raises; nothing
+    falls back to the two-step route.
     CPU tensors run `sweep_topk_plain`."""
     _check_sweep(q, tbl, piece, kc, bias, col_scale, row_scale, out)
     if not 0 <= d_real <= q.shape[1]:

@@ -34,7 +34,10 @@ and rows repeated across tiles), "zeros" (+-0.0: zero rows with a +-0.0
 bias, the first query zero), "dead" (3 live columns a piece: fewer than
 kc), "rising" (keys that rise along the piece: every tile of the order
 beats the threshold), and in the wide configuration "big" (sums past
-2^22); two pieces of 512 columns, 70 or 130 query rows (a
+2^22), "big1536" and "big4096" (the sums of 1,536- and 4,096-wide rows,
+past 2^24, where the int8 route's conversion rounds: the harness has no
+products and no ring, so a row's width reaches the selection only as the
+size of its sums); two pieces of 512 columns, 70 or 130 query rows (a
 ragged last tile of rows), an id offset.
 
 Tolerance: none.  Values and ids must be bit-equal to
@@ -180,6 +183,9 @@ KCS = {0: (1, 10, 26, 32), 1: (33, 64), 2: (65, 97, 128), 3: (256,)}
 KINDS = ("bf16", "int8")
 VARIANTS = ("random", "ties", "zeros", "dead", "rising")
 PIECE, N_PIECES, D, ID_OFF = 512, 2, 16, 1000
+# the wide variants of rows near +-127 and their widths: sums up to 768
+# 127^2 (past 2^22), 1,536 and 4,096 127^2 (past 2^24)
+BIG_WIDTHS = {"big1536": 1536, "big4096": 4096}
 COMPILE_TIMEOUT_S = 600
 
 
@@ -187,11 +193,16 @@ def cases(mode, wide=False):
     """(kind, kc, variant, B) of a row state: every kc, kind and variant,
     B 70 and 130 in turn; for the wide kernel's configuration also "big"
     (768-wide rows of integers near +-127: sums past 2^22, where the int8
-    route's conversion to f32 must round as `.float()` does)."""
+    route's conversion to f32 must round as `.float()` does), then every
+    kc and kind at "big1536" and "big4096" (sums past 2^24)."""
     out = []
     for kc in KCS[mode]:
         for kind in KINDS:
             for variant in VARIANTS + (("big",) if wide else ()):
+                out.append((kind, kc, variant, (70, 130)[len(out) % 2]))
+    for variant in BIG_WIDTHS if wide else ():
+        for kc in KCS[mode]:
+            for kind in KINDS:
                 out.append((kind, kc, variant, (70, 130)[len(out) % 2]))
     return out
 
@@ -256,9 +267,12 @@ def inputs(kind, B, variant, seed):
     n = PIECE * N_PIECES
     q = rng.integers(-3, 4, (B, D))
     t = rng.integers(-3, 4, (n, D))
-    if variant == "big":  # |sums| up to 768 127^2 = 12,387,072 > 2^22
-        q = rng.integers(100, 128, (B, 768)) * rng.choice([-1, 1], (B, 1))
-        t = rng.integers(100, 128, (n, 768)) * rng.choice([-1, 1], (n, 1))
+    if variant == "big" or variant in BIG_WIDTHS:
+        # |sums| up to w 127^2: 12,387,072 > 2^22 at 768, 66,064,384 > 2^24
+        # at 4,096
+        w = BIG_WIDTHS.get(variant, 768)
+        q = rng.integers(100, 128, (B, w)) * rng.choice([-1, 1], (B, 1))
+        t = rng.integers(100, 128, (n, w)) * rng.choice([-1, 1], (n, 1))
     bias = -rng.integers(0, 9, n).astype(np.float32) * 0.25
     bias[rng.random(n) < 0.02] = -np.inf
     cs = rng.integers(1, 4, n).astype(np.float32) * 0.25
@@ -280,7 +294,9 @@ def inputs(kind, B, variant, seed):
         bias = (np.arange(n) % PIECE).astype(np.float32) * 0.25
     if kind == "int8":
         cs[~np.isfinite(bias)] = 0.0
-    prod = q @ t.T
+    # in f64 through BLAS: every sum (< 2^27) exact
+    prod = np.rint(q.astype(np.float64) @ t.T.astype(np.float64)).astype(
+        np.int64)
     return (torch.from_numpy(prod.astype(np.float32 if kind == "bf16"
                                          else np.int32)),
             torch.from_numpy(bias), torch.from_numpy(cs),
@@ -400,8 +416,11 @@ void shape_of(int d_pad, int* out) {
 '''
 
 # d_pad: a slice of 16 alone, 32 + 16, the lane's 128 (rows resident), 144
-# (rows streamed, a last slice of 16), 256 (streamed, whole slices)
+# (rows streamed, a last slice of 16), 256 (streamed, whole slices); then
+# the widest: 1,536 (OpenAI's) and 4,096 (the kernel's widest), each with
+# the chain over d_pad and stopped at the real width
 F32_DS = (16, 48, 128, 144, 256)
+F32_WIDE_DS = (1536, 4096)
 F32_VARIANTS = ("random", "ties", "zeros", "dead", "rising")
 
 
@@ -428,7 +447,9 @@ def f32_cases(mode):
     """(kc, variant, d_pad, B, d_real) of a row state: every kc and
     variant, d_pad and B (70, 130: a ragged last query tile) in turn, the
     real width (the inputs' d_pad - 4 nonzero columns) given to every
-    other case (0: the chain over d_pad)."""
+    other case (0: the chain over d_pad); then at each of F32_WIDE_DS the
+    chain over d_pad and stopped at the real width, the row state's kc
+    and the variants in turn."""
     out = []
     for kc in KCS[mode]:
         for variant in F32_VARIANTS:
@@ -436,6 +457,11 @@ def f32_cases(mode):
             d_pad = F32_DS[i % len(F32_DS)]
             out.append((kc, variant, d_pad, (70, 130)[i % 2],
                         (0, d_pad - 4)[(i // len(F32_DS)) % 2]))
+    for j, (d_pad, d_real) in enumerate((d, r) for d in F32_WIDE_DS
+                                        for r in (0, d - 4)):
+        out.append((KCS[mode][j % len(KCS[mode])],
+                    F32_VARIANTS[j % len(F32_VARIANTS)], d_pad,
+                    (70, 130)[j % 2], d_real))
     return out
 
 

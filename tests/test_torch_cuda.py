@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (BEAM_CASES, GRAPH_LP_LABELS, GRAPH_LP_WIDTHS,
+from chip_smoke import (BEAM_CASES, F32_CHAIN_ORDER_D, GRAPH_LP_LABELS,
+                        GRAPH_LP_WIDTHS,
                         GRAPH_PR_CASES, GRAPH_SSSP_CASES, MINHASH_CASES,
                         PR_L1_TOL, SSSP_FORCED_SHARES, graph_csr,
                         lp_inputs, minhash_inputs, minhash_tensors,
@@ -755,6 +756,78 @@ def test_wide_sweep_lanes_take_the_kernel_route(cuda, cd):
                                np.sort(got["cpu"][1], 1), atol=1e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", ["bf16", "i8", "f32"])
+def test_1536_wide_lanes_take_the_kernel_route(cuda, cd):
+    """At d = 1,536 (OpenAI's embeddings: the wide form streams its query
+    rows, the f32 kind its K-slices) `sweep_search`'s bf16, i8 and f32
+    lanes launch `sweep_topk` once (the f32 kind's counted apart; no call
+    on its two-step route) and give the CPU's answers."""
+    rng = np.random.default_rng(9)
+    data = rng.standard_normal((5000, 1536)).astype(np.float32)
+    qs = rng.standard_normal((64, 1536)).astype(np.float32)
+    norms = np.einsum("nd,nd->n", data, data)
+    lane = {"bf16": {}, "i8": {"rerank_k": 64},
+            "f32": {"rt": 1.0, "exact_rerank": False}}[cd]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        before = (ek.sweep_topk.launches, ek.sweep_topk.f32_launches,
+                  ek.sweep_topk.two_step)
+        got[dev] = sweep_search(wide_index(data, norms, dev), qs, 10,
+                                compute_dtype=cd, **lane)
+        if dev == "cuda":
+            assert (ek.sweep_topk.launches, ek.sweep_topk.f32_launches,
+                    ek.sweep_topk.two_step) == (
+                before[0] + 1, before[1] + (cd == "f32"), before[2])
+    assert np.mean(got["cpu"][0] == got["cuda"][0]) > 0.99
+    np.testing.assert_allclose(np.sort(got["cuda"][1], 1),
+                               np.sort(got["cpu"][1], 1), atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+def test_sweep_topk_raises_where_it_cannot_launch_wide(cuda, kind):
+    """No fallback at the new widths: at d_pad 1,536 queries one element
+    off a 16-byte boundary (contiguous, so the wrapper's checks pass) make
+    the kernel's entry refuse, and the wrapper raises; nothing is counted
+    on either route."""
+    q, tbl, kw = sweep_inputs(kind, 4, 256, 1, 1536, "random", 3, cuda)
+    off = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:]
+    off = off.view(q.shape)
+    off.copy_(q)
+    before = (ek.sweep_topk.launches, ek.sweep_topk.two_step)
+    with pytest.raises(RuntimeError):
+        ek.sweep_topk(off, tbl, 256, 10, **kw)
+    assert (ek.sweep_topk.launches, ek.sweep_topk.two_step) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,kc,kind", [(4_096, 26, 0), (4_096, 10, 0),
+                                       (4_096, 64, 1), (4_096, 128, 1),
+                                       (8_192, 97, 0), (4_096, 116, 0),
+                                       (4_096, 116, 1), (4_096, 10, 2),
+                                       (4_096, 116, 2)])
+def test_the_1536_lanes_piece_fills_the_slots(cuda, B, kc, kind):
+    """Phase 3d's chunk steps (500,000 rows in 4 chunks of 131,072, d_pad
+    1,536; bf16, int8 and f32 kinds, at the lanes' kc and at 116):
+    `sweep_piece` cuts pieces of the kernel's route that divide the table,
+    at least a chunk / 8 wide, whose blocks fill SWEEP_FILL of the slots'
+    waves."""
+    lib = ek._sweep_f32_lib() if kind == ek.SWEEP_F32 else ek._sweep_lib()
+    slots = lib.cozo_sweep_topk_slots(kind, 1536, kc)
+    rows = lib.cozo_sweep_topk_rows(kind, 1536, kc)
+    cluster = lib.cozo_sweep_topk_cluster(kind, 1536, kc)
+    assert slots >= cluster >= 1
+    n_total, chunk = 4 * 131_072, 131_072
+    piece = ek.sweep_piece(n_total, chunk, B, 1536, kc, kind, cuda)
+    assert ek.sweep_route(1536, kc, piece) == "kernel"
+    assert piece % ek.SWEEP_PIECE == 0 and n_total % piece == 0
+    assert piece >= chunk // 8
+    n_qt = -(-(-(-B // rows)) // cluster) * cluster
+    blocks = n_qt * (n_total // piece)
+    assert blocks / (slots * -(-blocks // slots)) >= ek.SWEEP_FILL
+
+
 SWEEP_CASES = [c for c in sweep_cases() if c[2] <= 8192]
 
 
@@ -764,8 +837,9 @@ SWEEP_CASES = [c for c in sweep_cases() if c[2] <= 8192]
 def test_sweep_topk_matches_plain(cuda, i):
     """Every case of `chip_smoke.py` phase 2 with pieces up to 8,192 rows,
     by its measure (`sweep_agreement`: int8 bit-equal; bf16 values within
-    1e-5 x max(1, |v|), ids equal on >= 99.9%, every other a near-tie), two
-    runs identical, one launch each."""
+    1e-5 x max(1, |v|), ids equal on >= 99.9%, every other a near-tie; f32
+    the same, past d_pad 1,024 by the near-tie test alone), two runs
+    identical, one launch each."""
     kind, B, W, n_p, d_pad, kc, variant = SWEEP_CASES[i]
     q, tbl, kw = sweep_inputs(kind, B, W, n_p, d_pad, variant, i, cuda)
     before = ek.sweep_topk.launches
@@ -774,17 +848,19 @@ def test_sweep_topk_matches_plain(cuda, i):
     assert ek.sweep_topk.launches == before + 2
     ok, share, err = sweep_agreement(got, ek.sweep_topk_plain(q, tbl, W, kc,
                                                               **kw),
-                                     sweep_slab_keys(q, tbl, kw))
+                                     sweep_slab_keys(q, tbl, kw),
+                                     kind == "f32"
+                                     and d_pad > F32_CHAIN_ORDER_D)
     assert ok, (share, err)
     assert topk_same(got, again)
 
 
 @pytest.mark.cuda
 def test_sweep_topk_takes_the_two_step_route_past_its_shapes(cuda):
-    """d_pad 1,040 (past the wide form's 1,024), kc 300 and pieces of 128
+    """d_pad 4,112 (past the kernels' 4,096), kc 300 and pieces of 128
     rows take the product and `slab_topk`, counted apart, with the plain
     version's answer; the kernel is not launched."""
-    for d_pad, kc, piece in ((1040, 26, 512), (128, 300, 512),
+    for d_pad, kc, piece in ((4112, 26, 512), (128, 300, 512),
                              (128, 26, 128)):
         q, tbl, kw = sweep_inputs("bf16", 5, 512, 2, d_pad, "random", 1, cuda)
         before = (ek.sweep_topk.launches, ek.sweep_topk.two_step)
@@ -805,18 +881,18 @@ def test_sweep_topk_takes_the_two_step_route_past_its_shapes(cuda):
 def test_the_lanes_piece_divides_the_table(cuda, n_chunks, chunk, B, kc, int8):
     """`sweep_piece` on the card: a multiple of 256 rows that divides the
     table, at least a chunk / 8 wide, and the widest of those that fill
-    the SMs as well; at d_pad 384 and 768 (the wide form: 64 query rows a
-    block, two consumer warpgroups, blocks in pairs) from the library's
-    rows, cluster and slots of that configuration."""
+    the SMs as well; at d_pad 384, 768, 1,536 and 4,096 (the wide form: 64
+    query rows a block, blocks in pairs) from the library's rows, cluster
+    and slots of that configuration."""
     n_total = n_chunks * chunk
     piece = ek.sweep_piece(n_total, chunk, B, 128, kc, int8, cuda)
     assert piece % ek.SWEEP_PIECE == 0 and n_total % piece == 0
     assert piece >= min(n_total, max(chunk // 8, ek.SWEEP_PIECE))
     # the two-step route keeps the chunk: its slab is a piece wide
-    assert ek.sweep_piece(n_total, chunk, B, 1040, kc, int8, cuda) == chunk
+    assert ek.sweep_piece(n_total, chunk, B, 4112, kc, int8, cuda) == chunk
     lib = ek._sweep_lib()
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for d_pad in (384, 768):
+    for d_pad in (384, 768, 1536, 4096):
         assert lib.cozo_sweep_topk_rows(int(int8), d_pad, kc) == 64
         assert lib.cozo_sweep_topk_cluster(int(int8), d_pad, kc) == 2
         slots = lib.cozo_sweep_topk_slots(int(int8), d_pad, kc)
@@ -858,7 +934,7 @@ def test_sweep_topk_block_shape_and_slots(cuda, kc, int8):
     cluster's worth, at most the SMs."""
     lib = ek._sweep_lib()
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for d_pad in (16, 128, 256, 768, 1024):
+    for d_pad in (16, 128, 256, 768, 1024, 1536, 2048, 3072, 4096):
         rows = lib.cozo_sweep_topk_rows(int(int8), d_pad, kc)
         assert rows == (64 if d_pad > 128 or kc > 64 else 128)
         cluster = lib.cozo_sweep_topk_cluster(int(int8), d_pad, kc)
@@ -930,7 +1006,7 @@ def test_sweep_topk_f32_block_shape_and_slots(cuda, kc):
     lane's table and fill the slots."""
     lib = ek._sweep_f32_lib()
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for d_pad in (16, 128, 256, 768, 1024):
+    for d_pad in (16, 128, 256, 768, 1024, 1536, 4096):
         assert lib.cozo_sweep_topk_rows(ek.SWEEP_F32, d_pad, kc) == (
             128 if kc <= 64 else 64)
         assert lib.cozo_sweep_topk_cluster(ek.SWEEP_F32, d_pad, kc) == 1

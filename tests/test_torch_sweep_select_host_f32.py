@@ -9,8 +9,8 @@ plain copies where the card has `cp.async`).  Row states "lists of 8" (kc
 the heads are `test_torch_sweep_select_host_f32_heads.py`.
 
 Inputs of small integers, so every f32 sum is exact in any order, at
-d_pad 16, 48, 128 (query rows resident), 144 and 256 (streamed), B 70 and
-130, two pieces of 512 rows, every variant (ties, +-0.0, dead columns,
+d_pad 16, 48, 128 (query rows resident), 144, 256, 1,536 and 4,096
+(streamed), B 70 and 130, two pieces of 512 rows, every variant (ties, +-0.0, dead columns,
 rising keys), the chains over d_pad or stopped at the real width.  Tolerance: none; values and ids bit-equal to
 `exact_knn.sweep_topk_plain`.  What this cannot show: `cp.async`'s timing,
 races only real warps hit, the card's rounding of chains whose sums are
@@ -38,14 +38,20 @@ def lib16(tmp_path_factory):
 def test_the_blocks_are_the_ones_the_source_describes(lib8, lib16):
     """(threads, rows, fragments a thread, stages, resident): 128 rows a
     block for the lists, two fragments a thread for the lists of 8 and one
-    for the lists of 16; the query rows resident to d_pad 128."""
+    for the lists of 16; the query rows resident to d_pad 128, streamed
+    past it to the widest, 4,096, with the same ring."""
     assert host.f32_shape(lib8, 128) == (128, 128, 2, 4, 1)
     assert host.f32_shape(lib8, 144)[2:] == (2, 4, 0)
+    assert host.f32_shape(lib8, 4096)[2:] == (2, 4, 0)
     assert host.f32_shape(lib16, 1024)[:3] == (256, 128, 1)
-    # both widths of the last K-slice, and chains stopped short, are cases
+    assert host.f32_shape(lib16, 4096)[2:] == (1, 4, 0)
+    # both widths of the last K-slice, chains stopped short, and 1,536 and
+    # 4,096 over d_pad and stopped short, are cases
     cases = host.f32_cases(LISTS8)
     assert {d % 32 for _, _, d, _, _ in cases} == {0, 16}
     assert {r > 0 for *_, r in cases} == {False, True}
+    assert {(d, r > 0) for _, _, d, _, r in cases if d > 1024} == {
+        (1536, False), (1536, True), (4096, False), (4096, True)}
 
 
 @pytest.mark.parametrize("i", range(len(host.f32_cases(LISTS8))),

@@ -25,11 +25,13 @@ def lib256(tmp_path_factory):
 
 
 def test_the_heads_blocks_fit(lib128, lib256):
-    """64 rows, 128 threads; at the widest rows the ring still has room for
-    at least two stages beside the heads and tails."""
+    """64 rows, 128 threads; at the widest rows (1,024, and the kernel's
+    widest, 4,096) the ring still has room for at least two stages beside
+    the heads and tails."""
     for lib in (lib128, lib256):
         assert host.f32_shape(lib, 128)[:3] == (128, 64, 1)
         assert host.f32_shape(lib, 1024)[3] >= 2
+        assert host.f32_shape(lib, 4096)[3] >= 2
 
 
 @pytest.mark.parametrize("i", range(len(host.f32_cases(HEAD128))),

@@ -22,7 +22,9 @@ plain version.
   re-rank), the build step on integer rows exactly (ids, distance bits
   and selection mask); each at d_pad 128 and at 768 (the kernel's wide
   form on the card), the i8 lane there with rows whose int8 sums pass
-  2^22.
+  2^22; and the bf16, f32 and i8 lanes at 1,536-wide rows (OpenAI's; the
+  kernels run to 4,096) for L2, IP and Cosine, raw and re-ranked, 2
+  chunks of 512 rows and 33 queries, the i8 lane's int8 sums past 2^24.
 * The f32 kind: the plain version merged is one selection of the slab
   (above, small integers: no tolerance), is the old two-step lane
   bit for bit, and `_sweep`'s f32 lane through the wrapper matches
@@ -142,19 +144,20 @@ def test_the_wrapper_on_cpu_tensors_is_the_plain_version():
 
 
 def test_route_by_shape_is_the_docstring_s():
-    """"kernel" for d_pad <= 1,024, kc <= 256 and a piece that is a
+    """"kernel" for d_pad <= 4,096, kc <= 256 and a piece that is a
     multiple of 256, else "two_step": a function of (d_pad, kc, piece)
     alone, and the docstrings name the bounds."""
-    for d_pad in (16, 64, 112, 128, 144, 256, 768, 1024, 1040, 2048):
+    for d_pad in (16, 64, 112, 128, 144, 256, 768, 1024, 1040, 1536, 2048,
+                  3072, 4096, 4112, 8192):
         for kc in (1, 26, 97, 256, 257, 1000):
             for piece in (128, 256, 384, 512, 131_072):
-                want = "kernel" if (d_pad <= 1024 and kc <= 256
+                want = "kernel" if (d_pad <= 4096 and kc <= 256
                                     and piece % 256 == 0) else "two_step"
                 assert ek.sweep_route(d_pad, kc, piece) == want
-    assert (ek.SWEEP_MAX_D, ek.SWEEP_MAX_KC, ek.SWEEP_PIECE) == (1024, 256,
+    assert (ek.SWEEP_MAX_D, ek.SWEEP_MAX_KC, ek.SWEEP_PIECE) == (4096, 256,
                                                                 256)
     doc = " ".join(ek.sweep_topk.__doc__.split())
-    assert ("d_pad > 1,024, kc > 256 or a piece that is not a multiple of "
+    assert ("d_pad > 4,096, kc > 256 or a piece that is not a multiple of "
             "256") in doc
     doc = " ".join(ek.sweep_route.__doc__.split())
     assert ("d_pad <= SWEEP_MAX_D, kc <= SWEEP_MAX_KC and a piece that is a "
@@ -287,27 +290,33 @@ def _bf16_lanes_match_jax(counted, rerank_k, table, d_pad, d):
                                atol=1e-5)
 
 
-def _f32_table(seed, metric, variant, d_pad=D_PAD, d=D, n_live=None):
-    """(table [N_CHUNKS, CHUNK, d_pad], bias, queries [96, d_pad]) in the
+def _f32_table(seed, metric, variant, d_pad=D_PAD, d=D, n_live=None,
+               n_chunks=N_CHUNKS, nq=96, flat_rows=0):
+    """(table [n_chunks, CHUNK, d_pad], bias, queries [nq, d_pad]) in the
     sweep table's form for `metric` (`SweepTable._prep_rows`: L2 rows 2 v
     with bias -||v||^2, IP rows as they are, Cosine unit rows), the rows
     past n_live dead and zero (a ragged last chunk), 40 dead rows among
-    the live.  "random": normal rows; "ints": small integers (every f32
-    sum exact in any order), each chunk's last 8 rows repeated at the next
-    chunk's start, a quarter of the rows zero with a +-0.0 bias (IP) and
-    a zero query (equal keys across chunk edges, +-0.0)."""
+    the live.  "random": normal rows, the first `flat_rows` rows and
+    queries near a constant vector (as `_table`'s: int8 codes near +-127);
+    "ints": small integers (every f32 sum exact in any order), each
+    chunk's last 8 rows repeated at the next chunk's start, a quarter of
+    the rows zero with a +-0.0 bias (IP) and a zero query (equal keys
+    across chunk edges, +-0.0)."""
     rng = np.random.default_rng(seed)
-    n = N_CHUNKS * CHUNK
+    n = n_chunks * CHUNK
     n_live = n if n_live is None else n_live
     if variant == "ints":
         v = rng.integers(-3, 4, (n, d)).astype(np.float32)
-        q = rng.integers(-3, 4, (96, d)).astype(np.float32)
-        for c in range(1, N_CHUNKS):
+        q = rng.integers(-3, 4, (nq, d)).astype(np.float32)
+        for c in range(1, n_chunks):
             v[c * CHUNK:c * CHUNK + 8] = v[c * CHUNK - 8:c * CHUNK]
         q[0] = 0.0
     else:
         v = rng.standard_normal((n, d)).astype(np.float32)
-        q = rng.standard_normal((96, d)).astype(np.float32)
+        q = rng.standard_normal((nq, d)).astype(np.float32)
+        for m in (v, q):
+            m[:flat_rows] = 1.0 + 0.03 * rng.standard_normal((flat_rows, d))
+        q[1:flat_rows:2] *= -1.0
     bias = np.zeros(n, np.float32)
     if variant == "ints":
         zero = rng.choice(n, n // 4, replace=False)
@@ -320,15 +329,16 @@ def _f32_table(seed, metric, variant, d_pad=D_PAD, d=D, n_live=None):
     elif metric == "L2":
         bias = bias - np.einsum("nd,nd->n", v, v)
         v = 2.0 * v
-    bias[rng.choice(n_live, 40, replace=False)] = -np.inf
+    bias[flat_rows + rng.choice(n_live - flat_rows, 40, replace=False)] = \
+        -np.inf
     bias[n_live:] = -np.inf
     v[n_live:] = 0.0
     tbl = np.zeros((n, d_pad), np.float32)
     tbl[:, :d] = v
-    qp = np.zeros((96, d_pad), np.float32)
+    qp = np.zeros((nq, d_pad), np.float32)
     qp[:, :d] = q
-    return (tbl.reshape(N_CHUNKS, CHUNK, d_pad),
-            bias.astype(np.float32).reshape(N_CHUNKS, CHUNK), qp)
+    return (tbl.reshape(n_chunks, CHUNK, d_pad),
+            bias.astype(np.float32).reshape(n_chunks, CHUNK), qp)
 
 
 @pytest.mark.parametrize("metric", ["L2", "IP", "Cosine"])
@@ -392,6 +402,107 @@ def test_sweep_f32_lane_matches_jax_at_768(counted):
                                atol=1e-5)
 
 
+# ---- 1,536-wide rows (OpenAI's embeddings; the kernels' widest run to 4,096)
+
+N_WIDE, B_WIDE, D_WIDE = 2, 33, 1536
+
+
+def _wide_table(metric, seed, variant="random"):
+    """`_f32_table` at 1,536-wide rows: 2 chunks of 512 rows, 33 queries,
+    the first 8 rows and queries near a constant vector ("random": int8
+    sums past 2^24, where the s32 -> f32 conversion rounds)."""
+    return _f32_table(seed, metric, variant, d_pad=D_WIDE, d=D_WIDE,
+                      n_chunks=N_WIDE, nq=B_WIDE,
+                      flat_rows=8 if variant == "random" else 0)
+
+
+def _same_sets_close_scores(got, want):
+    """The parity tests' measure for lanes whose sums may take another
+    order: the same ids as sets on >= 99.9% of rows, sorted scores within
+    1e-5."""
+    (ids_t, s_t), (ids_j, s_j) = _unpack(got), _unpack(want)
+    same = np.mean([set(ids_t[b]) == set(ids_j[b])
+                    for b in range(len(ids_t))])
+    assert same >= 0.999, same
+    np.testing.assert_allclose(np.sort(s_t, 1), np.sort(s_j, 1), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["L2", "IP", "Cosine"])
+@pytest.mark.parametrize("rerank_k", [0, 26])
+def test_sweep_bf16_lanes_match_jax_at_1536(counted, metric, rerank_k):
+    """Raw bf16 and bf16 + re-rank at 1,536-wide rows (the wide form
+    streaming its query rows on the card), each metric in the sweep
+    table's form, against `_sweep_fn` on the same inputs."""
+    import jax.numpy as jnp
+
+    k = 10
+    tbl, bias, qp = _wide_table(metric, 31 + rerank_k)
+    got = ek._sweep(torch.from_numpy(tbl), torch.from_numpy(bias),
+                    torch.from_numpy(qp), k, "bf16", rerank_k=rerank_k,
+                    metric=metric).numpy()
+    assert counted == [max(k, rerank_k)]
+    want = np.asarray(_sweep_fn(N_WIDE, CHUNK, D_WIDE, k, 1.0, "bf16",
+                                rerank_k, metric)(
+        jnp.asarray(tbl), jnp.asarray(bias), jnp.asarray(qp)))
+    _same_sets_close_scores(got, want)
+
+
+@pytest.mark.parametrize("metric", ["L2", "IP", "Cosine"])
+@pytest.mark.parametrize("variant", ["random", "ints"])
+@pytest.mark.parametrize("rerank_k", [0, 26])
+def test_sweep_f32_lane_matches_jax_at_1536(counted, metric, variant,
+                                            rerank_k):
+    """The f32 lane at 1,536-wide rows with its real width (`d_in`, which
+    stops the card's chains there) against `_sweep_fn(...,
+    compute_dtype="f32", rt=1.0)`: on small integers in L2's and IP's
+    form (exact sums; Cosine's unit rows are not) ids and score bits
+    equal rank for rank where nothing is re-ranked; else the same ids as
+    sets (but the k-th score's ties on integers) and scores within 1e-5,
+    as `test_sweep_f32_lane_matches_jax` holds the lane at d_pad 128."""
+    import jax.numpy as jnp
+
+    k = 10
+    tbl, bias, qp = _wide_table(metric, 41 + rerank_k, variant)
+    got = ek._sweep(torch.from_numpy(tbl), torch.from_numpy(bias),
+                    torch.from_numpy(qp), k, "f32", rerank_k=rerank_k,
+                    metric=metric, d_in=D_WIDE).numpy()
+    assert counted == [max(k, rerank_k)]
+    want = np.asarray(_sweep_fn(N_WIDE, CHUNK, D_WIDE, k, 1.0, "f32",
+                                rerank_k, metric)(
+        jnp.asarray(tbl), jnp.asarray(bias), jnp.asarray(qp)))
+    if variant == "ints" and rerank_k == 0 and metric != "Cosine":
+        (ids_t, s_t), (ids_j, s_j) = _unpack(got), _unpack(want)
+        assert np.array_equal(ids_t, ids_j)
+        assert np.array_equal(s_t.view(np.int32), s_j.view(np.int32))
+        return
+    if variant == "ints":  # any of the k-th score's ties may be kept
+        (ids_t, s_t), (ids_j, s_j) = _unpack(got), _unpack(want)
+        ids_t = [i[s > s.min()] for i, s in zip(ids_t, s_t)]
+        ids_j = [i[s > s.min()] for i, s in zip(ids_j, s_j)]
+        assert all(set(a) == set(b) for a, b in zip(ids_t, ids_j))
+        np.testing.assert_allclose(np.sort(s_t, 1), np.sort(s_j, 1),
+                                   rtol=1e-5, atol=1e-5)
+        return
+    _same_sets_close_scores(got, want)
+
+
+@pytest.mark.parametrize("metric", ["L2", "IP", "Cosine"])
+def test_sweep_i8_matches_jax_at_1536(counted, metric):
+    """The i8 lane at 1,536-wide rows in each metric's sweep form, with
+    rows and queries near a constant vector: int8 products past 2^24,
+    where the s32 -> f32 conversion rounds (to nearest even, as
+    `.astype(float32)`: planted; checked), against `_sweep_fn_i8`; ids
+    rank for rank after the re-rank, as `test_sweep_i8_matches_jax`."""
+    tbl, bias, qp = _wide_table(metric, 51)
+    tbl_i8, _ = ek.quantize_tbl(torch.from_numpy(tbl), torch.from_numpy(bias))
+    big = int_mm(tbl_i8.reshape(-1, D_WIDE)[:8], tbl_i8.reshape(-1, D_WIDE)[:8])
+    assert int(big.abs().max()) > 1 << 24
+    assert bool((big.float().to(torch.int64) != big.to(torch.int64)).any())
+    _i8_matches_jax(counted, (tbl, bias, qp), D_WIDE, D_WIDE, metric=metric,
+                    n_chunks=N_WIDE)
+
+
 def test_sweep_f32_plain_is_the_old_two_step_lane():
     """`sweep_topk_plain` on f32 inputs is what the f32 lane computed before
     it had a kernel: a chunk's `qs @ tbl[c].T`, then `select_topk_plain`
@@ -426,7 +537,8 @@ def test_sweep_i8_matches_jax_at_768(counted):
     _i8_matches_jax(counted, table, 768, 768)
 
 
-def _i8_matches_jax(counted, table, d_pad, d):
+def _i8_matches_jax(counted, table, d_pad, d, metric="Cosine",
+                    n_chunks=N_CHUNKS):
     import jax.numpy as jnp
 
     tbl, bias, q = table
@@ -435,13 +547,13 @@ def _i8_matches_jax(counted, table, d_pad, d):
     tbl_i8, scale = ek.quantize_tbl(tt, bt)
     q16 = q.astype(np.float16)
     prepared = prepare_queries(torch.from_numpy(q16.astype(np.float32)),
-                               "Cosine", d_pad, half=True, quantize=True,
+                               metric, d_pad, half=True, quantize=True,
                                reciprocal=True)
     got = ek._sweep_i8(tbl_i8, scale, bt, tt, *prepared, k, rerank_k,
-                       "Cosine").numpy()
+                       metric).numpy()
     assert counted == [rerank_k]
-    want = np.asarray(_sweep_fn_i8(N_CHUNKS, CHUNK, d_pad, k, 0.99, rerank_k,
-                                   "Cosine", d)(
+    want = np.asarray(_sweep_fn_i8(n_chunks, CHUNK, d_pad, k, 0.99, rerank_k,
+                                   metric, d)(
         jnp.asarray(tbl_i8.numpy()), jnp.asarray(scale.numpy()),
         jnp.asarray(bias), jnp.asarray(tbl), jnp.asarray(q16)))
     (ids_t, s_t), (ids_j, s_j) = _unpack(got), _unpack(want)
