@@ -8,7 +8,10 @@
     python3 chip_graph_vs.py --kernel sweep_topk --other .archive/other \
         [--diag .archive/copy ...] [--counters] \
         [--wide [--d 768 --d 384] [--all-modes]]
+    python3 chip_graph_vs.py --kernel sweep_topk --f32 --other .archive/other \
+        [--diag .archive/f32-products --diag .archive/f32-ring]
     python3 chip_graph_vs.py --make-wide-copies .archive/pr18
+    python3 chip_graph_vs.py --make-f32-copies .
 
 Builds the kernel's source (`cozo_tpu_torch/csrc/graph_labelprop.cu`,
 `graph_pagerank.cu`, `slab_topk.cu` or `sweep_topk.cu`) of both checkouts with this
@@ -67,6 +70,22 @@ of blocks: table x query tiles / cluster).  `--d 384` runs the wide
 shapes on a table of that width (phase 4's second wide table); `--d 768
 --d 384` both, one after the other; `--all-modes` adds the row states the
 lanes do not reach there (bf16 kc 64, int8 kc 26, kc 256 of both kinds).
+
+`--kernel sweep_topk --f32` times the f32 kind instead
+(`sweep_topk_f32.cu`, whose C entry point `cozo_sweep_topk_f32` has kept
+its arguments since it was written) at its four timed shapes
+(`f32_shapes`: the f32 lane's [16,384 x 1,310,720] x 128, real width
+100, kc 10 and 26, and phase 3d's [4,096 x 524,288] x 1,536 kc 10 and
+116), every build, this checkout's too, built with this checkout's
+flags; each build's answer (the top kc over its pieces, ids and score
+bits) is held equal to this build's, and this build's to the two-step
+route's (cuBLAS's f32 product + `slab_topk` a chunk) at the lane's shape;
+each line gives both builds' ms in turns, their share of the bound (the
+chains stopped at the real width at 67 TFLOP/s) and the two-step route's
+ms.  `--make-f32-copies BASE` writes the f32 kind's diagnostic copies of
+BASE (`F32_COPIES`: `products` the ring and the products with no
+hand-off and no selection, `ring` the ring alone, `noload` all but the
+loads) under `.archive/f32-NAME/`, to be timed with `--diag`.
 
 `--make-wide-copies BASE` needs no card: it writes the diagnostic copies
 of BASE's wide form (`WIDE_COPIES`, for the source at commit 6100156: the
@@ -133,16 +152,66 @@ WIDE_COPIES = {
             "C::NCONS == 1 && C::CLUSTER == 4")),
 }
 
+# The diagnostic copies of the f32 kind (`--make-f32-copies`), replacements
+# in this checkout's `sweep_f32.cuh` (and its includers' files, copied
+# as they are): `products` the ring and the products (each tile's sums
+# kept alive, no hand-off, no selection: the selecting warpgroup only
+# feeds the ring), `ring` the ring alone (the consumers wait for each
+# stage and free it), `noload` everything but the loads (each stage's
+# barrier completed with no bytes: the loop's own rate on stale data).
+_F32_NO_HANDOFF = ("sweep_f32.cuh",
+                   "      const int sl = g % slots;\n",
+                   "      const int sl = g % slots;\n"
+                   "      if (g >= 0) {  // diagnostic: the sums kept, no hand-off\n"
+                   "        float z = 0.f;\n"
+                   "        for (int r = 0; r < 8; ++r)\n"
+                   "          for (int c = 0; c < MC; ++c) z += acc[r][c];\n"
+                   "        if (z == 1.2345e-30f) staging[tid] = z;\n"
+                   "        continue;\n"
+                   "      }\n")
+_F32_NO_SELECT = ("sweep_f32.cuh",
+                  "    for (int e = 0; e < n_tiles; ++e) {\n",
+                  "    if (producer)  // diagnostic: no selection, the ring fed to its end\n"
+                  "      while (p_step < n_steps) {\n"
+                  "        feed();\n"
+                  "        Dev::idle();\n"
+                  "      }\n"
+                  "    for (int e = 0; e < 0; ++e) {\n")
+_F32_NO_PRODUCTS = ("sweep_f32.cuh",
+                    "    int kk = 0;\n",
+                    "    int kk = kl;  // diagnostic: no products\n")
+_F32_NO_LOADS = (("sweep_f32.cuh",
+                  "        Dev::expect(full(p_st), L.stage_bytes);\n"
+                  "        Dev::load(dst, mt, full(p_st), p_s * KS, "
+                  "(int)(col_base + (long long)p_tile * F::TC));\n"
+                  "        if (!L.resident) Dev::load(dst + L.t_box, mq, full(p_st), "
+                  "p_s * KS, qt * RB);\n",
+                  "        (void)dst;  // diagnostic: no loads\n"
+                  "        Dev::arrive(full(p_st));\n"),
+                 ("sweep_f32.cuh",
+                  "        Dev::expect(q_full, (unsigned)L.n_ks * L.q_box);\n"
+                  "        for (int s = 0; s < L.n_ks; ++s)\n"
+                  "          Dev::load(smem + L.q + s * L.q_box, mq, q_full, s * KS, qt * RB);\n",
+                  "        Dev::arrive(q_full);  // diagnostic: no loads\n"))
+F32_COPIES = {
+    "products": (_F32_NO_HANDOFF, _F32_NO_SELECT),
+    "ring": (_F32_NO_PRODUCTS, _F32_NO_HANDOFF, _F32_NO_SELECT),
+    "noload": _F32_NO_LOADS,
+}
+F32_FILES = ("sweep_topk_f32.cu", "sweep_f32.cuh", "sweep_select.cuh",
+             "hopper.cuh")
 
-def make_copies(base, copies, prefix, out_root=".archive"):
+
+def make_copies(base, copies, prefix, out_root=".archive",
+                files=("sweep_topk.cu", "sweep_select.cuh")):
     """Writes each of `copies` under `out_root/PREFIX-NAME/`: BASE's
-    `sweep_topk.cu` and `sweep_select.cuh` with the copy's lines
-    replaced.  Returns the copies' roots."""
+    `files` (of `cozo_tpu_torch/csrc/`) with the copy's lines replaced.
+    Returns the copies' roots."""
     src = os.path.join(base, "cozo_tpu_torch", "csrc")
     roots = []
     for name, edits in copies.items():
         text = {}
-        for f in ("sweep_topk.cu", "sweep_select.cuh"):
+        for f in files:
             with open(os.path.join(src, f)) as fh:
                 text[f] = fh.read()
         for f, old, new in edits:
@@ -585,6 +654,134 @@ def compare_sweep(libs, counting, reps, dev, unchecked=(), wide=False, d=None,
         torch.cuda.empty_cache()
 
 
+def f32_shapes(dev, widths=None):
+    """The f32 kind's four timed chunk steps, as (name, q, tbl, bias,
+    chunk, kc, d_real): [16,384 x 1,310,720] x 128, real width 100, kc 10
+    (the f32 lane's) and 26 on phase 4's synthetic table
+    (`chip_smoke.f32_main_inputs`), then [4,096 x 524,288] x 1,536 kc 10
+    and 116 (VectorDBBench's top-100 + 16) on phase 3d's
+    (`chip_smoke.synthetic_wide_table` at OpenAI's shape); `widths`: only
+    the tables of these widths (128, 1,536)."""
+    import torch
+
+    if not widths or 128 in widths:
+        st, qs = cs.synthetic_sweep_table(cs.N, dev)
+        q, tbl, bias = cs.f32_main_inputs(st, qs)
+        for kc in (10, 26):
+            yield f"f32 lane kc {kc}", q, tbl, bias, st.tbl.shape[1], kc, cs.D
+        del st, q, tbl, bias
+        torch.cuda.empty_cache()
+    if not widths or cs.OPENAI_D in widths:
+        wide = cs.synthetic_wide_table(dev, seed=cs.OPENAI_SEED,
+                                       d=cs.OPENAI_D, n=cs.OPENAI_N, f32=True)
+        bias, chunk, tbl, q = wide[3], wide[4], wide[8], wide[9]
+        del wide
+        torch.cuda.empty_cache()
+        for kc in (10, 116):
+            yield f"wide f32 kc {kc}", q, tbl, bias, chunk, kc, 0
+
+
+def f32_launch(lib, q, tbl, piece, kc, bias, d_real, out):
+    """One launch of `lib`'s f32 chunk step on the current stream."""
+    import torch
+
+    from cozo_tpu_torch.ops import _build
+
+    B, d_pad = q.shape
+    err = lib.cozo_sweep_topk_f32(
+        q.data_ptr(), tbl.data_ptr(), B, tbl.shape[0], d_pad, d_real, piece,
+        kc, bias.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        out[0].stride(0), 0, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "sweep_topk_f32 launch")
+    return out
+
+
+def f32_top(out, kc):
+    """The top kc of a launch's per-piece columns (`merge_chunks`), as
+    one int32 tensor [B, 2 kc]: ids, then the score bits."""
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    v, i = ek.merge_chunks(*out, kc)
+    return torch.cat([i.to(torch.int32), v.view(torch.int32)], dim=1)
+
+
+def compare_sweep_f32(libs, reps, dev, unchecked=(), widths=None):
+    """The f32 kind of each build at `f32_shapes`, each at the piece
+    `exact_knn.sweep_piece` gives it from its own launch configuration,
+    in turns (other, this, this, other), beside the two-step route (a
+    chunk's cuBLAS product in f32 + `slab_topk`, `sweep_two_step`) and the
+    bound (the chains stopped at the real width at 67 TFLOP/s).  Each
+    build's answer (the top kc over the pieces: ids and score bits) is
+    held equal to this build's (not the builds named in `unchecked`),
+    and this build's to the two-step route's at the f32 lane's shape (kc
+    10 at 128); elsewhere the rows that differ from the route are
+    printed."""
+    import numpy as np
+    import torch
+
+    from cozo_tpu_torch.ops import exact_knn as ek
+
+    for lane, q, tbl, bias, chunk, kc, d_real in f32_shapes(dev, widths):
+        B, d_pad = q.shape
+        n_total = tbl.shape[0]
+        runs, pieces, tops = {}, {}, {}
+        for name, lib in libs.items():
+            piece = ek.sweep_piece(n_total, chunk, B, d_pad, kc, ek.SWEEP_F32,
+                                   dev, lib=lib)
+            out = ek._chunk_buffers(B, n_total // piece, kc, torch.float32,
+                                    dev)
+            runs[name] = (lambda lib=lib, piece=piece, out=out: f32_launch(
+                lib, q, tbl, piece, kc, bias, d_real, out))
+            pieces[name] = piece
+            if name not in unchecked:
+                tops[name] = f32_top(runs[name](), kc)
+        route = ek._chunk_buffers(B, n_total // chunk, kc, torch.float32, dev)
+        ek.sweep_two_step(q, tbl, chunk, kc, bias, None, None, 0, route)
+        want = f32_top(route, kc)
+        torch.cuda.synchronize()
+        mine = tops["this"]
+        differ = int((mine != want).any(1).sum())
+        cs.say(f"sweep_topk[f32] {lane}: this build's answer against the "
+               f"two-step route: {differ} of {B} rows differ in ids or score "
+               f"bits")
+        if differ and lane == "f32 lane kc 10":
+            raise SystemExit(f"this build disagrees with the two-step route "
+                             f"at the f32 lane's shape ({differ} rows)")
+        for name, top in tops.items():
+            if not torch.equal(top, mine):
+                raise SystemExit(f"{name} disagrees with this build: {lane} "
+                                 f"({int((top != mine).any(1).sum())} rows)")
+        del tops, want, mine
+        route_ms = cs.cuda_ms(lambda: ek.sweep_two_step(
+            q, tbl, chunk, kc, bias, None, None, 0, route), 1)
+        del route
+        torch.cuda.empty_cache()
+        bound = 2.0 * B * n_total * (d_real or d_pad) / cs.PEAK_F32 * 1e3
+        for name in runs:
+            if name == "this":
+                continue
+            ms = {name: [], "this": []}
+            for turn in (name, "this", "this", name):
+                ms[turn].append(cs.cuda_ms(runs[turn], reps))
+            other, this = (float(np.mean(v)) for v in (ms[name], ms["this"]))
+            held = ("not held" if name in unchecked
+                    else "both bit-equal to this build's answer")
+            cs.say(f"sweep_topk[f32] {lane} [{B} x {n_total}] x {d_pad}"
+                   f"{f' (real width {d_real})' if d_real else ''} kc {kc}: "
+                   f"{name} {other:.3f} ms at piece {pieces[name]} "
+                   f"({[round(x, 3) for x in ms[name]]}; "
+                   f"{100 * bound / other:.1f}% of the bound), this "
+                   f"{this:.3f} ms at piece {pieces['this']} "
+                   f"({[round(x, 3) for x in ms['this']]}; "
+                   f"{100 * bound / this:.1f}%), {other / this:.3f}x; the "
+                   f"bound {bound:.3f} ms, the two-step route {route_ms:.3f} "
+                   f"ms ({route_ms / this:.3f}x this); {held}")
+        del runs
+        torch.cuda.empty_cache()
+
+
 def compare_lanes(libs, cache_key, n_real, ended, dev, reps, where):
     import torch
 
@@ -634,13 +831,20 @@ def main():
                          "of the main path's")
     ap.add_argument("--d", type=int, action="append", default=None,
                     help="sweep_topk --wide: the table's width (default "
-                         "768); repeat for several, in one process")
+                         "768); repeat for several, in one process; "
+                         "--f32: only the shapes of this width (128, 1536)")
     ap.add_argument("--all-modes", action="store_true",
                     help="sweep_topk --wide: also bf16 kc 64, int8 kc 26 and "
                          "kc 256 of both kinds (every row state)")
     ap.add_argument("--diag", action="append", default=[],
                     help="sweep_topk: another build timed like --other but "
                          "not held to plain (a diagnostic copy); repeat")
+    ap.add_argument("--f32", action="store_true",
+                    help="sweep_topk: its f32 kind (`sweep_topk_f32.cu`) "
+                         "at its four timed shapes instead")
+    ap.add_argument("--make-f32-copies", metavar="BASE",
+                    help="write the f32 kind's diagnostic copies of BASE "
+                         "under .archive/f32-NAME and exit (no card)")
     ap.add_argument("--make-wide-copies", metavar="BASE",
                     help="write the wide form's diagnostic copies of BASE "
                          "under .archive/wide-NAME and exit (no card)")
@@ -654,6 +858,11 @@ def main():
     args = ap.parse_args()
     if args.make_wide_copies:
         for root in make_copies(args.make_wide_copies, WIDE_COPIES, "wide"):
+            print(root)
+        return 0
+    if args.make_f32_copies:
+        for root in make_copies(args.make_f32_copies, F32_COPIES, "f32",
+                                files=F32_FILES):
             print(root)
         return 0
     if args.sector_model:
@@ -679,6 +888,22 @@ def main():
     from cozo_tpu_torch.utils.datasets import glove_like
 
     dev = default_device()
+    if args.kernel == "sweep_topk" and args.f32:
+        from cozo_tpu_torch.ops import exact_knn as ek
+
+        with tempfile.TemporaryDirectory() as tmp:
+            # every build at once: this checkout's and the others
+            libs = {root: ek._bind_sweep_f32(lib) for root, lib in
+                    build_others(args.other + args.diag + ["."], tmp,
+                                 "sweep_topk_f32").items()}
+            if "." not in libs:
+                raise SystemExit("this checkout's sweep_topk_f32.cu does not "
+                                 "build")
+            libs["this"] = libs.pop(".")
+            compare_sweep_f32(libs, args.reps or 5, dev, set(args.diag),
+                              args.d)
+        cs.say(cs.smi_line())
+        return 0
     if args.kernel == "sweep_topk":
         from concurrent.futures import ThreadPoolExecutor
 

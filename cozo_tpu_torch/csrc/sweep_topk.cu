@@ -121,10 +121,12 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "sweep_select.cuh"
 
 namespace {
 
+using namespace cozo_hopper;
 using namespace cozo_sweep;
 
 constexpr int ROW = 128;              // bytes of a row per TMA box: the swizzle span
@@ -163,15 +165,6 @@ struct Smem {
 
 // ---- PTX wrappers ----------------------------------------------------------
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
 // Arrives on the barrier at the same offset in block `cta` of the cluster.
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
   asm volatile(
@@ -179,28 +172,6 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) 
       "mapa.shared::cluster.u32 ra, %0, %1;\n"
       "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}" ::"r"(bar),
       "r"(cta)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -1070,47 +1041,13 @@ sweep_topk_wide_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // ---- host side -----------------------------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-cudaError_t encode_fn(EncodeTiledFn* fn) {
-  static EncodeTiledFn cached = nullptr;
-  if (!cached) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess) return e;
-    if (q != cudaDriverEntryPointSuccess || !p) return cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
 // Tensor map of a row-major [rows, d_pad] matrix of bf16 (kind 0) or int8
 // (kind 1), boxes of `box_rows` rows x 128 bytes, 128-byte swizzle, zeros
 // out of bounds.  Returns 0, a cudaError_t, or a negated CUresult.
 int make_map(CUtensorMap* map, const void* ptr, long long rows, int d_pad, int kind, int box_rows) {
-  EncodeTiledFn fn;
-  cudaError_t e = encode_fn(&fn);
-  if (e != cudaSuccess) return (int)e;
   const int esize = kind == 0 ? 2 : 1;
-  const cuuint64_t gdim[2] = {(cuuint64_t)d_pad, (cuuint64_t)rows};
-  const cuuint64_t gstride[1] = {(cuuint64_t)d_pad * esize};
-  const cuuint32_t box[2] = {(cuuint32_t)(ROW / esize), (cuuint32_t)box_rows};
-  const cuuint32_t estride[2] = {1, 1};
-  CUresult r = fn(map, kind == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                  2, const_cast<void*>(ptr), gdim, gstride, box, estride,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -(int)r;
+  return encode_2d(map, kind == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                   esize, ptr, rows, d_pad, ROW / esize, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The launch configuration of `kernel` with `blocks` blocks (a multiple of

@@ -502,8 +502,9 @@ def sweep_topk(q: torch.Tensor, tbl: torch.Tensor, piece: int, kc: int,
     in `sweep_topk.f32_launches`), with no slab in device memory: bf16 and
     int8 `csrc/sweep_topk.cu` (rows past 128 wide in its wide form: query
     rows in shared memory, the table's 128-byte K-chunks through its
-    ring), f32 `csrc/sweep_topk_f32.cu` (FFMA on register fragments, the
-    table's K-slices through a `cp.async` ring), each to d_pad 4,096
+    ring), f32 `csrc/sweep_topk_f32.cu` (FFMA on register micro-tiles, the
+    table's K-slices through a TMA ring, a selecting warpgroup beside the
+    products), each to d_pad 4,096
     (OpenAI's 1,536 and 3,072, the 7B-LLM embedders' 4,096); "two_step"
     (d_pad > 4,096, kc > 256 or a piece that is not a multiple of 256)
     runs each piece's product and `select_topk` (counted in

@@ -352,27 +352,91 @@ def check_case(lib, mode, i, wide=False, group=1):
 
 # ---- the f32 chunk step (`csrc/sweep_f32.cuh`): the FFMA product too -------
 
-# The f32 kernel's block loop (`f32_block`) as the card runs it, but for
-# the copies into shared memory: plain copies (zeros past the query rows)
-# where the card has `cp.async`, so a step's slices are in place when the
-# copy returns.
-F32_HARNESS = r'''
+# The f32 kernel's block loop (`f32_block`) as the card runs it, the
+# producer warp and the consumer warpgroups as fibers, but for its policy:
+# `mbarrier`s as counters of arrivals and bytes whose waiters yield, a TMA
+# box as a plain copy of the box (zeros out of bounds) that completes its
+# bytes at once, the counters' waits as yields, no registers to move.
+F32_HARNESS = r"""
 #include <cuda_runtime.h>
 #include <cmath>
+#include <unordered_map>
 #include "sweep_f32.cuh"
 using namespace cozo_f32;
 
-struct HostCopy {
-  static void copy16(void* dst, const void* src, bool in) {
-    if (in) memcpy(dst, src, 16); else memset(dst, 0, 16);
+// An mbarrier: arrivals a phase, arrivals and bytes still to come, phases
+// completed.
+struct HostBar {
+  unsigned count, pending;
+  long long tx;
+  unsigned phase;
+};
+static std::unordered_map<const void*, HostBar> host_bars;
+
+// A tensor map: a row-major [rows, cols] f32 matrix and its box.
+struct HostMap {
+  const float* ptr;
+  long long rows, cols;
+  int box_cols, box_rows;
+};
+
+struct HostTma {
+  typedef HostMap Map;
+  static void progress(HostBar& b) {
+    ++shim::g_progress;
+    if (b.pending == 0 && b.tx == 0) {
+      ++b.phase;
+      b.pending = b.count;
+    }
   }
-  static void commit() {}
-  static void wait(int) {}
+  static void init(void* bar, unsigned count) { host_bars[bar] = HostBar{count, count, 0, 0}; }
+  static void fence_init() {}
+  static void expect(void* bar, unsigned bytes) {
+    HostBar& b = host_bars.at(bar);
+    b.tx += bytes;
+    --b.pending;
+    progress(b);
+  }
+  static void load(void* dst, const Map& m, void* bar, int k0, int row0) {
+    float* out = static_cast<float*>(dst);
+    for (int r = 0; r < m.box_rows; ++r)
+      for (int k = 0; k < m.box_cols; ++k) {
+        const long long row = (long long)row0 + r, col = (long long)k0 + k;
+        out[r * m.box_cols + k] = row < m.rows && col < m.cols ? m.ptr[row * m.cols + col] : 0.f;
+      }
+    HostBar& b = host_bars.at(bar);
+    b.tx -= (long long)m.box_rows * m.box_cols * 4;
+    progress(b);
+  }
+  static void wait(void* bar, unsigned parity) {
+    while ((host_bars.at(bar).phase & 1u) == parity) shim::yield();
+  }
+  static void arrive(void* bar) {
+    HostBar& b = host_bars.at(bar);
+    --b.pending;
+    progress(b);
+  }
+  static bool test(void* bar, unsigned parity) {
+    return (host_bars.at(bar).phase & 1u) != parity;
+  }
+  static void idle() { shim::yield(); }
+  static void count(int* c, int lane) {
+    __syncwarp();
+    if (lane == 0) {
+      ++*c;
+      ++shim::g_progress;
+    }
+  }
+  static void until(const int* c, int n) {
+    while (*c < n) shim::yield();
+  }
+  template <int N, bool UP>
+  static void regs() {}
 };
 
 template <int MODE>
-__global__ void walk(const float* q, const float* tbl, Args a, Layout L) {
-  f32_block<MODE, HostCopy>(SHIM_SMEM, q, tbl, a, L, (int)blockIdx.x);
+__global__ void walk(HostMap mq, HostMap mt, Args a, Layout L) {
+  f32_block<MODE, HostTma>(SHIM_SMEM, mq, mt, a, L, (int)blockIdx.x);
 }
 
 extern "C" {
@@ -395,25 +459,30 @@ int run_f32(const float* q, const float* tbl, long long n_total, int d_pad, int 
   a.B = B;
   a.piece = piece;
   a.kc = kc;
-  a.n_qt = a.n_qt_c = (B + F::RB - 1) / F::RB;
-  a.stride = stride_of(piece / TN);
+  a.n_qt = a.n_qt_c = (B + RB - 1) / RB;
+  a.stride = tile_stride<SEL_MODE>(piece);
+  const HostMap mq{q, B, d_pad, F::BOX, RB}, mt{tbl, n_total, d_pad, F::BOX, F::TC};
   const unsigned blocks = (unsigned)((n_total / piece) * a.n_qt);
-  shim::launch(dim3(blocks), F::NT, L.bytes, &walk<SEL_MODE>)(q, tbl, a, L);
+  shim::launch(dim3(blocks), F::NT, L.bytes, &walk<SEL_MODE>)(mq, mt, a, L);
   return 0;
 }
-// threads a block, query rows a block, fragments a thread, the ring's
-// stages and whether the query rows stay resident at d_pad
+// threads a block, query rows a block, columns a tile, columns a thread's
+// micro-tile, floats a K-slice, the ring's stages, whether the query rows
+// stay resident at d_pad, the staging's selection tiles
 void shape_of(int d_pad, int* out) {
   typedef F32Cfg<SEL_MODE> F;
   const Layout L = layout_of<SEL_MODE>(d_pad);
   out[0] = F::NT;
-  out[1] = F::RB;
-  out[2] = F::RV;
-  out[3] = L.stages;
-  out[4] = L.resident;
+  out[1] = RB;
+  out[2] = F::TC;
+  out[3] = F::MC;
+  out[4] = F::KS;
+  out[5] = L.stages;
+  out[6] = L.resident;
+  out[7] = L.slots;
 }
 }
-'''
+"""
 
 # d_pad: a slice of 16 alone, 32 + 16, the lane's 128 (rows resident), 144
 # (rows streamed, a last slice of 16), 256 (streamed, whole slices); then
@@ -422,6 +491,12 @@ void shape_of(int d_pad, int* out) {
 F32_DS = (16, 48, 128, 144, 256)
 F32_WIDE_DS = (1536, 4096)
 F32_VARIANTS = ("random", "ties", "zeros", "dead", "rising")
+# the tile's edges, (d_pad, B, d_real, piece): pieces of 256 (one or two
+# tiles of 256 or 128 columns), B a whole block, one past it, a single
+# row, a block and one; real widths that end inside a slice (the lane's
+# 100 of 128, 37 of 48, 130 of 144, 1,500 of 1,536)
+F32_EDGES = ((128, 64, 100, 256), (48, 65, 37, 256), (144, 1, 130, 512),
+             (1536, 129, 1500, 256))
 
 
 def build_f32(tmp_path_factory, mode):
@@ -437,46 +512,54 @@ def build_f32(tmp_path_factory, mode):
 
 
 def f32_shape(lib, d_pad):
-    """(threads, rows, fragments a thread, stages, resident) of a build."""
-    out = (ctypes.c_int * 5)()
+    """(threads, rows, columns a tile, columns a micro-tile, floats a
+    K-slice, stages, resident, staged selection tiles) of a build."""
+    out = (ctypes.c_int * 8)()
     lib.shape_of(d_pad, out)
     return tuple(out)
 
 
 def f32_cases(mode):
-    """(kc, variant, d_pad, B, d_real) of a row state: every kc and
+    """(kc, variant, d_pad, B, d_real, piece) of a row state: every kc and
     variant, d_pad and B (70, 130: a ragged last query tile) in turn, the
     real width (the inputs' d_pad - 4 nonzero columns) given to every
     other case (0: the chain over d_pad); then at each of F32_WIDE_DS the
     chain over d_pad and stopped at the real width, the row state's kc
-    and the variants in turn."""
+    and the variants in turn; then F32_EDGES.  Pieces of PIECE but the
+    edges'."""
     out = []
     for kc in KCS[mode]:
         for variant in F32_VARIANTS:
             i = len(out)
             d_pad = F32_DS[i % len(F32_DS)]
             out.append((kc, variant, d_pad, (70, 130)[i % 2],
-                        (0, d_pad - 4)[(i // len(F32_DS)) % 2]))
+                        (0, d_pad - 4)[(i // len(F32_DS)) % 2], PIECE))
     for j, (d_pad, d_real) in enumerate((d, r) for d in F32_WIDE_DS
                                         for r in (0, d - 4)):
         out.append((KCS[mode][j % len(KCS[mode])],
                     F32_VARIANTS[j % len(F32_VARIANTS)], d_pad,
-                    (70, 130)[j % 2], d_real))
+                    (70, 130)[j % 2], d_real, PIECE))
+    for j, (d_pad, B, d_real, piece) in enumerate(F32_EDGES):
+        out.append((KCS[mode][j % len(KCS[mode])],
+                    F32_VARIANTS[j % len(F32_VARIANTS)], d_pad, B, d_real,
+                    piece))
     return out
 
 
 def f32_case_ids(mode):
     return [f"kc{kc}-{v}-d{d}-B{B}" + (f"-real{r}" if r else "")
-            for kc, v, d, B, r in f32_cases(mode)]
+            + (f"-piece{p}" if p != PIECE else "")
+            for kc, v, d, B, r, p in f32_cases(mode)]
 
 
-def f32_inputs(B, d_pad, variant, seed):
+def f32_inputs(B, d_pad, variant, seed, d_real=0):
     """(q [B, d_pad], tbl [n, d_pad], bias) f32 of small integers (every
     sum exact in any order), the variant's structure planted as
-    `inputs` plants it; the last 4 columns zero (the lanes' padding)."""
+    `inputs` plants it; the columns past d_real, or the last 4 (the
+    lanes' padding), zero."""
     rng = np.random.default_rng(seed)
     n = PIECE * N_PIECES
-    d = max(1, d_pad - 4)
+    d = d_real or max(1, d_pad - 4)
     q = np.zeros((B, d_pad), np.float32)
     t = np.zeros((n, d_pad), np.float32)
     q[:, :d] = rng.integers(-3, 4, (B, d))
@@ -506,14 +589,15 @@ def check_f32_case(lib, mode, i):
     to `sweep_topk_plain`'s (`torch.mm` in f32 over d_pad, then
     `select_topk_plain` a piece), whether its chains run over d_pad or
     stop at the real width."""
-    kc, variant, d_pad, B, d_real = f32_cases(mode)[i]
-    q, t, bias = f32_inputs(B, d_pad, variant, 100 + i)
-    vals = torch.full((B, N_PIECES * kc), 7.0, dtype=torch.float32)
-    ids = torch.full((B, N_PIECES * kc), -5, dtype=torch.int64)
+    kc, variant, d_pad, B, d_real, piece = f32_cases(mode)[i]
+    q, t, bias = f32_inputs(B, d_pad, variant, 100 + i, d_real)
+    cols = t.shape[0] // piece * kc
+    vals = torch.full((B, cols), 7.0, dtype=torch.float32)
+    ids = torch.full((B, cols), -5, dtype=torch.int64)
     err = lib.run_f32(q.data_ptr(), t.data_ptr(), t.shape[0], d_pad, d_real,
-                      B, PIECE, kc, bias.data_ptr(), vals.data_ptr(),
-                      ids.data_ptr(), N_PIECES * kc, ID_OFF)
+                      B, piece, kc, bias.data_ptr(), vals.data_ptr(),
+                      ids.data_ptr(), cols, ID_OFF)
     assert err == 0
-    want = ek.sweep_topk_plain(q, t, PIECE, kc, bias, offset=ID_OFF)
+    want = ek.sweep_topk_plain(q, t, piece, kc, bias, offset=ID_OFF)
     assert topk_same((vals, ids), want), (
         f"{int((ids != want[1]).sum())} ids differ of {want[1].numel()}")

@@ -999,21 +999,18 @@ def test_sweep_topk_f32_raises_where_it_cannot_launch(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kc", [1, 32, 33, 64, 65, 128, 129, 256])
 def test_sweep_topk_f32_block_shape_and_slots(cuda, kc):
-    """The f32 kernel's query rows a block (128 with the lists, kc <= 64;
-    64 past), no clusters, and the blocks the card holds at once: at
-    least one an SM with the lists at d_pad 128 (two with the lists of
-    8), at most four an SM; `sweep_piece` cuts pieces that divide the
-    lane's table and fill the slots."""
+    """The f32 kernel's query rows a block (64 for every row state), no
+    clusters, and the blocks the card holds at once: one an SM for every
+    row state and width (its shared memory holds the ring, the staged
+    tiles and the heads past half of the SM's); `sweep_piece` cuts pieces
+    that divide the lane's table and fill the slots."""
     lib = ek._sweep_f32_lib()
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for d_pad in (16, 128, 256, 768, 1024, 1536, 4096):
-        assert lib.cozo_sweep_topk_rows(ek.SWEEP_F32, d_pad, kc) == (
-            128 if kc <= 64 else 64)
+        assert lib.cozo_sweep_topk_rows(ek.SWEEP_F32, d_pad, kc) == 64
         assert lib.cozo_sweep_topk_cluster(ek.SWEEP_F32, d_pad, kc) == 1
         slots = lib.cozo_sweep_topk_slots(ek.SWEEP_F32, d_pad, kc)
-        assert 1 <= slots <= 4 * sms
-        if d_pad == 128 and kc <= 32:
-            assert slots >= 2 * sms
+        assert slots == sms, (d_pad, kc, slots)
     n_total = 10 * 131_072
     piece = ek.sweep_piece(n_total, 131_072, 16_384, 128, kc, ek.SWEEP_F32,
                            cuda)
